@@ -4,16 +4,24 @@
     python3 chip_smoke.py
 
 1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   Llama-3-8B decode server's shapes and at a few odd small ones, and times
-   the kernel, the plain version and (as a yardstick only) the one PyTorch
-   call that computes the same function;
+2. holds each kernel, forward and backward, against its plain PyTorch
+   version on the card, at the main paths' shapes (the decode server's
+   B=8, S=1024 for the serving kernels; the train step's B=4, S=2048 and
+   8192 x 14336 / 8192 x 128256 rows for the rest) and at a few odd small
+   ones; a backward also against autograd of the plain forward, with the
+   same upstream gradient.  It times the kernel, the plain version and (as
+   a yardstick only) the one PyTorch call that computes the same function;
 3. holds the forward built on the kernels against the forward built on the
    plain versions, at Llama-3-8B widths with 2 layers;
-4. serves Llama-3-8B (all 32 layers, random weights from a seed) on 8 slots
+4. holds a train step's loss and every gradient on the kernels against
+   those on the plain versions, at Llama-3-8B widths with 2 layers;
+5. serves Llama-3-8B (all 32 layers, random weights from a seed) on 8 slots
    through DecodeServer: 12 concurrent HTTP requests, one streamed, and
-   checks the tokens, the /metrics surface and that every kernel was
-   launched by that run.
+   checks the tokens, the /metrics surface and the kernels' launches;
+6. trains Llama-3-8B widths cut to 4 layers (1.92 B parameters, f32 master
+   weights and AdamW, ~31 GB of state) for 5 steps on one fixed (4, 2049)
+   batch through make_train_state / make_train_step, and checks the losses
+   and every kernel's forward and backward launches per step.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -23,20 +31,24 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from functools import partial
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubernetes1_tpu_torch.kernels import attention, build, rmsnorm, rope
+from kubernetes1_tpu_torch.kernels import attention, build, cross_entropy, rmsnorm, rope, swiglu
 from kubernetes1_tpu_torch.workloads import llama
 
+# A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
+SPIN_CYCLES = 50_000_000
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BF16_TENSOR = 989e12   # FLOP/s
 PEAK_F32 = 67e12            # FLOP/s outside the tensor cores
@@ -56,14 +68,62 @@ ELEMENTWISE_TOL = (1e-6, 2.0 ** -6)
 # 2^-8 * max|v| (~0.02 at |v| <= 5); the output's own rounding adds one
 # step, 2^-7 relative.
 ATTENTION_TOL = (3e-2, 2.0 ** -7)
+# SwiGLU forward and backward, RoPE backward: as ELEMENTWISE_TOL (expf in
+# another library may move an f32 intermediate across a bf16 rounding).
+# Cross-entropy: the loss and lse in f32 sum 128256 exps in another order
+# (and __expf is within 2 ulp), ~1e-6 relative on values ~12; its gradient
+# (exp(x - lse) - onehot) * g rounds once to bf16, so one step, relative
+# (the values are ~1e-5 and smaller, no absolute floor).
+XENT_LOSS_TOL = (1e-4, 1e-5)
+XENT_GRAD_TOL = (0.0, 2.0 ** -6)
+# Attention and RMSNorm backward, relative L2 over each output: f32 sums
+# in another order (dQ with atomics, in an order that changes from run to
+# run; dscale over 8192 rows) and, against autograd of the plain forward,
+# the kernel's bf16 rounding of P and dS before their products (autograd
+# keeps dS in f32): each element a step or two of 2^-8 away, 1e-2 is ~2.5.
+BWD_REL_L2_TOL = 1e-2
 # Forward, kernels vs plain, relative L2 error of the logits: each of the
-# three kernels in each of the 2 layers may round an element one bf16 step
+# four kernels in each of the 2 layers may round an element one bf16 step
 # (2^-8 relative) away from its plain version; 2e-2 is five such steps.
 FORWARD_REL_L2_TOL = 2e-2
+# Train step, kernels vs plain, 2 layers: the loss within 1e-2 (the bf16
+# logits' rounding differences average out over 1026 rows); each gradient
+# within 5e-2 relative L2: the backward chains ten kernels per layer, each
+# a step or two of 2^-8 from its plain version.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_REL_L2_TOL = 5e-2
 
 SERVE_SLOTS = 8
 SERVE_REQUESTS = 12
 SERVE_MAX_NEW = 8
+
+TRAIN_LAYERS = 4        # Llama-3-8B widths; 32 layers of f32 + AdamW state do not fit
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # llama_bench.py's defaults; tokens are (4, 2049)
+TRAIN_STEPS = 5
+
+# Every launch counter, by name: the forward kernels, then the backward ones.
+KERNELS = {
+    "attention": attention.KERNEL, "rmsnorm": rmsnorm.KERNEL, "rope": rope.KERNEL,
+    "swiglu": swiglu.KERNEL, "cross_entropy": cross_entropy.KERNEL,
+    "attention_bwd": attention.KERNEL_BWD, "rmsnorm_bwd": rmsnorm.KERNEL_BWD,
+    "rope_bwd": rope.KERNEL_BWD, "swiglu_bwd": swiglu.KERNEL_BWD,
+    "cross_entropy_bwd": cross_entropy.KERNEL_BWD,
+}
+
+
+def serve_launches_per_step(L: int) -> dict:
+    return {"attention": L, "rmsnorm": 2 * L + 1, "rope": L, "swiglu": L}
+
+
+def train_launches_per_step(L: int) -> dict:
+    """One train step with L layers under remat "save_attn": each layer's
+    two checkpointed halves recompute in backward until what backward
+    needs exists again (RoPE's output is the attention's own saved input,
+    so RoPE does not rerun); attention runs once.  tests/test_torch_train.py
+    asserts the same counts on the CPU with the kernels' plain twins."""
+    return {"attention": L, "attention_bwd": L, "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+            "rope": L, "rope_bwd": L, "swiglu": 2 * L, "swiglu_bwd": L,
+            "cross_entropy": 1, "cross_entropy_bwd": 1}
 
 
 def fail(msg: str):
@@ -77,12 +137,20 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, CUDA events around `iters` calls."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, back_to_back: bool = True) -> float:
+    """Mean time of one call, CUDA events around `iters` calls.
+
+    back_to_back: the calls queue behind a spin kernel of ~25 ms, so the
+    host has enqueued them all before the first one starts and the device
+    runs them back to back: the device time, whatever the host's per-call
+    cost.  Without it the events also take in the host's cost wherever it
+    exceeds the device's (the bucket-8 call floor, the serving step)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if back_to_back:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -112,79 +180,275 @@ def check_close(name: str, got, want, tol) -> float:
     return worst
 
 
+def check_rel_l2(name: str, got, want, tol: float) -> float:
+    """Max abs error over all outputs; fail if any output's relative L2
+    error exceeds tol."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        torch.cuda.synchronize()
+        g, w = g.float(), w.float()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            fail(f"{name}[{i}]: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite output")
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        if not rel <= tol:
+            fail(f"{name}[{i}]: relative L2 error {rel:.3e} beyond {tol}")
+        worst = max(worst, (g - w).abs().max().item())
+    return worst
+
+
 def bf16(shape, gen, dev, scale=1.0, shift=0.0):
     return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(torch.bfloat16)
 
 
-def kernel_phase(dev, gen) -> list:
-    """Each kernel against its plain version; times at the 8B shapes."""
+def plain_vjp(fn, inputs, cotangents):
+    """Gradients of the plain forward by autograd, for the same upstream
+    gradient the backward kernel gets."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, leaves, cotangents)
+
+
+def library_bwd_ms(fn, inputs, cotangents=None) -> float:
+    """Time of the library call's backward alone (its graph kept)."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, cotangents, retain_graph=True), 5, 1)
+
+
+def row(name, source, replaces, shape, err, ms, plain_ms, bound, library_ms):
+    return dict(name=name, route="cuda", source=f"kubernetes1_tpu_torch/csrc/{source}",
+                replaces=f"kubernetes1_tpu/workloads/llama.py:{replaces}", shape=shape,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
+
+
+def kernel_phase(dev, gen) -> tuple:
+    """Each kernel, forward and backward, against its plain version; times
+    at the main paths' shapes.  Returns the kernels' rows and the attention
+    forward's time at the train step's shape."""
+    cfg = llama.llama_3_8b()
+    theta = cfg.rope_theta
     # small odd shapes: tails of the 64-row tiles, every head_dim, GQA 1..4
     for B, S, H, Hkv, hd in ((2, 37, 4, 2, 16), (1, 100, 8, 2, 64), (3, 130, 4, 1, 32),
                              (2, 8, 32, 8, 128), (1, 65, 8, 8, 128)):
+        shape = (B, S, H, Hkv, hd)
         q, k, v = (bf16((B, S, h, hd), gen, dev) for h in (H, Hkv, Hkv))
-        check_close(f"attention {B, S, H, Hkv, hd}", [attention.attention(q, k, v)],
+        check_close(f"attention {shape}", [attention.attention(q, k, v)],
                     [attention.attention_plain(q, k, v)], ATTENTION_TOL)
-        check_close(f"rope {B, S, H, Hkv, hd}", rope.rope(q, k, 5e5),
-                    rope.rope_plain(q, k, 5e5), ELEMENTWISE_TOL)
+        check_close(f"rope {shape}", rope.rope(q, k, theta),
+                    rope.rope_plain(q, k, theta), ELEMENTWISE_TOL)
         x, sc = bf16((B * S, H * hd), gen, dev), bf16((H * hd,), gen, dev, 0.1, 1.0)
         check_close(f"rmsnorm {B * S, H * hd}", [rmsnorm.rmsnorm(x, sc)],
                     [rmsnorm.rmsnorm_plain(x, sc)], ELEMENTWISE_TOL)
+        check_attention_bwd(f"attention_bwd {shape}", q, k, v, bf16(q.shape, gen, dev))
+        check_rope_bwd(f"rope_bwd {shape}", q, k, theta)
+        check_rmsnorm_bwd(f"rmsnorm_bwd {B * S, H * hd}", x, sc, bf16(x.shape, gen, dev))
+    for rows, n in ((37, 24), (3, 40), (5, 1000)):
+        g, u = bf16((rows, n), gen, dev, 2.0), bf16((rows, n), gen, dev)
+        check_close(f"swiglu {rows, n}", [swiglu.swiglu(g, u)], [swiglu.swiglu_plain(g, u)],
+                    ELEMENTWISE_TOL)
+        check_swiglu_bwd(f"swiglu_bwd {rows, n}", g, u, bf16((rows, n), gen, dev))
+    for rows, vocab in ((37, 1003), (16, 50257), (5, 1000)):  # odd vocab: scalar loads
+        logits = bf16((rows, vocab), gen, dev, 3.0)
+        t = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        check_xent(f"cross_entropy {rows, vocab}", logits, t,
+                   torch.randn(rows, generator=gen, device=dev))
 
-    cfg = llama.llama_3_8b()
+    out = []
+    # ---- the serving kernels at the decode server's largest bucket (PR 1's rows)
     B, S, H, Hkv, hd = 8, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rows, d = B * S, cfg.d_model
     q, k, v = (bf16((B, S, h, hd), gen, dev) for h in (H, Hkv, Hkv))
     x, sc = bf16((rows, d), gen, dev), bf16((d,), gen, dev, 0.1, 1.0)
-    out = []
+    serve_shape = f"B={B} S={S} H={H} Hkv={Hkv} hd={hd}"
 
     err = check_close("attention 8B", [attention.attention(q, k, v)],
                       [attention.attention_plain(q, k, v)], ATTENTION_TOL)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     pairs = S * (S + 1) / 2  # unmasked (query, key) pairs per head
-    b_ms, b_by = bound_ms(2 * (2 * q.numel() + 2 * k.numel()),
-                          4 * B * H * hd * pairs, PEAK_BF16_TENSOR)
-    out.append(dict(
-        name="attention", route="cuda", source="kubernetes1_tpu_torch/csrc/attention.cu",
-        replaces="kubernetes1_tpu/workloads/llama.py:144", max_abs_err=err,
-        ms=time_ms(lambda: attention.attention(q, k, v)),
-        plain_ms=time_ms(lambda: attention.attention_plain(q, k, v), iters=5),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))))
+    out.append(row("attention", "attention.cu", 144, serve_shape, err,
+                   time_ms(lambda: attention.attention(q, k, v)),
+                   time_ms(lambda: attention.attention_plain(q, k, v), iters=5),
+                   bound_ms(2 * (2 * q.numel() + 2 * k.numel()), 4 * B * H * hd * pairs,
+                            PEAK_BF16_TENSOR),
+                   time_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True))))
 
     err = check_close("rmsnorm 8B", [rmsnorm.rmsnorm(x, sc)], [rmsnorm.rmsnorm_plain(x, sc)],
                       ELEMENTWISE_TOL)
-    b_ms, b_by = bound_ms(2 * (2 * x.numel() + sc.numel()), 4 * x.numel(), PEAK_F32)
-    out.append(dict(
-        name="rmsnorm", route="cuda", source="kubernetes1_tpu_torch/csrc/rmsnorm.cu",
-        replaces="kubernetes1_tpu/workloads/llama.py:128", max_abs_err=err,
-        ms=time_ms(lambda: rmsnorm.rmsnorm(x, sc)),
-        plain_ms=time_ms(lambda: rmsnorm.rmsnorm_plain(x, sc)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5))))
+    out.append(row("rmsnorm", "rmsnorm.cu", 128, f"rows={rows} d={d}", err,
+                   time_ms(lambda: rmsnorm.rmsnorm(x, sc)),
+                   time_ms(lambda: rmsnorm.rmsnorm_plain(x, sc)),
+                   bound_ms(2 * (2 * x.numel() + sc.numel()), 4 * x.numel(), PEAK_F32),
+                   time_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5))))
 
-    err = check_close("rope 8B", rope.rope(q, k, cfg.rope_theta),
-                      rope.rope_plain(q, k, cfg.rope_theta), ELEMENTWISE_TOL)
+    err = check_close("rope 8B", rope.rope(q, k, theta), rope.rope_plain(q, k, theta),
+                      ELEMENTWISE_TOL)
     n = q.numel() + k.numel()
-    b_ms, b_by = bound_ms(2 * 2 * n, 3 * n, PEAK_F32)  # 6 flops per rotated pair
-    out.append(dict(
-        name="rope", route="cuda", source="kubernetes1_tpu_torch/csrc/rope.cu",
-        replaces="kubernetes1_tpu/workloads/llama.py:133", max_abs_err=err,
-        ms=time_ms(lambda: rope.rope(q, k, cfg.rope_theta)),
-        plain_ms=time_ms(lambda: rope.rope_plain(q, k, cfg.rope_theta)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    out.append(row("rope", "rope.cu", 133, serve_shape, err,
+                   time_ms(lambda: rope.rope(q, k, theta)),
+                   time_ms(lambda: rope.rope_plain(q, k, theta)),
+                   bound_ms(2 * 2 * n, 3 * n, PEAK_F32),  # 6 flops per rotated pair
+                   None))
     # the smallest bucket the engine steps at (8 slots x 8 tokens): the
     # time per call there is the wrapper's host cost, not the kernel's
     q8, k8, x8 = q[:, :8].contiguous(), k[:, :8].contiguous(), x[:64].contiguous()
+    floor = partial(time_ms, back_to_back=False)
     print("bucket-8 call floor ms: "
-          f"attention={time_ms(lambda: attention.attention(q8, k8, k8)):.4f} "
-          f"rmsnorm={time_ms(lambda: rmsnorm.rmsnorm(x8, sc)):.4f} "
-          f"rope={time_ms(lambda: rope.rope(q8, k8, cfg.rope_theta)):.4f}", flush=True)
+          f"attention={floor(lambda: attention.attention(q8, k8, k8)):.4f} "
+          f"rmsnorm={floor(lambda: rmsnorm.rmsnorm(x8, sc)):.4f} "
+          f"rope={floor(lambda: rope.rope(q8, k8, theta)):.4f} "
+          f"swiglu={floor(lambda: swiglu.swiglu(x8, x8)):.4f}", flush=True)
+    del q, k, v, qt, kt, vt, q8, k8, x8
+
+    # ---- SwiGLU on the (8192, 14336) GEMM outputs (serving at bucket 1024 and training)
+    g, u = bf16((rows, cfg.d_ff), gen, dev, 2.0), bf16((rows, cfg.d_ff), gen, dev)
+    dy = bf16(g.shape, gen, dev)
+    m = g.numel()
+    err = check_close("swiglu 8B", [swiglu.swiglu(g, u)], [swiglu.swiglu_plain(g, u)],
+                      ELEMENTWISE_TOL)
+    out.append(row("swiglu", "swiglu.cu", "166-168", f"rows={rows} d_ff={cfg.d_ff}", err,
+                   time_ms(lambda: swiglu.swiglu(g, u)),
+                   time_ms(lambda: swiglu.swiglu_plain(g, u)),
+                   bound_ms(2 * 3 * m, 5 * m, PEAK_F32), None))
+    err = check_swiglu_bwd("swiglu_bwd 8B", g, u, dy)
+    out.append(row("swiglu_bwd", "swiglu.cu", "166-168", f"rows={rows} d_ff={cfg.d_ff}", err,
+                   time_ms(lambda: swiglu.swiglu_bwd_kernel(g, u, dy)),
+                   time_ms(lambda: swiglu.swiglu_bwd_plain(g, u, dy)),
+                   bound_ms(2 * 5 * m, 12 * m, PEAK_F32), None))
+    del g, u, dy
+
+    # ---- the train step's shapes: B=4, S=2048
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    rows = B * S
+    train_shape = f"B={B} S={S} H={H} Hkv={Hkv} hd={hd}"
+    q, k, v = (bf16((B, S, h, hd), gen, dev) for h in (H, Hkv, Hkv))
+    do = bf16(q.shape, gen, dev)
+    attn_train_ms = time_ms(lambda: attention.attention_kernel(q, k, v, True))
+    print(f"attention forward with lse at the train shape ({train_shape}): "
+          f"ms={attn_train_ms:.4f}", flush=True)
+    err = check_attention_bwd("attention_bwd 8B", q, k, v, do)
+    o, lse = attention.attention_kernel(q, k, v, with_lse=True)
+    pairs = S * (S + 1) / 2
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    out.append(row("attention_bwd", "attention.cu", 144, train_shape, err,
+                   time_ms(lambda: attention.attention_bwd_kernel(q, k, v, o, lse, do), 10, 2),
+                   time_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do), 3, 1),
+                   bound_ms(2 * (4 * q.numel() + 4 * k.numel()), 10 * B * H * hd * pairs,
+                            PEAK_BF16_TENSOR),
+                   library_bwd_ms(lambda a, b, c: F.scaled_dot_product_attention(
+                       a, b, c, is_causal=True, enable_gqa=True), [qt, kt, vt], [dot])))
+    del o, lse, qt, kt, vt, dot
+
+    dq, dk = bf16(q.shape, gen, dev), bf16(k.shape, gen, dev)
+    err = check_rope_bwd("rope_bwd 8B", dq, dk, theta)
+    n = q.numel() + k.numel()
+    out.append(row("rope_bwd", "rope.cu", 133, train_shape, err,
+                   time_ms(lambda: rope.rope_kernel(dq, dk, theta, inverse=True)),
+                   time_ms(lambda: rope.rope_bwd_plain(dq, dk, theta)),
+                   bound_ms(2 * 2 * n, 3 * n, PEAK_F32), None))
+    del q, k, v, do, dq, dk
+
+    x, dy = bf16((rows, d), gen, dev), bf16((rows, d), gen, dev)
+    err = check_rmsnorm_bwd("rmsnorm_bwd 8B", x, sc, dy)
+    out.append(row("rmsnorm_bwd", "rmsnorm.cu", 128, f"rows={rows} d={d}", err,
+                   time_ms(lambda: rmsnorm.rmsnorm_bwd_kernel(x, sc, dy)),
+                   time_ms(lambda: rmsnorm.rmsnorm_bwd_plain(x, sc, dy)),
+                   bound_ms(2 * (3 * x.numel() + 2 * d), 10 * x.numel(), PEAK_F32),
+                   library_bwd_ms(lambda a, w: F.rms_norm(a, (d,), w, 1e-5), [x, sc], [dy])))
+    del x, dy
+
+    logits = bf16((rows, cfg.vocab), gen, dev, 2.0)
+    t = torch.randint(0, cfg.vocab, (rows,), generator=gen, device=dev)
+    grad = torch.full((rows,), 1.0 / rows, device=dev)
+    errs = check_xent("cross_entropy 8B", logits, t, torch.randn(rows, generator=gen, device=dev))
+    loss, lse = cross_entropy.cross_entropy_kernel(logits, t)
+    vshape = f"rows={rows} vocab={cfg.vocab}"
+    m = logits.numel()
+    out.append(row("cross_entropy", "cross_entropy.cu", "196-202", vshape, errs[0],
+                   time_ms(lambda: cross_entropy.cross_entropy_kernel(logits, t)),
+                   time_ms(lambda: cross_entropy.cross_entropy_plain(logits, t), 5, 1),
+                   bound_ms(2 * m + 8 * rows + 8 * rows, 4 * m, PEAK_F32),
+                   time_ms(lambda: F.cross_entropy(logits, t, reduction="none"), 5, 1)))
+    scratch = torch.empty_like(logits)
+    out.append(row("cross_entropy_bwd", "cross_entropy.cu", "196-202", vshape, errs[1],
+                   time_ms(lambda: cross_entropy.cross_entropy_bwd_kernel(
+                       logits, t, lse, grad, out=scratch)),
+                   time_ms(lambda: cross_entropy.cross_entropy_bwd_plain(logits, t, lse, grad),
+                           5, 1),
+                   bound_ms(2 * 2 * m + 16 * rows, 4 * m, PEAK_F32),
+                   library_bwd_ms(lambda a: F.cross_entropy(a, t), [logits])))
+    del logits, scratch, loss, lse
+
     for r in out:
-        print(f"kernel {r['name']}: max_abs_err={r['max_abs_err']:.3e} ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+        print(f"kernel {r['name']} ({r['shape']}): max_abs_err={r['max_abs_err']:.3e} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
-    return out
+    return out, attn_train_ms
+
+
+def check_attention_bwd(name, q, k, v, do) -> float:
+    o, lse = attention.attention_kernel(q, k, v, with_lse=True)
+    check_close(f"{name} lse", [lse], [attention.attention_lse_plain(q, k)], (1e-4, 1e-5))
+    got = attention.attention_bwd_kernel(q, k, v, o, lse, do)
+    err = check_rel_l2(f"{name} vs bwd_plain", got,
+                       attention.attention_bwd_plain(q, k, v, o, lse, do), BWD_REL_L2_TOL)
+    check_rel_l2(f"{name} vs autograd", got, plain_vjp(attention.attention_plain, [q, k, v], [do]),
+                 BWD_REL_L2_TOL)
+    return err
+
+
+def check_rope_bwd(name, dq, dk, theta) -> float:
+    got = rope.rope_kernel(dq, dk, theta, inverse=True)
+    err = check_close(f"{name} vs bwd_plain", got, rope.rope_bwd_plain(dq, dk, theta),
+                      ELEMENTWISE_TOL)
+    # the rotation is linear: its VJP does not depend on the point, so the
+    # upstream gradients serve as the forward's inputs too
+    check_close(f"{name} vs autograd", got,
+                plain_vjp(lambda a, b: rope.rope_plain(a, b, theta), [dq, dk], [dq, dk]),
+                ELEMENTWISE_TOL)
+    return err
+
+
+def check_rmsnorm_bwd(name, x, sc, dy) -> float:
+    got = rmsnorm.rmsnorm_bwd_kernel(x, sc, dy)
+    err = check_rel_l2(f"{name} vs bwd_plain", got, rmsnorm.rmsnorm_bwd_plain(x, sc, dy),
+                       BWD_REL_L2_TOL)
+    check_rel_l2(f"{name} vs autograd", got, plain_vjp(rmsnorm.rmsnorm_plain, [x, sc], [dy]),
+                 BWD_REL_L2_TOL)
+    return err
+
+
+def check_swiglu_bwd(name, g, u, dy) -> float:
+    got = swiglu.swiglu_bwd_kernel(g, u, dy)
+    err = check_close(f"{name} vs bwd_plain", got, swiglu.swiglu_bwd_plain(g, u, dy),
+                      ELEMENTWISE_TOL)
+    check_close(f"{name} vs autograd", got, plain_vjp(swiglu.swiglu_plain, [g, u], [dy]),
+                ELEMENTWISE_TOL)
+    return err
+
+
+def check_xent(name, logits, t, grad) -> tuple:
+    """Forward (loss, lse) and backward, each against the plain versions;
+    returns the max abs errors of the loss and of the gradient."""
+    loss, lse = cross_entropy.cross_entropy_kernel(logits, t)
+    err_f = check_close(f"{name} loss", [loss, lse],
+                        [cross_entropy.cross_entropy_plain(logits, t),
+                         cross_entropy.cross_entropy_lse_plain(logits)], XENT_LOSS_TOL)
+    got = cross_entropy.cross_entropy_bwd_kernel(logits, t, lse, grad)
+    err_b = check_close(f"{name} grad vs bwd_plain", [got],
+                        [cross_entropy.cross_entropy_bwd_plain(logits, t, lse, grad)],
+                        XENT_GRAD_TOL)
+    check_close(f"{name} grad vs autograd", [got],
+                plain_vjp(lambda a: cross_entropy.cross_entropy_plain(a, t), [logits], [grad]),
+                XENT_GRAD_TOL)
+    inplace = logits.clone()  # the training path writes the gradient over the logits
+    cross_entropy.cross_entropy_bwd_kernel(inplace, t, lse, grad, out=inplace)
+    torch.cuda.synchronize()
+    if not torch.equal(inplace, got):
+        fail(f"{name}: the in-place backward differs from the out-of-place one")
+    return err_f, err_b
 
 
 def forward_phase(dev):
@@ -256,10 +520,9 @@ def serving_phase(card: str) -> dict:
 
         threads = [threading.Thread(target=one, args=(i,), daemon=True)
                    for i in range(SERVE_REQUESTS)]
-        kernels = (attention.KERNEL, rmsnorm.KERNEL, rope.KERNEL)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for kern in kernels:
+        for kern in KERNELS.values():
             kern.launches = 0
         steps0, toks0 = engine.steps, engine.tokens_out
         t0 = time.monotonic()
@@ -268,7 +531,7 @@ def serving_phase(card: str) -> dict:
         for th in threads:
             th.join(timeout=900)
         wall = time.monotonic() - t0
-        launches = {kern.source: kern.launches for kern in kernels}
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
         steps, toks = engine.steps - steps0, engine.tokens_out - toks0
         peak = torch.cuda.max_memory_allocated()
         if errors or any(th.is_alive() for th in threads):
@@ -277,12 +540,11 @@ def serving_phase(card: str) -> dict:
             if (not isinstance(out, list) or len(out) != SERVE_MAX_NEW
                     or not all(0 <= t < cfg.vocab for t in out)):
                 fail(f"serving: request {i} (prompt {lengths[i]}) returned {out!r}")
-        per_step = {"attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1,
-                    "rope": cfg.n_layers}
+        per_step = serve_launches_per_step(cfg.n_layers)
         for name, n in launches.items():
-            if n == 0 or n != per_step[name] * steps:
+            if n != per_step.get(name, 0) * steps or (name in per_step and n == 0):
                 fail(f"serving: {name} launched {n} times in {steps} steps, "
-                     f"want {per_step[name]} per step")
+                     f"want {per_step.get(name, 0)} per step")
         metrics = _get(srv.url + "/metrics")
         if f"ktpu_llama_slots_total {float(SERVE_SLOTS)}" not in metrics.splitlines():
             fail("serving: /metrics lacks ktpu_llama_slots_total 8")
@@ -296,7 +558,7 @@ def serving_phase(card: str) -> dict:
                 toks_b = torch.from_numpy(rng.integers(0, cfg.vocab, (SERVE_SLOTS, bucket)))
                 toks_b = toks_b.cuda()
                 forward_ms[bucket] = time_ms(lambda: llama.forward(cfg, srv.params, toks_b),
-                                             3, 1)
+                                             3, 1, back_to_back=False)
     finally:
         srv.stop()
     res = dict(requests=SERVE_REQUESTS, steps=steps, tokens=toks, wall_s=wall,
@@ -309,6 +571,128 @@ def serving_phase(card: str) -> dict:
           f"forward_ms(8x8)={forward_ms[8]:.2f} forward_ms(8x1024)={forward_ms[1024]:.2f} "
           f"launches={launches} on [{card}]", flush=True)
     return res
+
+
+def train_check_phase(dev):
+    """A train step's loss and gradients on the kernels vs on the plain
+    versions: Llama-3-8B widths, 2 layers, remat "save_attn", (2, 513)
+    tokens, f32 master weights."""
+    cfg = dataclasses.replace(llama.llama_3_8b(), n_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                               dtype=torch.float32)
+    leaves = llama.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 513))).to(dev)
+    results = []
+    for ops in (llama.KERNELS, llama.PLAIN):
+        loss = llama.loss_fn(cfg, params, tokens, ops)
+        grads = torch.autograd.grad(loss, leaves)
+        results.append((loss.item(), grads))
+        del loss
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    torch.cuda.synchronize()
+    rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item() for g, w in zip(k_grads, p_grads)]
+    worst = int(np.argmax(rels))
+    print(f"train step, kernels vs plain (8B widths, 2 layers, 2x513 tokens): loss "
+          f"{k_loss:.6f} vs {p_loss:.6f} (tol {TRAIN_LOSS_TOL}), gradients: max relative L2 "
+          f"{rels[worst]:.3e} at leaf {worst} of {len(rels)}, median {float(np.median(rels)):.3e} "
+          f"(tol {TRAIN_GRAD_REL_L2_TOL})", flush=True)
+    if not (np.isfinite(k_loss) and abs(k_loss - p_loss) <= TRAIN_LOSS_TOL):
+        fail(f"train check: loss {k_loss} vs plain {p_loss}")
+    if not all(np.isfinite(r) and r <= TRAIN_GRAD_REL_L2_TOL for r in rels):
+        fail(f"train check: gradient {worst} relative L2 {rels[worst]:.3e}")
+
+
+def train_phase(card: str, kernel_ms: dict) -> dict:
+    """Llama-3-8B widths, 4 layers, trained for 5 AdamW steps on one fixed
+    batch through make_train_state / make_train_step: the training path."""
+    cfg = dataclasses.replace(llama.llama_3_8b(), n_layers=TRAIN_LAYERS)
+    t0 = time.monotonic()
+    params, opt = llama.make_train_state(cfg, seed=0)  # device: the card
+    n_params = sum(p.numel() for p in llama.param_leaves(params))
+    step = llama.make_train_step(cfg, params, opt)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    torch.cuda.synchronize()
+    print(f"train: {n_params / 1e9:.3f} B parameters made in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.monotonic()
+        loss = step(tokens)
+        losses.append(loss.item())  # synchronises
+        times.append(time.monotonic() - t1)
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} (want finite, last below first)")
+    per_step = train_launches_per_step(cfg.n_layers)
+    for name, n in launches.items():
+        if n != per_step[name] * TRAIN_STEPS:
+            fail(f"train: {name} launched {n} times in {TRAIN_STEPS} steps, "
+                 f"want {per_step[name]} per step")
+    step_ms = float(np.mean(times[1:])) * 1e3  # the first step pays for cuBLAS's set-up
+    kern_ms = sum(per_step[name] * kernel_ms[name] for name in per_step)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    res = dict(losses=losses, step_ms=step_ms, first_step_ms=times[0] * 1e3,
+               tokens_per_s=tokens_per_step / step_ms * 1e3,
+               peak_mem_gib=peak / 2 ** 30, launches=launches,
+               kernel_ms_per_step=kern_ms, kernel_share=kern_ms / step_ms,
+               **step_breakdown(cfg, params, opt, tokens))
+    # model FLOPs: 6 per matrix weight per token (embedding gathers excluded)
+    # plus attention's 4 (forward) + 10 (backward) * hd per unmasked pair
+    mm_params = n_params - params["embed"].numel() - (2 * cfg.n_layers + 1) * cfg.d_model
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) / 2
+    flops = (6 * mm_params * tokens_per_step
+             + 14 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * pairs)
+    res["model_tflops_per_s"] = flops / step_ms / 1e9
+    print(f"train (Llama-3-8B widths, {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
+          f"batch {TRAIN_BATCH}x{TRAIN_SEQ}, remat {cfg.remat_policy}, AdamW): "
+          f"losses={[round(x, 4) for x in losses]} step_ms={step_ms:.2f} "
+          f"(first {res['first_step_ms']:.1f}) tokens_per_s={res['tokens_per_s']:.1f} "
+          f"model_tflops_per_s={res['model_tflops_per_s']:.1f} "
+          f"(MFU {100 * res['model_tflops_per_s'] * 1e12 / PEAK_BF16_TENSOR:.1f} %) "
+          f"peak_mem_gib={res['peak_mem_gib']:.2f} kernels_ms_per_step={kern_ms:.2f} "
+          f"({100 * res['kernel_share']:.1f} %) forward_ms={res['forward_ms']:.2f} "
+          f"backward_ms={res['backward_ms']:.2f} optimizer_ms={res['optimizer_ms']:.2f} "
+          f"launches={launches} on [{card}]", flush=True)
+    del params, opt, step
+    return res
+
+
+def step_breakdown(cfg, params, opt, tokens) -> dict:
+    """One more step, its parts timed apart with CUDA events: the loss
+    (forward), its backward, and the AdamW update."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss = llama.loss_fn(cfg, params, tokens)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    return dict(forward_ms=ev[0].elapsed_time(ev[1]), backward_ms=ev[1].elapsed_time(ev[2]),
+                optimizer_ms=ev[2].elapsed_time(ev[3]))
+
+
+def free_memory():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_kernel_ms(rows: list, attn_train_ms: float) -> dict:
+    """Each kernel's time at the train step's shapes, for its share of a
+    step: the rows' times, but attention's forward at B=4, S=2048 (the
+    other serving rows, timed at B=8, S=1024, do the same work there)."""
+    return {**{r["name"]: r["ms"] for r in rows}, "attention": attn_train_ms}
 
 
 def main():
@@ -327,13 +711,19 @@ def main():
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = kernel_phase(dev, gen)
-    torch.cuda.empty_cache()
+    rows, attn_train_ms = kernel_phase(dev, gen)
+    free_memory()
     forward_phase(dev)
-    torch.cuda.empty_cache()
+    free_memory()
+    train_check_phase(dev)
+    free_memory()
     serve = serving_phase(card)
+    free_memory()  # the server's 16 GB of weights go before the train state comes
+    train = train_phase(card, train_kernel_ms(rows, attn_train_ms))
     for r in rows:
-        r["launches"] = serve["launches"][r["name"]]
+        r["launches_serving"] = serve["launches"][r["name"]]
+        r["launches_train"] = train["launches"][r["name"]]
+        r["launches"] = r["launches_serving"] + r["launches_train"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

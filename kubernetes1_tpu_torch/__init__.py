@@ -2,8 +2,9 @@
 
 A package of its own beside the JAX one, for an NVIDIA H100.  It imports
 nothing of ``kubernetes1_tpu`` (it keeps its own copies of the host-side
-helpers it needs) and never imports JAX.  Its first slice is the Llama
-decode server (``workloads.llama``), with attention, RMSNorm and RoPE as
-hand-written CUDA kernels (``kernels``, sources in ``csrc``).  Entry
+helpers it needs) and never imports JAX.  It serves and trains Llama
+(``workloads.llama``: the decode server and the train step), with
+attention, RMSNorm, RoPE, SwiGLU and the cross-entropy as hand-written
+CUDA kernels, forward and backward (``kernels``, sources in ``csrc``).  Entry
 points run on the card unless the caller passes ``device="cpu"``.
 """

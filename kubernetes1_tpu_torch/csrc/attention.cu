@@ -1,4 +1,4 @@
-// K1 causal GQA attention for Hopper (forward).
+// K1 causal GQA attention for Hopper: forward and backward.
 //
 // Replaces: kubernetes1_tpu/workloads/llama.py `attention`, i.e.
 // jax.nn.dot_product_attention(q, k, v, is_causal=True), which XLA lowers
@@ -32,7 +32,33 @@
 // - K/V rows past S are zero-filled (cp.async with source size 0), so a
 //   masked (zero) probability never meets garbage; query rows past S are
 //   computed and not stored.
+// - optionally (training), the f32 log-sum-exp of each row, m + log(l), for
+//   the backward; serving passes a null pointer and writes none.
 // Not yet: TMA, wgmma, warp specialisation.
+//
+// Backward (flash-attention style, recomputing P from q, k and the lse):
+//   D = rowsum(dO o O);  P = exp(scale * Q K^T - lse) under the causal mask;
+//   dV = P^T dO;  dS = P o (dO V^T - D);  dK = scale * dS^T Q;  dQ = scale * dS K.
+// P meets dO and dS meets Q and K in bf16 on the tensor cores (f32
+// accumulate), as the forward rounds P for P.V; attention_bwd_plain in
+// kernels/attention.py rounds at the same places.  Bound: operations,
+// 2.5x the forward's (five products of 2*hd flops per unmasked pair
+// against the forward's two).  Design:
+// - one block of 4 warps per (64-row key tile, kv head, batch row).  The
+//   block keeps its K and V tiles in shared memory and walks, for each of
+//   the H/Hkv query heads of its kv head, the query tiles from the diagonal
+//   down; each warp owns 16 key rows and accumulates their dK and dV in
+//   registers across all those heads and tiles, so GQA is summed in place,
+//   with no K/V repeat and no atomics on dK, dV;
+// - dQ of a query tile gets a part from every key tile, so the blocks add
+//   into an f32 (B, S, H, hd) buffer with float2 atomics; a last pass
+//   scales it and rounds it to bf16.  D comes from a first pass;
+// - per query tile: S^T = K Q^T (warp: 16 keys x 64 queries), P^T, dV +=
+//   P^T dO, dP^T = V dO^T, dS^T, dK += dS^T Q, all with the score tiles in
+//   registers re-packed as A operands as in the forward; dS goes through
+//   shared memory once, transposed, for dQ = dS K (warp: 16 queries).
+// Not yet: a second stage for the Q/dO tiles, wgmma, a dQ pass without
+// atomics.
 
 #include "common.cuh"
 
@@ -95,7 +121,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 3)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int S, int H, int Hkv, float scale) {
+                     float* __restrict__ lse, int S, int H, int Hkv, float scale) {
   static_assert(HD % 16 == 0 && HD <= 128, "head_dim must be a multiple of 16, <= 128");
   constexpr int KSTEPS = HD / 16;  // k-steps of QK^T
   constexpr int DTILES = HD / 8;   // n-tiles of the output (even: ldmatrix takes two)
@@ -248,6 +274,11 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {  // the 4 threads of a row hold the same m, l
+    float* lb = lse + (static_cast<long long>(b) * H + h) * S;
+    if (r0 < S) lb[r0] = m0 + logf(l0);
+    if (r1 < S) lb[r1] = m1 + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < DTILES; ++n) {
     const int c = n * 8 + t * 2;
@@ -259,8 +290,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 template <int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-            int Hkv, float scale, cudaStream_t stream) {
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+            int H, int Hkv, float scale, cudaStream_t stream) {
   constexpr int smem = 2 * 2 * kBlockN * (HD + 8) * sizeof(__nv_bfloat16);  // 2 stages, K and V
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per process
   if (!attr_set) {
@@ -270,25 +301,344 @@ void launch(const void* q, const void* k, const void* v, void* o, int B, int S, 
   const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
   attention_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, Hkv, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H, Hkv,
+      scale);
+}
+
+// ------------------------------------------------------------------ backward
+
+// D[b, h, s] = sum over the head's dims of dO * O, f32; one warp a (b, s, h) row.
+__global__ void __launch_bounds__(256)
+attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                           const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+                           long long rows, int S, int H, int hd) {
+  const long long row = blockIdx.x * 8ll + (threadIdx.x >> 5);  // (b * S + s) * H + h
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const __nv_bfloat16* orow = o + row * hd;
+  const __nv_bfloat16* drow = dout + row * hd;
+  float acc = 0.f;
+  for (int c = lane * 2; c < hd; c += 64) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
+    const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(drow + c));
+    acc += a.x * d.x + a.y * d.y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const long long bs = row / H;
+    const int h = static_cast<int>(row % H);
+    const long long b = bs / S, s_ = bs % S;
+    delta[(b * H + h) * S + s_] = acc;
+  }
+}
+
+// dq = bf16(dq_acc * scale), 4 elements a thread a step.
+__global__ void __launch_bounds__(256)
+attention_bwd_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+                        long long n4, float scale) {
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += gridDim.x * 256ll) {
+    const float4 a = reinterpret_cast<const float4*>(acc)[i];
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dq + i * 4);
+    out[0] = __floats2bfloat162_rn(a.x * scale, a.y * scale);
+    out[1] = __floats2bfloat162_rn(a.z * scale, a.w * scale);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int S, int H, int Hkv, float scale) {
+  constexpr int KSTEPS = HD / 16;
+  constexpr int DTILES = HD / 8;
+  constexpr int LD = HD + 8;
+  constexpr int LDS = kBlockM + 8;  // dS rows (keys), padded
+  constexpr int CHUNKS = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  using Tile = __nv_bfloat16[kBlockN][LD];
+  Tile& ks = *reinterpret_cast<Tile*>(smem_raw);
+  Tile& vs = *(reinterpret_cast<Tile*>(smem_raw) + 1);
+  Tile& qs = *(reinterpret_cast<Tile*>(smem_raw) + 2);
+  Tile& dos = *(reinterpret_cast<Tile*>(smem_raw) + 3);
+  auto& dss = *reinterpret_cast<__nv_bfloat16(*)[kBlockM][LDS]>(smem_raw + 4 * sizeof(Tile));
+  float* lse_s = reinterpret_cast<float*>(smem_raw + 4 * sizeof(Tile) +
+                                          sizeof(__nv_bfloat16) * kBlockM * LDS);
+  float* d_s = lse_s + kBlockM;
+
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const int nq = (S + kBlockM - 1) / kBlockM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, lm = lane >> 3;
+  const long long q_row = static_cast<long long>(H) * HD;
+  const long long kv_row = static_cast<long long>(Hkv) * HD;
+  const __nv_bfloat16* kb = k + static_cast<long long>(b) * S * kv_row + kvh * HD;
+  const __nv_bfloat16* vb = v + static_cast<long long>(b) * S * kv_row + kvh * HD;
+  const int k0 = kt * kBlockN;  // first key of the tile
+
+  for (int idx = threadIdx.x; idx < kBlockN * CHUNKS; idx += kThreads) {
+    const int row = idx / CHUNKS, col = (idx % CHUNKS) * 8;
+    const int kr = k0 + row;
+    const long long off = (kr < S ? kr : 0) * kv_row + col;
+    cp_async16(&ks[row][col], kb + off, kr < S);
+    cp_async16(&vs[row][col], vb + off, kr < S);
+  }
+  cp_async_commit();
+
+  float dka[DTILES][4], dva[DTILES][4];
+#pragma unroll
+  for (int n = 0; n < DTILES; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const int wk = warp * 16;  // this warp's first key row in the tile
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = kvh * G + gi;
+    const __nv_bfloat16* qb = q + static_cast<long long>(b) * S * q_row + h * HD;
+    const __nv_bfloat16* dob = dout + static_cast<long long>(b) * S * q_row + h * HD;
+    const float* lse_b = lse + (static_cast<long long>(b) * H + h) * S;
+    const float* del_b = delta + (static_cast<long long>(b) * H + h) * S;
+    float* dqb = dq_acc + static_cast<long long>(b) * S * q_row + h * HD;
+
+    for (int qt = kt; qt < nq; ++qt) {
+      const int q0 = qt * kBlockM;
+      __syncthreads();  // the previous tile's qs, dos, dss, lse_s, d_s are no longer read
+      for (int idx = threadIdx.x; idx < kBlockM * CHUNKS; idx += kThreads) {
+        const int row = idx / CHUNKS, col = (idx % CHUNKS) * 8;
+        const int qr = q0 + row;
+        const long long off = (qr < S ? qr : 0) * q_row + col;
+        cp_async16(&qs[row][col], qb + off, qr < S);
+        cp_async16(&dos[row][col], dob + off, qr < S);
+      }
+      cp_async_commit();
+      if (threadIdx.x < kBlockM) {
+        const int qr = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = qr < S ? lse_b[qr] : 0.f;
+        d_s[threadIdx.x] = qr < S ? del_b[qr] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // S^T = K Q^T: 16 keys x 64 queries (8 n-tiles of 8 queries)
+      float st[kBlockM / 8][4];
+#pragma unroll
+      for (int n = 0; n < kBlockM / 8; ++n) st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int c = kk * 16 + t * 2;
+        const uint32_t a[4] = {ld32(&ks[wk + g][c]), ld32(&ks[wk + g + 8][c]),
+                               ld32(&ks[wk + g][c + 8]), ld32(&ks[wk + g + 8][c + 8])};
+#pragma unroll
+        for (int n = 0; n < kBlockM / 8; n += 2) {
+          uint32_t bq[4];  // B[dim][query] = Q[query][dim]
+          ldmatrix_x4(bq, &qs[(n + (lm >> 1)) * 8 + lr][kk * 16 + (lm & 1) * 8]);
+          mma_16816(st[n], a, bq[0], bq[1]);
+          mma_16816(st[n + 1], a, bq[2], bq[3]);
+        }
+      }
+      // P^T = exp(scale * S^T - lse[query]) where key <= query < S, else 0
+#pragma unroll
+      for (int n = 0; n < kBlockM / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = n * 8 + t * 2 + (e & 1);
+          const int key = k0 + wk + g + (e < 2 ? 0 : 8);
+          const int qr = q0 + qi;
+          st[n][e] = (qr < S && key <= qr) ? __expf(st[n][e] * scale - lse_s[qi]) : 0.f;
+        }
+      }
+      // dV += P^T dO (k-steps over queries)
+#pragma unroll
+      for (int kk = 0; kk < kBlockM / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+                                pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+                                pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                                pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < DTILES; n += 2) {
+          uint32_t bd[4];  // B[query][dim] = dO[query][dim]
+          ldmatrix_x4_trans(bd, &dos[kk * 16 + (lm & 1) * 8 + lr][(n + (lm >> 1)) * 8]);
+          mma_16816(dva[n], pa, bd[0], bd[1]);
+          mma_16816(dva[n + 1], pa, bd[2], bd[3]);
+        }
+      }
+      // dP^T = V dO^T: 16 keys x 64 queries
+      float dp[kBlockM / 8][4];
+#pragma unroll
+      for (int n = 0; n < kBlockM / 8; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const int c = kk * 16 + t * 2;
+        const uint32_t a[4] = {ld32(&vs[wk + g][c]), ld32(&vs[wk + g + 8][c]),
+                               ld32(&vs[wk + g][c + 8]), ld32(&vs[wk + g + 8][c + 8])};
+#pragma unroll
+        for (int n = 0; n < kBlockM / 8; n += 2) {
+          uint32_t bd[4];  // B[dim][query] = dO[query][dim]
+          ldmatrix_x4(bd, &dos[(n + (lm >> 1)) * 8 + lr][kk * 16 + (lm & 1) * 8]);
+          mma_16816(dp[n], a, bd[0], bd[1]);
+          mma_16816(dp[n + 1], a, bd[2], bd[3]);
+        }
+      }
+      // dS^T = P^T o (dP^T - D[query]); its bf16 copy goes to dss[query][key]
+#pragma unroll
+      for (int n = 0; n < kBlockM / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = n * 8 + t * 2 + (e & 1);
+          dp[n][e] = st[n][e] * (dp[n][e] - d_s[qi]);
+          dss[qi][wk + g + (e < 2 ? 0 : 8)] = __float2bfloat16_rn(dp[n][e]);
+        }
+      }
+      // dK += dS^T Q (k-steps over queries)
+#pragma unroll
+      for (int kk = 0; kk < kBlockM / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                                pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < DTILES; n += 2) {
+          uint32_t bq[4];  // B[query][dim] = Q[query][dim]
+          ldmatrix_x4_trans(bq, &qs[kk * 16 + (lm & 1) * 8 + lr][(n + (lm >> 1)) * 8]);
+          mma_16816(dka[n], pa, bq[0], bq[1]);
+          mma_16816(dka[n + 1], pa, bq[2], bq[3]);
+        }
+      }
+      __syncthreads();  // dss complete
+
+      // dQ[query] += dS K: this warp's 16 queries x HD, 16 dims at a time
+      const int wq = warp * 16;
+      uint32_t sa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        const int c = kk * 16 + t * 2;
+        sa[kk][0] = ld32(&dss[wq + g][c]);
+        sa[kk][1] = ld32(&dss[wq + g + 8][c]);
+        sa[kk][2] = ld32(&dss[wq + g][c + 8]);
+        sa[kk][3] = ld32(&dss[wq + g + 8][c + 8]);
+      }
+      const int qr0 = q0 + wq + g, qr1 = qr0 + 8;
+#pragma unroll
+      for (int n = 0; n < DTILES; n += 2) {
+        float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          uint32_t bk[4];  // B[key][dim] = K[key][dim]
+          ldmatrix_x4_trans(bk, &ks[kk * 16 + (lm & 1) * 8 + lr][(n + (lm >> 1)) * 8]);
+          mma_16816(a0, sa[kk], bk[0], bk[1]);
+          mma_16816(a1, sa[kk], bk[2], bk[3]);
+        }
+        const int c = n * 8 + t * 2;
+        if (qr0 < S) {
+          atomicAdd(reinterpret_cast<float2*>(dqb + qr0 * q_row + c), make_float2(a0[0], a0[1]));
+          atomicAdd(reinterpret_cast<float2*>(dqb + qr0 * q_row + c + 8), make_float2(a1[0], a1[1]));
+        }
+        if (qr1 < S) {
+          atomicAdd(reinterpret_cast<float2*>(dqb + qr1 * q_row + c), make_float2(a0[2], a0[3]));
+          atomicAdd(reinterpret_cast<float2*>(dqb + qr1 * q_row + c + 8), make_float2(a1[2], a1[3]));
+        }
+      }
+    }
+  }
+
+  // dK (scaled) and dV of this warp's 16 keys
+  __nv_bfloat16* dkb = dk + static_cast<long long>(b) * S * kv_row + kvh * HD;
+  __nv_bfloat16* dvb = dv + static_cast<long long>(b) * S * kv_row + kvh * HD;
+  const int kr0 = k0 + wk + g, kr1 = kr0 + 8;
+#pragma unroll
+  for (int n = 0; n < DTILES; ++n) {
+    const int c = n * 8 + t * 2;
+    if (kr0 < S) {
+      *reinterpret_cast<uint32_t*>(dkb + kr0 * kv_row + c) = pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + kr0 * kv_row + c) = pack_bf16(dva[n][0], dva[n][1]);
+    }
+    if (kr1 < S) {
+      *reinterpret_cast<uint32_t*>(dkb + kr1 * kv_row + c) = pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + kr1 * kv_row + c) = pack_bf16(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
+                       int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  constexpr int smem = 4 * kBlockN * (HD + 8) * sizeof(__nv_bfloat16) +
+                       kBlockM * (kBlockM + 8) * sizeof(__nv_bfloat16) + 2 * kBlockM * sizeof(float);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((S + kBlockN - 1) / kBlockN, Hkv, B);
+  attention_bwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      dq_acc, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, Hkv, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); bf16 contiguous; H % Hkv == 0;
-// hd in {16, 32, 64, 128}.
+// hd in {16, 32, 64, 128}.  lse: null, or (B, H, S) f32 to receive each
+// row's log-sum-exp of the scaled scores (for the backward).
 extern "C" int ktpu_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                       int B, int S, int H, int Hkv, int hd, float scale,
-                                       void* stream) {
+                                       void* lse, int B, int S, int H, int Hkv, int hd,
+                                       float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: launch<16>(q, k, v, o, B, S, H, Hkv, scale, st); break;
-    case 32: launch<32>(q, k, v, o, B, S, H, Hkv, scale, st); break;
-    case 64: launch<64>(q, k, v, o, B, S, H, Hkv, scale, st); break;
-    case 128: launch<128>(q, k, v, o, B, S, H, Hkv, scale, st); break;
+    case 16: launch<16>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
+    case 32: launch<32>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
+    case 64: launch<64>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
+    case 128: launch<128>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shapes as the forward; o, dout: (B, S, H, hd) bf16; lse: (B, H, S) f32 from
+// the forward; scratch: delta (B, H, S) f32 and dq_acc (B, S, H, hd) f32
+// (zeroed here); out: dq like q, dk and dv like k, bf16.  Three launches:
+// D, the tile pass, the dQ rounding.
+extern "C" int ktpu_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dout, const void* lse,
+                                       void* delta, void* dq_acc, void* dq, void* dk, void* dv,
+                                       int B, int S, int H, int Hkv, int hd, float scale,
+                                       void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || Hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = static_cast<long long>(B) * S * H;
+  cudaError_t e = cudaMemsetAsync(dq_acc, 0, sizeof(float) * rows * hd, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  attention_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<float*>(delta), rows, S, H, hd);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* acc = static_cast<float*>(dq_acc);
+  switch (hd) {
+    case 16: e = launch_bwd<16>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
+    case 32: e = launch_bwd<32>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
+    case 64: e = launch_bwd<64>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
+    case 128: e = launch_bwd<128>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n4 = rows * hd / 4;
+  const long long blocks = (n4 + 255) / 256;
+  attention_bwd_dq_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
+      acc, static_cast<__nv_bfloat16*>(dq), n4, scale);
   return static_cast<int>(cudaGetLastError());
 }

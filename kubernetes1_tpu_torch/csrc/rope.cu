@@ -1,4 +1,4 @@
-// K3 RoPE for Hopper: q and k rotated in one launch.
+// K3 RoPE for Hopper: q and k rotated in one launch, forward and backward.
 //
 // Replaces: kubernetes1_tpu/workloads/llama.py `rope` (called once for q and
 // once for k there).  It is a HALF-SPLIT rotation (jnp.split(x, 2) on the
@@ -18,6 +18,11 @@
 // Products and sums use the _rn intrinsics so that nvcc does not contract
 // them into FMAs: the rounding then matches the plain version (separate
 // multiplies and adds) step for step.
+//
+// Backward: the VJP of a rotation is the rotation by -angle, applied to
+// dq and dk.  The `inverse` flag negates the sine in the table; since
+// a * (-s) == -(a * s) and a - (-b) == a + b exactly, the result stays
+// bit-equal to the plain version rotating with cos and -sin.
 
 #include "common.cuh"
 
@@ -44,7 +49,7 @@ __device__ __forceinline__ void rotate2(const __nv_bfloat16* __restrict__ src,
 __global__ void __launch_bounds__(kThreads)
 rope_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  __nv_bfloat16* __restrict__ qo, __nv_bfloat16* __restrict__ ko,
-                 int S, int H, int Hkv, int hd, float theta) {
+                 int S, int H, int Hkv, int hd, float theta, bool inverse) {
   extern __shared__ float table[];  // cos[hd/2], then sin[hd/2]
   const long long tok = blockIdx.x;
   const int pos = static_cast<int>(tok % S);
@@ -53,7 +58,7 @@ rope_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const float freq = powf(theta, __fdiv_rn(-static_cast<float>(i), static_cast<float>(half)));
     const float ang = __fmul_rn(static_cast<float>(pos), freq);
     table[i] = cosf(ang);
-    table[half + i] = sinf(ang);
+    table[half + i] = inverse ? -sinf(ang) : sinf(ang);
   }
   __syncthreads();
 
@@ -74,13 +79,16 @@ rope_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 }  // namespace
 
 // q, qo: (B, S, H, hd); k, ko: (B, S, Hkv, hd); bf16 contiguous; hd % 4 == 0.
+// inverse != 0 rotates by -angle (the backward, on dq and dk).
 extern "C" int ktpu_rope_bf16(const void* q, const void* k, void* qo, void* ko, int B,
-                              int S, int H, int Hkv, int hd, float theta, void* stream) {
+                              int S, int H, int Hkv, int hd, float theta, int inverse,
+                              void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || hd <= 0 || hd % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * hd;
   rope_bf16_kernel<<<B * S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<__nv_bfloat16*>(qo), static_cast<__nv_bfloat16*>(ko), S, H, Hkv, hd, theta);
+      static_cast<__nv_bfloat16*>(qo), static_cast<__nv_bfloat16*>(ko), S, H, Hkv, hd, theta,
+      inverse != 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
-Every module holds one kernel's wrapper (a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises), the plain version,
-and the ``KERNEL`` object that binds the C entry point and counts its
-launches.  ``build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
+Every module holds one op's wrapper (a CPU tensor takes the plain
+version, which autograd differentiates; a CUDA tensor launches the kernel
+or raises, through a ``torch.autograd.Function`` whose backward is a
+kernel too where a gradient is wanted), the plain forward and backward,
+and the ``KERNEL`` / ``KERNEL_BWD`` objects that bind the C entry points
+and count their launches.  ``build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
 """

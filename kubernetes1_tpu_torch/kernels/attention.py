@@ -1,8 +1,8 @@
-"""K1 causal GQA attention: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""K1 causal GQA attention: the hand-written CUDA kernels (forward and
+backward) and their plain PyTorch versions.
 
 Replaces ``jax.nn.dot_product_attention(q, k, v, is_causal=True)`` in the
-JAX package's ``workloads/llama.py`` ``attention``; the kernel is
+JAX package's ``workloads/llama.py`` ``attention``; the kernels are in
 ``csrc/attention.cu``.  Layouts are JAX's: q (B, S, H, hd), k and v
 (B, S, Hkv, hd), and query head n reads kv head n // (H // Hkv).
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,11 +19,33 @@ from . import build
 
 KERNEL = build.Kernel("attention", "ktpu_attention_fwd_bf16", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, o
+    ctypes.c_void_p,                                                     # lse or null
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Hkv, hd
     ctypes.c_float,                                                      # scale
     ctypes.c_void_p,                                                     # stream
 ])
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's instantiations
+KERNEL_BWD = build.Kernel("attention", "ktpu_attention_bwd_bf16", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # q, k, v
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # o, dout, lse
+    ctypes.c_void_p, ctypes.c_void_p,                                    # delta, dq_acc
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # dq, dk, dv
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Hkv, hd
+    ctypes.c_float,                                                      # scale
+    ctypes.c_void_p,                                                     # stream
+])
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+MASK_VALUE = -0.7 * torch.finfo(torch.float32).max  # JAX's causal mask value
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """hd^-0.5 * Q K^T in f32 with the causal mask, (B, Hkv, G, S, S)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
+    logits = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float())
+    logits = logits * (1.0 / math.sqrt(hd))
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    return logits.masked_fill(~causal, MASK_VALUE)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -30,26 +53,39 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     accumulation, times hd^-0.5 in f32, causal mask (JAX's large negative,
     not -inf), f32 softmax, probabilities cast to v's dtype, then P.V."""
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
-    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
-    logits = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float())
-    logits = logits * (1.0 / math.sqrt(hd))
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~causal, -0.7 * torch.finfo(torch.float32).max)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = torch.softmax(_scores(q, k), dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskh->btkgh", probs.float(), v.float())
     return out.to(q.dtype).reshape(B, S, H, hd)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention, scale hd^-0.5.
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The f32 log-sum-exp of each row's scaled scores, (B, H, S): what
+    the forward kernel hands its backward."""
+    B, S, H, _hd = q.shape
+    return torch.logsumexp(_scores(q, k), dim=-1).reshape(B, H, S)
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16, hd in HEAD_DIMS) or raises."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    KERNEL.load()
-    build.check_cuda_tensors("attention", q, k, v)
+
+def attention_bwd_plain(q, k, v, o, lse, dout) -> Tuple[torch.Tensor, ...]:
+    """The backward the kernel computes, in f32, rounding where it does:
+    P = exp(scores - lse) rounded to q's dtype for dV = P^T dO;
+    D = rowsum(dO * O); dS = P * (dO V^T - D) rounded for dK = scale *
+    dS^T Q and dQ = scale * dS K.  GQA: dK, dV of a kv head sum over its
+    query heads.  Returns (dq, dk, dv) in q's dtype."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G, dt, scale = H // Hkv, q.dtype, 1.0 / math.sqrt(hd)
+    p = torch.exp(_scores(q, k) - lse.reshape(B, Hkv, G, S, 1))
+    d5 = dout.reshape(B, S, Hkv, G, hd).float()
+    delta = (d5 * o.reshape(B, S, Hkv, G, hd).float()).sum(-1)          # (B, S, Hkv, G)
+    dv = torch.einsum("bkgts,btkgh->bskh", p.to(dt).float(), d5)
+    dp = torch.einsum("btkgh,bskh->bkgts", d5, v.float())
+    ds = (p * (dp - delta.permute(0, 2, 3, 1)[..., None])).to(dt).float()
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float()) * scale
+    dk = torch.einsum("bkgts,btkgh->bskh", ds, q.reshape(B, S, Hkv, G, hd).float()) * scale
+    return dq.reshape(B, S, H, hd).to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check(q, k, v):
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     if (k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (B, S)
@@ -57,7 +93,75 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         raise ValueError(f"attention: q (B, S, H, hd), k = v (B, S, Hkv, hd), H % Hkv == 0, "
                          f"hd in {HEAD_DIMS}; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+
+
+def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     with_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the forward kernel: (o, lse (B, H, S) f32 or None)."""
+    KERNEL.load()
+    build.check_cuda_tensors("attention", q, k, v)
+    _check(q, k, v)
+    B, S, H, hd = q.shape
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), device=q.device, dtype=torch.float32) if with_lse else None
     KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  B, S, H, Hkv, hd, 1.0 / math.sqrt(hd))
-    return o
+                  lse.data_ptr() if with_lse else None, B, S, H, k.shape[2], hd,
+                  1.0 / math.sqrt(hd))
+    return o, lse
+
+
+def attention_bwd_kernel(q, k, v, o, lse, dout) -> Tuple[torch.Tensor, ...]:
+    """One call of the backward entry point (three launches inside it:
+    D, the tile pass, the dQ rounding): (dq, dk, dv)."""
+    KERNEL_BWD.load()
+    build.check_cuda_tensors("attention backward", q, k, v, o, dout)
+    build.check_cuda_tensors("attention backward", lse, dtype=torch.float32)
+    _check(q, k, v)
+    B, S, H, hd = q.shape
+    if o.shape != q.shape or dout.shape != q.shape or lse.shape != (B, H, S):
+        raise ValueError(f"attention backward: o, dout like q {tuple(q.shape)} and lse "
+                         f"{(B, H, S)} required")
+    delta = torch.empty((B, H, S), device=q.device, dtype=torch.float32)
+    dq_acc = torch.empty(q.shape, device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    KERNEL_BWD.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+                      1.0 / math.sqrt(hd))
+    return dq, dk, dv
+
+
+class _AttentionFn(torch.autograd.Function):
+    """The forward kernel, keeping q, k, v, o and the lse for the backward
+    kernel: the attention forward runs once per layer and step, remat or
+    not (the ``save_attn`` policy)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = attention_kernel(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        return attention_bwd_kernel(q, k, v, o, lse, dout.contiguous())
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention, scale hd^-0.5.
+
+    A CPU tensor takes the plain version (autograd differentiates it); a
+    CUDA tensor launches the kernel (bf16, hd in HEAD_DIMS) or raises, and
+    where a gradient is wanted, the backward kernel differentiates it."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    return attention_on_kernels(q, k, v)
+
+
+def attention_on_kernels(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The wrapper's kernel path: the forward kernel alone, or, where a
+    gradient is wanted, the autograd Function over both kernels."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _AttentionFn.apply(q, k, v)
+    return attention_kernel(q, k, v)[0]

@@ -160,17 +160,18 @@ class Kernel:
             self.launches += 1
 
 
-def check_cuda_tensors(op: str, *tensors: torch.Tensor):
-    """Raise unless every tensor lies on one CUDA device, is bf16 (the
-    kernels' one type), is contiguous and starts 16-byte aligned (the
-    kernels load 16 bytes at a time)."""
+def check_cuda_tensors(op: str, *tensors: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
+    """Raise unless every tensor lies on one CUDA device, is of ``dtype``
+    (bf16, the kernels' one activation type, unless the caller names the
+    f32 or int64 side inputs), is contiguous and starts 16-byte aligned
+    (the kernels load 16 bytes at a time)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{op}: tensors must share one CUDA device, "
                              f"got {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{op}: kernel takes torch.bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: kernel takes contiguous tensors")
         if t.data_ptr() % 16:

@@ -1,12 +1,14 @@
-"""K2 RMSNorm: the hand-written CUDA kernel and its plain PyTorch version.
+"""K2 RMSNorm: the hand-written CUDA kernels (forward and backward) and
+their plain PyTorch versions.
 
 Replaces the XLA-fused ``rmsnorm`` of the JAX package's
-``workloads/llama.py``; the kernel is ``csrc/rmsnorm.cu``.
+``workloads/llama.py``; the kernels are in ``csrc/rmsnorm.cu``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -17,29 +19,111 @@ KERNEL = build.Kernel("rmsnorm", "ktpu_rmsnorm_bf16", [
     ctypes.c_int, ctypes.c_int, ctypes.c_float,         # rows, d, eps
     ctypes.c_void_p,                                    # stream
 ])
+KERNEL_BWD = build.Kernel("rmsnorm", "ktpu_rmsnorm_bwd_bf16", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, scale, dy
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dx, dscale, partial
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # rows, d, P
+    ctypes.c_float,                                     # eps
+    ctypes.c_void_p,                                    # stream
+])
+# Blocks of the backward's row pass, each writing one (d,) f32 partial of
+# dscale: two per SM of an H100 (132 SMs) keep every SM busy.
+BWD_BLOCKS = 264
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """f32 mean of squares, ``x * rsqrt(var + eps)`` cast to x's dtype,
     THEN times the scale cast to x's dtype (the JAX order of roundings)."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
-    return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward the kernel computes, in f32: with r = rsqrt(var + eps)
+    and dn = dy * scale rounded to x's dtype (the VJP of the product in
+    that dtype), dx = r*dn - x * r^3 * mean(dn * x), and dscale = the sum
+    over rows of dy * (x * r rounded); each rounded once at the end.
+    ``scale`` is in x's dtype, as the layer hands it over."""
+    d = x.shape[-1]
+    xf, dyf = x.float().reshape(-1, d), dy.float().reshape(-1, d)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    dn = (dyf * scale.float()).to(x.dtype).float()
+    dx = r * dn - xf * (r ** 3) * (dn * xf).mean(dim=-1, keepdim=True)
+    dscale = (dyf * (xf * r).to(x.dtype).float()).sum(dim=0)
+    return dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype)
+
+
+def _check(x, scale):
+    d = x.shape[-1]
+    if scale.shape != (d,) or d % 8:
+        raise ValueError(f"rmsnorm: x (..., {d}) with d % 8 == 0 and scale ({d},) "
+                         f"required, got scale {tuple(scale.shape)}")
+
+
+def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """One launch of the forward kernel; ``scale`` in x's dtype."""
+    KERNEL.load()
+    build.check_cuda_tensors("rmsnorm", x, scale)
+    _check(x, scale)
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    KERNEL.launch(x.device, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                  x.numel() // d, d, eps)
+    return out
+
+
+def rmsnorm_bwd_kernel(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                       eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One call of the backward entry point (the row pass, then the column
+    sums of its per-block partials): (dx, dscale)."""
+    KERNEL_BWD.load()
+    build.check_cuda_tensors("rmsnorm backward", x, scale, dy)
+    _check(x, scale)
+    if dy.shape != x.shape:
+        raise ValueError(f"rmsnorm backward: dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    blocks = min(rows, BWD_BLOCKS)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    partial = torch.empty((blocks, d), device=x.device, dtype=torch.float32)
+    KERNEL_BWD.launch(x.device, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                      dscale.data_ptr(), partial.data_ptr(), rows, d, blocks, eps)
+    return dx, dscale
+
+
+class _RMSNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm_kernel(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd_kernel(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm over the last axis of ``x`` (..., d) with ``scale`` (d,).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16, d % 8 == 0) or raises."""
+    A CPU tensor takes the plain version (autograd differentiates it); a
+    CUDA tensor launches the kernel (bf16, d % 8 == 0) or raises.  The
+    scale is cast to x's dtype first, outside the kernels, as the JAX
+    function casts it: an f32 scale's gradient flows back through that
+    cast."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
-    KERNEL.load()
-    build.check_cuda_tensors("rmsnorm", x, scale)
-    d = x.shape[-1]
-    if scale.shape != (d,) or d % 8:
-        raise ValueError(f"rmsnorm: x (..., {d}) with d % 8 == 0 and scale ({d},) "
-                         f"required, got scale {tuple(scale.shape)}")
-    out = torch.empty_like(x)
-    KERNEL.launch(x.device, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                  x.numel() // d, d, eps)
-    return out
+    return rmsnorm_on_kernels(x, scale, eps)
+
+
+def rmsnorm_on_kernels(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The wrapper's kernel path: the forward kernel alone, or, where a
+    gradient is wanted, the autograd Function over both kernels."""
+    scale = scale.to(x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNormFn.apply(x, scale, eps)
+    return rmsnorm_kernel(x, scale, eps)

@@ -1,20 +1,22 @@
-"""Llama-3-style decoder-only transformer and its decode server, in PyTorch.
+"""Llama-3-style decoder-only transformer, its train step and its decode
+server, in PyTorch.
 
-The port of the JAX package's ``workloads/llama.py`` serving path: the
-model (``forward`` over a plain parameter dict) and the continuous-
-batching decode server (``BatchEngine``, ``DecodeServer``) with the same
-HTTP contract and the same ``ktpu_llama_*`` metrics.  Attention, RMSNorm
-and RoPE run as hand-written CUDA kernels on the card
-(``kubernetes1_tpu_torch.kernels``); the matrix products stay
-``torch.matmul`` and the sampling ``torch.argmax``, as the JAX package
-left them to XLA.
+The port of the JAX package's ``workloads/llama.py`` on one card: the
+model (``forward`` over a plain parameter dict), the training half
+(``loss_fn``, ``make_train_state``, ``make_train_step``, ``train_demo``,
+remat) and the continuous-batching decode server (``BatchEngine``,
+``DecodeServer``) with the same HTTP contract and the same
+``ktpu_llama_*`` metrics.  Attention, RMSNorm, RoPE, SwiGLU and the
+cross-entropy run as hand-written CUDA kernels on the card, forward and
+backward (``kubernetes1_tpu_torch.kernels``); the matrix products stay
+``torch.matmul``, the sampling ``torch.argmax`` and the optimizer
+``torch.optim.AdamW``, as the JAX package left them to XLA and optax.
 
 Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 ``h @ W``, so weights carried over from the JAX pytree
 (``params_from_jax``) need no transpose.  Layers are a list of per-layer
-dicts (JAX stacks them on a leading axis for ``lax.scan``).  The training
-half (``loss_fn``, the train step, remat, sharding) and
-``serving_deployment`` come with later slices.
+dicts (JAX stacks them on a leading axis for ``lax.scan``).  The sharded
+train step and ``serving_deployment`` come with later slices.
 
 Llama-3-8B = LlamaConfig(d_model=4096, n_layers=32, n_heads=32,
 n_kv_heads=8, d_ff=14336, vocab=128256, rope_theta=500000).
@@ -31,15 +33,17 @@ import threading
 import time
 from functools import partial
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import attention as _attention
+from ..kernels import cross_entropy as _cross_entropy
 from ..kernels import rmsnorm as _rmsnorm
 from ..kernels import rope as _rope
+from ..kernels import swiglu as _swiglu
 from ..obs.appmetrics import AppMetrics
 from .sharding import resolve_device
 
@@ -54,7 +58,12 @@ class LlamaConfig:
     d_ff: int = 14336
     max_seq: int = 8192
     rope_theta: float = 500000.0
-    dtype: torch.dtype = torch.bfloat16
+    dtype: torch.dtype = torch.bfloat16  # compute dtype; weights may be f32
+    remat: bool = True
+    # "save_attn" keeps the attention's output and what its backward needs
+    # across the remat boundary, so attention never recomputes in backward;
+    # "full" recomputes the whole layer
+    remat_policy: str = "save_attn"
 
     @property
     def head_dim(self) -> int:
@@ -70,34 +79,38 @@ def tiny(vocab: int = 256, d_model: int = 64, n_layers: int = 2, n_heads: int = 
          n_kv_heads: int = 2, d_ff: int = 128, max_seq: int = 128) -> LlamaConfig:
     return LlamaConfig(vocab=vocab, d_model=d_model, n_layers=n_layers,
                        n_heads=n_heads, n_kv_heads=n_kv_heads, d_ff=d_ff,
-                       max_seq=max_seq)
+                       max_seq=max_seq, remat=False)
 
 
 # ------------------------------------------------------------------- params
 #
-# Every weight is stored already cast to cfg.dtype, once, at creation or
-# load.  The JAX forward keeps f32 weights and casts each to bf16 right
-# before its product with the same round-to-nearest-even, so the numbers
-# are the same; storing bf16 halves the memory (16 GB for Llama-3-8B
-# instead of 32 GB of f32) and drops a cast per weight per step.
+# Weights are stored in a dtype of the caller's choice: f32 master weights
+# for training (as the JAX package keeps them), cfg.dtype for serving.  The
+# forward casts each weight to cfg.dtype at its use, as the JAX forward
+# does, which is a no-op on weights stored in cfg.dtype: serving stores
+# bf16 once (16 GB for Llama-3-8B instead of 32 GB of f32) and the numbers
+# are the same, since the cast rounds to nearest even either way.
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
 
 
-def init_params(cfg: LlamaConfig, generator: torch.Generator) -> Dict[str, Any]:
-    """Random weights on ``generator``'s device, with the JAX package's
-    distributions: normal / sqrt(fan_in) for matrices, ones for norms.
-    (The draws differ from ``jax.random``'s; carry JAX weights over with
-    ``params_from_jax`` where the numbers must match.)"""
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random weights in ``dtype`` (default cfg.dtype) on ``generator``'s
+    device, with the JAX package's distributions: normal / sqrt(fan_in)
+    for matrices, ones for norms.  (The draws differ from
+    ``jax.random``'s; carry JAX weights over with ``params_from_jax``
+    where the numbers must match.)"""
     dev = generator.device
     d, hd = cfg.d_model, cfg.head_dim
+    dtype = dtype or cfg.dtype
 
     def w(shape, fan_in):
         x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return x.div_(math.sqrt(fan_in)).to(cfg.dtype)
+        return x.div_(math.sqrt(fan_in)).to(dtype)
 
     def ones(n):
-        return torch.ones(n, device=dev, dtype=cfg.dtype)
+        return torch.ones(n, device=dev, dtype=dtype)
 
     return {
         "embed": w((cfg.vocab, d), d),
@@ -117,16 +130,19 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator) -> Dict[str, Any]:
     }
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
-                    device: torch.device | str) -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig, device: torch.device | str,
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX package's parameter pytree, given as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as this module's parameter
-    dict on ``device``: the stacked leading layer axis is split into one
-    dict per layer, and every weight keeps its (d_in, d_out) layout."""
+    dict on ``device`` in ``dtype`` (default cfg.dtype; f32 for training):
+    the stacked leading layer axis is split into one dict per layer, and
+    every weight keeps its (d_in, d_out) layout."""
+    dtype = dtype or cfg.dtype
+
     def tensor(a) -> torch.Tensor:
         # a fresh copy: the port must not alias (or write into) JAX's buffers
         arr = np.array(a, dtype=np.float32, order="C")
-        return torch.from_numpy(arr).to(device=device, dtype=cfg.dtype)
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     layers = tree["layers"]
     if set(layers) != set(LAYER_KEYS):
@@ -143,47 +159,163 @@ def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,
     }
 
 
+def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
+    """Every weight, in a fixed order: embed, each layer's LAYER_KEYS,
+    final_norm, unembed."""
+    return ([params["embed"]] + [lp[key] for lp in params["layers"] for key in LAYER_KEYS]
+            + [params["final_norm"], params["unembed"]])
+
+
 # ------------------------------------------------------------------ modules
 
 class Ops(NamedTuple):
-    """The three kernel-backed ops of the forward."""
+    """The kernel-backed ops of the model and its loss."""
 
     rmsnorm: Callable
     rope: Callable
     attention: Callable
+    swiglu: Callable
+    cross_entropy: Callable
 
 
-# The wrappers: the kernels on CUDA tensors, the plain versions on CPU ones.
-KERNELS = Ops(_rmsnorm.rmsnorm, _rope.rope, _attention.attention)
+# The wrappers: the kernels on CUDA tensors (forward and backward), the
+# plain versions on CPU ones.
+KERNELS = Ops(_rmsnorm.rmsnorm, _rope.rope, _attention.attention, _swiglu.swiglu,
+              _cross_entropy.cross_entropy)
 # The plain versions on every device: the reference a card run compares with.
-PLAIN = Ops(_rmsnorm.rmsnorm_plain, _rope.rope_plain, _attention.attention_plain)
+PLAIN = Ops(_rmsnorm.rmsnorm_plain, _rope.rope_plain, _attention.attention_plain,
+            _swiglu.swiglu_plain, _cross_entropy.cross_entropy_plain)
+
+
+def _attn_inputs(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                 ops: Ops) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layer up to the attention call: rotated q, k and v."""
+    B, S, _d = x.shape
+    hd, dt = cfg.head_dim, cfg.dtype
+    h = ops.rmsnorm(x, lp["attn_norm"])
+    q = (h @ lp["wq"].to(dt)).reshape(B, S, cfg.n_heads, hd)
+    k = (h @ lp["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (h @ lp["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+    q, k = ops.rope(q, k, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out_and_mlp(cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
+                      lp: Dict[str, torch.Tensor], ops: Ops) -> torch.Tensor:
+    """The layer after the attention call: output projection, residual,
+    RMSNorm, SwiGLU MLP, residual."""
+    B, S, _d = x.shape
+    dt = cfg.dtype
+    x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(dt)
+    h = ops.rmsnorm(x, lp["mlp_norm"])
+    mlp = ops.swiglu(h @ lp["w_gate"].to(dt), h @ lp["w_up"].to(dt))
+    return x + mlp @ lp["w_down"].to(dt)
 
 
 def layer_fn(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
              ops: Ops = KERNELS) -> torch.Tensor:
-    B, S, d = x.shape
-    hd = cfg.head_dim
-    h = ops.rmsnorm(x, lp["attn_norm"])
-    q = (h @ lp["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-    q, k = ops.rope(q, k, cfg.rope_theta)
-    attn = ops.attention(q, k, v).reshape(B, S, cfg.n_heads * hd)
-    x = x + attn @ lp["wo"]
-    h = ops.rmsnorm(x, lp["mlp_norm"])
-    x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
-    return x
+    q, k, v = _attn_inputs(cfg, x, lp, ops)
+    return _attn_out_and_mlp(cfg, x, ops.attention(q, k, v), lp, ops)
+
+
+def _remat_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                 ops: Ops) -> torch.Tensor:
+    """``layer_fn`` under activation checkpointing (JAX: jax.checkpoint on
+    the layer body).  "save_attn": the parts before and after the
+    attention call are checkpointed and recomputed in backward, while the
+    attention keeps its output and its backward's inputs, so it runs once
+    per layer and step.  "full": the whole layer recomputes."""
+    if cfg.remat_policy == "save_attn":
+        q, k, v = checkpoint(_attn_inputs, cfg, x, lp, ops, use_reentrant=False)
+        return checkpoint(_attn_out_and_mlp, cfg, x, ops.attention(q, k, v), lp, ops,
+                          use_reentrant=False)
+    if cfg.remat_policy == "full":
+        return checkpoint(layer_fn, cfg, x, lp, ops, use_reentrant=False)
+    raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'save_attn' or 'full'")
+
+
+def final_hidden(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+                 ops: Ops = KERNELS) -> torch.Tensor:
+    """tokens (B, S) integer -> the final-normed hidden state (B, S, d) in
+    cfg.dtype; positions are arange(S) on every row."""
+    # gather the rows, then cast: the values of casting the whole table first
+    x = params["embed"][tokens].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params["layers"]:
+        x = _remat_layer(cfg, x, lp, ops) if remat else layer_fn(cfg, x, lp, ops)
+    return ops.rmsnorm(x, params["final_norm"])
 
 
 def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
             ops: Ops = KERNELS) -> torch.Tensor:
-    """tokens (B, S) integer -> logits (B, S, vocab) float32; positions
-    are arange(S) on every row."""
-    x = params["embed"][tokens]
-    for lp in params["layers"]:
-        x = layer_fn(cfg, x, lp, ops)
-    x = ops.rmsnorm(x, params["final_norm"])
-    return (x @ params["unembed"]).float()
+    """tokens (B, S) integer -> logits (B, S, vocab) float32."""
+    x = final_hidden(cfg, params, tokens, ops)
+    return (x @ params["unembed"].to(cfg.dtype)).float()
+
+
+def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
+            ops: Ops = KERNELS) -> torch.Tensor:
+    """Next-token cross entropy over tokens (B, S), a 0-dim f32 tensor.
+    The logits stay in cfg.dtype: the cross-entropy op reads them there
+    and never holds an f32 (B, S, vocab) copy."""
+    x = final_hidden(cfg, params, tokens[:, :-1], ops)
+    logits = x @ params["unembed"].to(cfg.dtype)
+    targets = tokens[:, 1:].reshape(-1).to(torch.int64)
+    return ops.cross_entropy(logits.reshape(-1, cfg.vocab), targets).mean()
+
+
+# --------------------------------------------------------------- train step
+
+def make_train_state(cfg: LlamaConfig, device: Optional[torch.device | str] = None,
+                     lr: float = 3e-4, seed: int = 0,
+                     params: Optional[Dict[str, Any]] = None
+                     ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
+    """f32 master weights (random from ``seed``, or ``params``, e.g. from
+    ``params_from_jax``) that require grad, and AdamW over all of them:
+    optax's ``adamw(lr, weight_decay=0.1)`` with its defaults, decay on
+    every leaf.  ``device`` defaults to the card and raises without one."""
+    dev = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                             dtype=torch.float32)
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
+    return params, opt
+
+
+def make_train_step(cfg: LlamaConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,
+                    ops: Ops = KERNELS) -> Callable[[torch.Tensor], torch.Tensor]:
+    """step(tokens) -> the loss before the update (0-dim, detached): one
+    value-and-grad of ``loss_fn`` and one optimizer update, in place."""
+
+    def step(tokens: torch.Tensor) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(cfg, params, tokens, ops)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def train_demo(cfg: Optional[LlamaConfig] = None, steps: int = 3, batch: int = 8,
+               seq: int = 64, lr: float = 3e-4,
+               device: Optional[torch.device | str] = None) -> float:
+    """Run a few steps on one fixed batch of synthetic tokens (the step
+    memorizes it); returns the final loss.  On the card unless
+    ``device="cpu"``; raises when no card is visible."""
+    cfg = cfg or tiny()
+    params, opt = make_train_state(cfg, device, lr=lr)
+    step = make_train_step(cfg, params, opt)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).to(
+        params["embed"].device)
+    loss = None
+    for _ in range(steps):
+        loss = step(tokens)
+    return float(loss)
 
 
 # ------------------------------------------------------------ decode serving
@@ -591,7 +723,7 @@ def _serve_main():
 if __name__ == "__main__":
     import sys
 
-    if "--serve" not in sys.argv[1:]:
-        sys.exit("usage: python -m kubernetes1_tpu_torch.workloads.llama --serve "
-                 "(training comes with a later slice)")
-    _serve_main()
+    if "--serve" in sys.argv[1:]:
+        _serve_main()
+    else:
+        print("final loss:", train_demo())

@@ -18,7 +18,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from kubernetes1_tpu_torch.kernels import attention, build, rmsnorm, rope
+from kubernetes1_tpu_torch.kernels import attention, build, cross_entropy, rmsnorm, rope, swiglu
 from kubernetes1_tpu_torch.workloads import sharding
 
 REPO = Path(__file__).resolve().parent.parent
@@ -93,10 +93,15 @@ def test_importing_the_port_pulls_in_no_jax():
 class _FakeCudaTensor:
     """Enough of a tensor to reach a wrapper's CUDA branch."""
 
-    def __init__(self, *shape):
+    requires_grad = False
+
+    def __init__(self, *shape, dtype=torch.bfloat16):
         self.shape = torch.Size(shape)
         self.device = torch.device("cuda", 0)
-        self.dtype = torch.bfloat16
+        self.dtype = dtype
+
+    def to(self, dtype):
+        return _FakeCudaTensor(*self.shape, dtype=dtype)
 
     def dim(self):
         return len(self.shape)
@@ -112,21 +117,34 @@ def _plain_must_not_run(*_a, **_k):
     raise AssertionError("the plain version ran on a CUDA tensor")
 
 
+KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy)
+
+
 @pytest.fixture
 def no_kernel_libraries(monkeypatch, tmp_path):
     """No nvcc, an empty build directory, nothing loaded."""
     monkeypatch.setattr(build, "_find_nvcc", lambda: None)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_libs", {})
-    for mod in (attention, rmsnorm, rope):
+    for mod in KERNEL_MODULES:
         monkeypatch.setattr(mod.KERNEL, "_fn", None)
+        monkeypatch.setattr(mod.KERNEL_BWD, "_fn", None)
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention"])
+@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy"])
 def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
                                                            monkeypatch, op):
     B, S, H, Hkv, hd = 2, 8, 4, 2, 16
-    if op == "rmsnorm":
+    if op == "swiglu":
+        monkeypatch.setattr(swiglu, "swiglu_plain", _plain_must_not_run)
+        call = lambda: swiglu.swiglu(_FakeCudaTensor(B * S, 64), _FakeCudaTensor(B * S, 64))
+        kernel = swiglu.KERNEL
+    elif op == "cross_entropy":
+        monkeypatch.setattr(cross_entropy, "cross_entropy_plain", _plain_must_not_run)
+        call = lambda: cross_entropy.cross_entropy(
+            _FakeCudaTensor(B * S, 1000), _FakeCudaTensor(B * S, dtype=torch.int64))
+        kernel = cross_entropy.KERNEL
+    elif op == "rmsnorm":
         monkeypatch.setattr(rmsnorm, "rmsnorm_plain", _plain_must_not_run)
         call = lambda: rmsnorm.rmsnorm(_FakeCudaTensor(B * S, 64), _FakeCudaTensor(64))
         kernel = rmsnorm.KERNEL
@@ -147,10 +165,45 @@ def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
     assert kernel.launches == before
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention"])
+def _fakes(*shapes, dtype=torch.bfloat16):
+    return [_FakeCudaTensor(*s, dtype=dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy"])
+def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_libraries, op):
+    """The backward entry points, which the autograd Functions call, raise
+    like the forward ones and count nothing."""
+    qs, ks, f32 = (2, 8, 4, 16), (2, 8, 2, 16), torch.float32
+    call = {
+        "rmsnorm": lambda: rmsnorm.rmsnorm_bwd_kernel(*_fakes((16, 64), (64,), (16, 64))),
+        "rope": lambda: rope.rope_kernel(*_fakes(qs, ks), 5e5, inverse=True),
+        "attention": lambda: attention.attention_bwd_kernel(
+            *_fakes(qs, ks, ks, qs), *_fakes((2, 4, 8), dtype=f32), *_fakes(qs)),
+        "swiglu": lambda: swiglu.swiglu_bwd_kernel(*_fakes((16, 64), (16, 64), (16, 64))),
+        "cross_entropy": lambda: cross_entropy.cross_entropy_bwd_kernel(
+            *_fakes((16, 1000)), *_fakes((16,), dtype=torch.int64),
+            *_fakes((16,), (16,), dtype=f32)),
+    }[op]
+    kernel = {"attention": attention, "rmsnorm": rmsnorm, "rope": rope, "swiglu": swiglu,
+              "cross_entropy": cross_entropy}[op].KERNEL_BWD
+    before = kernel.launches
+    with pytest.raises(build.KernelUnavailableError, match="nvcc not found"):
+        call()
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy"])
 def test_wrapper_takes_plain_version_only_on_cpu(op):
     x = torch.randn(2, 8, 4, 16)
-    if op == "rmsnorm":
+    if op == "swiglu":
+        assert torch.equal(swiglu.swiglu(x, x + 1), swiglu.swiglu_plain(x, x + 1))
+        kernel = swiglu.KERNEL
+    elif op == "cross_entropy":
+        logits, t = x.reshape(16, 64), torch.arange(16)
+        assert torch.equal(cross_entropy.cross_entropy(logits, t),
+                           cross_entropy.cross_entropy_plain(logits, t))
+        kernel = cross_entropy.KERNEL
+    elif op == "rmsnorm":
         assert torch.equal(rmsnorm.rmsnorm(x, torch.ones(16)),
                            rmsnorm.rmsnorm_plain(x, torch.ones(16)))
         kernel = rmsnorm.KERNEL
@@ -222,14 +275,15 @@ def test_build_all_runs_one_nvcc_per_source_for_sm90a(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_find_nvcc", lambda: _fake_nvcc(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     paths = build.build_all()
-    assert sorted(paths) == ["attention", "rmsnorm", "rope"]
+    sources = ["attention", "cross_entropy", "rmsnorm", "rope", "swiglu"]
+    assert sorted(paths) == sources
     calls = (tmp_path / "nvcc.log").read_text().splitlines()
-    assert len(calls) == 3
+    assert len(calls) == len(sources)
     for call in calls:
         assert "arch=compute_90a,code=sm_90a" in call and "-shared" in call
     assert all(p.exists() and p.parent == tmp_path / "build" for p in paths.values())
     assert build.build_all() == paths  # built once: no second nvcc
-    assert len((tmp_path / "nvcc.log").read_text().splitlines()) == 3
+    assert len((tmp_path / "nvcc.log").read_text().splitlines()) == len(sources)
 
 
 def test_build_failure_reports_the_compiler_output(monkeypatch, tmp_path):

@@ -26,12 +26,14 @@ from kubernetes1_tpu.workloads import llama as jllama
 from kubernetes1_tpu_torch.kernels import attention as tattention
 from kubernetes1_tpu_torch.kernels import rmsnorm as trmsnorm
 from kubernetes1_tpu_torch.kernels import rope as trope
+from kubernetes1_tpu_torch.kernels import swiglu as tswiglu
 from kubernetes1_tpu_torch.workloads import llama as tllama
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"rmsnorm": {"f32": 1e-5, "bf16": 2e-2},
        "rope": {"f32": 1e-5, "bf16": 2e-2},
-       "attention": {"f32": 1e-4, "bf16": 2e-2}}
+       "attention": {"f32": 1e-4, "bf16": 2e-2},
+       "swiglu": {"f32": 1e-5, "bf16": 2e-2}}
 # (B, S, H, Hkv, hd): MHA, GQA H/Hkv = 2 and 4, S not a power of two
 SHAPES = [(2, 13, 4, 2, 16), (1, 37, 8, 2, 64), (2, 100, 4, 4, 32), (1, 24, 8, 2, 16)]
 
@@ -93,6 +95,17 @@ class TestOpsAgainstJax:
         t = tattention.attention(tq, tk, tv)
         assert t.shape == tq.shape and t.dtype == tq.dtype
         assert _err(jllama.attention(jq, jk, jv), t) <= TOL["attention"][dt]
+
+    def test_swiglu(self, shape, dt):
+        """K4: silu(g) * u on the two GEMM outputs (rows, d_ff), against
+        the JAX layer's jax.nn.silu(g) * u."""
+        B, S, H, _Hkv, hd = shape
+        rng = np.random.default_rng(3)
+        jg, tg = _inputs(rng, (B * S, 2 * H * hd), dt)
+        ju, tu = _inputs(rng, (B * S, 2 * H * hd), dt)
+        t = tswiglu.swiglu(tg, tu)
+        assert t.shape == tg.shape and t.dtype == tg.dtype
+        assert _err(jax.nn.silu(jg) * ju, t) <= TOL["swiglu"][dt]
 
 
 def test_rope_is_half_split_not_interleaved():
