@@ -21,7 +21,19 @@
 6. trains Llama-3-8B widths cut to 4 layers (1.92 B parameters, f32 master
    weights and AdamW, ~31 GB of state) for 5 steps on one fixed (4, 2049)
    batch through make_train_state / make_train_step, and checks the losses
-   and every kernel's forward and backward launches per step.
+   and every kernel's forward and backward launches per step;
+7. (ResNet-50, K8) holds the batch-norm kernels (statistics, apply with and
+   without residual and ReLU, backward) against their plain versions at the
+   stem's (128*112*112, 64) and stage 4's (128*7*7, 2048) rows and odd
+   shapes, and the backward against autograd of the plain forward;
+8. holds ResNet-50 on the kernels against the plain versions at batch
+   8 x 224^2: the loss; the logits and every gradient against an f32 run,
+   as close as the plain versions come; and each of the 53 batch-norm
+   layers' kernels on the inputs that layer saw;
+9. trains ResNet-50 (full width and depth, random weights from a seed) at
+   batch 128 x 224^2 through the bench payload resnet_bench.run, checks the
+   losses and the K8 launches per step, and profiles one more step for the
+   batch-norm kernels' share of it.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -44,8 +56,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubernetes1_tpu_torch.kernels import attention, build, cross_entropy, rmsnorm, rope, swiglu
-from kubernetes1_tpu_torch.workloads import llama
+from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, rmsnorm,
+                                           rope, swiglu)
+from kubernetes1_tpu_torch.workloads import benchguard, llama, resnet, resnet_bench
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
 SPIN_CYCLES = 50_000_000
@@ -101,6 +114,52 @@ TRAIN_LAYERS = 4        # Llama-3-8B widths; 32 layers of f32 + AdamW state do n
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # llama_bench.py's defaults; tokens are (4, 2049)
 TRAIN_STEPS = 5
 
+# Batch norm (K8), kernel vs plain on the same bf16 inputs.
+# Statistics: f32 sums in another order (per-thread, per-block, then over
+# the partials) and rsqrtf (2 ulp) move f32 mean/rstd/inv by ~1e-6
+# relative; w and b round that to bf16, where a value next to a rounding
+# boundary lands one step (at most 2^-7 relative) away; b = bias - mean*inv
+# may cancel, hence the absolute floor.
+BN_STATS_TOL = (1e-5, 2.0 ** -7)
+# Apply, |kernel - plain| <= BN_APPLY_RTOL * (|x*w| + |b| + |r|): the plain
+# version rounds three times (x*w, +b, +r; the ReLU is exact), the kernel
+# once, each rounding by at most half a bf16 step, which is at most 2^-8 of
+# the value rounded, itself no larger than that sum: 4 * 2^-8 = 2^-6.
+BN_APPLY_RTOL = 2.0 ** -6
+# Backward vs its plain version, and vs autograd of the plain forward
+# (relative L2 of each output): BWD_REL_L2_TOL, as for the other backward
+# kernels; autograd rounds dy*w and the bf16 sums of d_w and d_b that the
+# kernel keeps in f32, each ~2^-9 relative.
+# Against autograd, the plain forward runs up to the ReLU and takes dy
+# masked by the kernel's output (as bwd_plain does): where the
+# pre-activation is within a rounding of 0 the two forwards may disagree on
+# the sign, and each such element moves dx by a whole dy*w, a difference of
+# the forward's rounding that the apply check already bounds.
+# Autograd of the plain forward is a reference only from a few rows up: it
+# sums d_w and d_b in bf16, and d_inv = d_w - d_b*mean cancels to 0 as the
+# rows shrink to one (a single row has x = mean), leaving bf16 rounding
+# noise in dscale and dx; the kernel's f32 sums give the exact 0 there.
+BN_AUTOGRAD_MIN_ROWS = 8
+# ResNet-50, kernels vs plain (batch 8 x 224^2, random weights).  The loss
+# within 5e-2 (the JAX suite's bf16 loss bar).  Logits and gradients are no
+# test of the kernels one against the other: random-init ResNet-50 in bf16
+# is chaotic, each path about as far from an f32 run as from the other (on
+# an H100 at batch 8 x 224^2: kernels vs plain, logits 0.117 relative L2
+# and gradients a median 1.32; against f32, logits 0.109 and 0.120,
+# gradients a median 1.307 and 1.316).  Each bf16 rounding flips ReLU masks and batch norm's
+# backward projects most of dy out, leaving rounding noise.  So each path
+# is held to the f32 run of the plain versions, and the kernels must be
+# within RESNET_ACCURACY_RATIO of the plain versions' distance to it; and
+# each of the 53 layers' kernels is held to the plain versions on the very
+# inputs and upstream gradient that layer saw (check_bn's tolerances),
+# which is where a wiring fault would show.
+RESNET_LOSS_TOL = 5e-2
+RESNET_ACCURACY_RATIO = 1.5
+RESNET_CHECK_BATCH = 8
+RESNET_BATCH, RESNET_SIZE = 128, 224  # resnet_bench.py's defaults
+RESNET_STEPS, RESNET_WARMUP = 20, 2  # resnet_bench.py's default --steps
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd")
+
 # Every launch counter, by name: the forward kernels, then the backward ones.
 KERNELS = {
     "attention": attention.KERNEL, "rmsnorm": rmsnorm.KERNEL, "rope": rope.KERNEL,
@@ -108,6 +167,8 @@ KERNELS = {
     "attention_bwd": attention.KERNEL_BWD, "rmsnorm_bwd": rmsnorm.KERNEL_BWD,
     "rope_bwd": rope.KERNEL_BWD, "swiglu_bwd": swiglu.KERNEL_BWD,
     "cross_entropy_bwd": cross_entropy.KERNEL_BWD,
+    "bn_stats": batchnorm.KERNEL_STATS, "bn_apply": batchnorm.KERNEL_APPLY,
+    "bn_bwd": batchnorm.KERNEL_BWD,
 }
 
 
@@ -216,9 +277,10 @@ def library_bwd_ms(fn, inputs, cotangents=None) -> float:
     return time_ms(lambda: torch.autograd.grad(out, leaves, cotangents, retain_graph=True), 5, 1)
 
 
-def row(name, source, replaces, shape, err, ms, plain_ms, bound, library_ms):
+def row(name, source, replaces, shape, err, ms, plain_ms, bound, library_ms,
+        jax_file="llama.py"):
     return dict(name=name, route="cuda", source=f"kubernetes1_tpu_torch/csrc/{source}",
-                replaces=f"kubernetes1_tpu/workloads/llama.py:{replaces}", shape=shape,
+                replaces=f"kubernetes1_tpu/workloads/{jax_file}:{replaces}", shape=shape,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                 bound_by=bound[1], library_ms=library_ms)
 
@@ -633,9 +695,9 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
         fail(f"train: losses {losses} (want finite, last below first)")
     per_step = train_launches_per_step(cfg.n_layers)
     for name, n in launches.items():
-        if n != per_step[name] * TRAIN_STEPS:
+        if n != per_step.get(name, 0) * TRAIN_STEPS:
             fail(f"train: {name} launched {n} times in {TRAIN_STEPS} steps, "
-                 f"want {per_step[name]} per step")
+                 f"want {per_step.get(name, 0)} per step")
     step_ms = float(np.mean(times[1:])) * 1e3  # the first step pays for cuBLAS's set-up
     kern_ms = sum(per_step[name] * kernel_ms[name] for name in per_step)
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
@@ -682,6 +744,260 @@ def step_breakdown(cfg, params, opt, tokens) -> dict:
                 optimizer_ms=ev[2].elapsed_time(ev[3]))
 
 
+# ------------------------------------------------------------ ResNet-50 (K8)
+
+
+def bn_inputs(M, C, gen, dev, residual):
+    """A post-conv activation (mean 0.3, std 1.5), f32 scale and bias, and
+    a residual where asked."""
+    x = bf16((M, C), gen, dev, 1.5, 0.3)
+    scale = torch.rand(C, generator=gen, device=dev) + 0.5
+    bias = torch.randn(C, generator=gen, device=dev) * 0.3
+    return x, scale, bias, (bf16((M, C), gen, dev) if residual else None)
+
+
+def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
+    """The statistics, apply and backward kernels against their plain
+    versions, and the backward against autograd of the plain forward;
+    returns the three max abs errors."""
+    got = batchnorm.bn_stats_kernel(x, scale, bias)
+    w, b, stats = batchnorm.bn_stats_plain(x, scale, bias)
+    err_s = check_close(f"{name} bn_stats", got, (w, b, stats), BN_STATS_TOL)
+    y = batchnorm.bn_apply_kernel(x, w, b, r, relu)  # the same w and b into both
+    y_plain = batchnorm.bn_apply_plain(x, w, b, r, relu)
+    torch.cuda.synchronize()
+    mag = (x.float() * w.float()).abs() + b.float().abs()
+    if r is not None:
+        mag += r.float().abs()
+    err = (y.float() - y_plain.float()).abs()
+    if not torch.isfinite(y.float()).all() or not bool((err <= BN_APPLY_RTOL * mag).all()):
+        fail(f"{name} bn_apply: max abs err {err.max().item():.3e} beyond "
+             f"{BN_APPLY_RTOL} * (|x*w| + |b| + |r|)")
+    kw, kb, kstats = got
+    ky = batchnorm.bn_apply_kernel(x, kw, kb, r, relu)
+    res = r is not None
+    gk = batchnorm.bn_bwd_kernel(x, ky, dy, kw, scale, kstats, relu, res)
+    gp = batchnorm.bn_bwd_plain(x, ky, dy, kw, scale, kstats, relu, res)
+    order = [0, 2, 3] + ([1] if res else [])  # dx, dscale, dbias, dr
+    err_b = check_rel_l2(f"{name} bn_bwd vs bwd_plain", [gk[i] for i in order],
+                         [gp[i] for i in order], BWD_REL_L2_TOL)
+    if x.shape[0] >= BN_AUTOGRAD_MIN_ROWS:
+        # up to the ReLU, fed dy masked by the kernel's own output
+        dym = torch.where(ky > 0, dy, torch.zeros_like(dy)) if relu else dy
+        auto = plain_vjp(lambda a, s, c, *rr: batchnorm.batchnorm_plain(
+            a, s, c, rr[0] if rr else None), [x, scale, bias] + ([r] if res else []), [dym])
+        # dx against the scale of dy'*w, which autograd's own bf16 product
+        # rounds: dx cancels most of it where dy' lies near the directions
+        # that the batch statistics project out
+        dx_rel = ((gk[0].float() - auto[0].float()).norm()
+                  / (dym.float() * kw.float()).norm().clamp_min(1e-30)).item()
+        if not dx_rel <= BWD_REL_L2_TOL:
+            fail(f"{name} bn_bwd vs autograd: dx error {dx_rel:.3e} of |dy' * w|, "
+                 f"beyond {BWD_REL_L2_TOL}")
+        check_rel_l2(f"{name} bn_bwd vs autograd", [gk[i] for i in order[1:]], auto[1:],
+                     BWD_REL_L2_TOL)
+    return err_s, err.max().item(), err_b
+
+
+def bn_kernel_phase(dev, gen) -> list:
+    """K8 against its plain version at odd shapes and at ResNet-50's
+    largest (the stem: ReLU) and widest (stage 4's bn3: residual and ReLU)
+    rows at batch 128; the rows are timed at the stem's shape."""
+    for M, C in ((1, 64), (37, 24), (1000, 8), (3, 2048), (517, 136)):
+        for relu, res in ((False, False), (True, False), (True, True)):
+            x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
+            check_bn(f"bn {M, C} relu={relu} residual={res}", x, sc, bi, r, relu,
+                     bf16((M, C), gen, dev))
+    try:
+        batchnorm.batchnorm(torch.zeros((10, 12), dtype=torch.bfloat16, device=dev),
+                            torch.ones(12, device=dev), torch.zeros(12, device=dev))
+    except ValueError:
+        pass
+    else:
+        fail("bn: C = 12 (not a multiple of 8) was not refused")
+
+    out = []
+    for where, side, C in (("stem", 112, 64), ("stage4", 7, 2048)):
+        res = where == "stage4"
+        M, n = RESNET_BATCH * side * side, RESNET_BATCH * side * side * C
+        x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
+        dy = bf16((M, C), gen, dev)
+        errs = check_bn(f"bn {where} {M, C}", x, sc, bi, r, True, dy)
+        w, b, stats = batchnorm.bn_stats_kernel(x, sc, bi)
+        y = batchnorm.bn_apply_kernel(x, w, b, r, True)
+        x4, dy4 = (t.view(RESNET_BATCH, side, side, C).permute(0, 3, 1, 2) for t in (x, dy))
+        shape = f"M={M} C={C} ({where}, ReLU{' + residual' if res else ''})"
+        resnet_rows = [
+            row("bn_stats", "batchnorm.cu", "83-97", shape, errs[0],
+                time_ms(lambda: batchnorm.bn_stats_kernel(x, sc, bi)),
+                time_ms(lambda: batchnorm.bn_stats_plain(x, sc, bi), 5, 1),
+                bound_ms(2 * n + 8 * C + 4 * C + 16 * C, 3 * n, PEAK_F32),
+                # stats and apply in one library call: the pair's yardstick
+                time_ms(lambda: F.batch_norm(x4, None, None, sc, bi, training=True)),
+                jax_file="resnet.py"),
+            row("bn_apply", "batchnorm.cu", "105,110-115", shape, errs[1],
+                time_ms(lambda: batchnorm.bn_apply_kernel(x, w, b, r, True)),
+                time_ms(lambda: batchnorm.bn_apply_plain(x, w, b, r, True), 5, 1),
+                bound_ms(2 * n * (3 if res else 2) + 4 * C, (4 if res else 3) * n, PEAK_F32),
+                None, jax_file="resnet.py"),
+            row("bn_bwd", "batchnorm.cu", "83-97", shape, errs[2],
+                time_ms(lambda: batchnorm.bn_bwd_kernel(x, y, dy, w, sc, stats, True, res)),
+                time_ms(lambda: batchnorm.bn_bwd_plain(x, y, dy, w, sc, stats, True, res), 5, 1),
+                bound_ms(2 * n * (5 if res else 4) + 2 * C + 32 * C, 10 * n, PEAK_F32),
+                library_bwd_ms(lambda a, s, c: F.batch_norm(a, None, None, s, c, training=True),
+                               [x4, sc, bi], [dy4]), jax_file="resnet.py"),
+        ]
+        for rw in resnet_rows:
+            print(f"kernel {rw['name']} ({rw['shape']}): max_abs_err={rw['max_abs_err']:.3e} "
+                  f"ms={rw['ms']:.4f} plain_ms={rw['plain_ms']:.4f} "
+                  f"library_ms={rw['library_ms']} bound_ms={rw['bound_ms']:.4f} "
+                  f"({rw['bound_by']})", flush=True)
+        if where == "stem":
+            out = resnet_rows
+        del x, dy, y, x4, dy4, r
+    return out
+
+
+def resnet_check_phase(dev):
+    """ResNet-50 on the kernels vs on the plain versions, batch 8 x 224^2,
+    random f32 weights, bf16 compute: the loss; the logits and every
+    gradient against an f32 run of the plain versions, for each bf16 path
+    (see RESNET_ACCURACY_RATIO); and each of the 53 batch-norm layers'
+    kernels against the plain versions on the inputs and upstream
+    gradient that layer saw in the kernel run."""
+    cfg = resnet.ResNetConfig()
+    params = resnet.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    leaves = resnet.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    images, labels = resnet.synthetic_batch(cfg, RESNET_CHECK_BATCH, RESNET_SIZE, torch.float32,
+                                            dev)
+    layers = []
+
+    def recording_bn(x, scale, bias, residual=None, relu=False):
+        y = batchnorm.batchnorm(x, scale, bias, residual, relu)
+        rec = dict(args=(x.detach(), scale.detach(), bias.detach(),
+                         None if residual is None else residual.detach(), relu))
+        y.register_hook(lambda g, rec=rec: rec.__setitem__("dy", g.detach().contiguous()))
+        layers.append(rec)
+        return y
+
+    results = {}
+    for name, ops, dtype in (("kernels", resnet.Ops(recording_bn), cfg.dtype),
+                             ("plain", resnet.PLAIN, cfg.dtype),
+                             ("f32", resnet.PLAIN, torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        with torch.no_grad():
+            logits = resnet.forward(c, params, images, resnet.PLAIN if name != "kernels"
+                                    else resnet.KERNELS)
+        loss = resnet.loss_fn(c, params, images, labels, ops)
+        results[name] = (logits, loss.item(), torch.autograd.grad(loss, leaves))
+        del loss
+    torch.cuda.synchronize()
+    (k_logits, k_loss, k_grads), (p_logits, p_loss, p_grads), (f_logits, _f_loss, f_grads) = (
+        results[n] for n in ("kernels", "plain", "f32"))
+    if k_logits.shape != (RESNET_CHECK_BATCH, cfg.num_classes) or k_logits.dtype != torch.float32:
+        fail(f"resnet forward: logits {tuple(k_logits.shape)} {k_logits.dtype}")
+    if not torch.isfinite(k_logits).all() or not all(torch.isfinite(g).all() for g in k_grads):
+        fail("resnet: non-finite logits or gradients")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    logit_k, logit_p = rel(k_logits, f_logits), rel(p_logits, f_logits)
+    grad_k = float(np.median([rel(g, f) for g, f in zip(k_grads, f_grads)]))
+    grad_p = float(np.median([rel(g, f) for g, f in zip(p_grads, f_grads)]))
+    grad_kp = [rel(g, w) for g, w in zip(k_grads, p_grads)]
+    print(f"resnet-50 kernels vs plain (batch {RESNET_CHECK_BATCH} x {RESNET_SIZE}^2): loss "
+          f"{k_loss:.6f} vs {p_loss:.6f} (tol {RESNET_LOSS_TOL}); against f32: logits rel_l2 "
+          f"kernels {logit_k:.3e} plain {logit_p:.3e}, gradients median rel_l2 kernels "
+          f"{grad_k:.3e} plain {grad_p:.3e} (kernels within {RESNET_ACCURACY_RATIO}x plain); "
+          f"kernels vs plain: logits rel_l2 {rel(k_logits, p_logits):.3e}, gradients median "
+          f"{float(np.median(grad_kp)):.3e} max {max(grad_kp):.3e}", flush=True)
+    if not (np.isfinite(k_loss) and abs(k_loss - p_loss) <= RESNET_LOSS_TOL):
+        fail(f"resnet train check: loss {k_loss} vs plain {p_loss}")
+    if not (logit_k <= RESNET_ACCURACY_RATIO * logit_p
+            and grad_k <= RESNET_ACCURACY_RATIO * grad_p):
+        fail("resnet train check: the kernels are less accurate than the plain versions")
+    if len(layers) != resnet.num_bn_layers(cfg) or any("dy" not in rec for rec in layers):
+        fail(f"resnet train check: {len(layers)} batch-norm layers recorded")
+    worst = [0.0, 0.0, 0.0]
+    for i, rec in enumerate(layers):
+        x, s, b, r, relu = rec["args"]
+        errs = check_bn(f"resnet layer {i} {tuple(x.shape)}", x, s, b, r, relu, rec["dy"])
+        worst = [max(a, e) for a, e in zip(worst, errs)]
+    print(f"resnet-50: each of the {len(layers)} batch-norm layers' kernels against the plain "
+          f"versions on that layer's own inputs: max abs err stats {worst[0]:.3e} apply "
+          f"{worst[1]:.3e} bwd {worst[2]:.3e}", flush=True)
+
+
+BN_KERNEL_NAMES = ("bn_partial_kernel", "bn_finalize_kernel", "bn_apply_kernel", "bn_dx_kernel")
+
+
+def resnet_step_profile() -> dict:
+    """One ResNet-50 train step at batch 128 x 224^2 under torch.profiler:
+    device time by kernel, the batch-norm kernels' part of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = resnet.ResNetConfig()
+    params, opt = resnet.make_train_state(cfg, seed=0)
+    step = resnet.make_train_step(cfg, params, opt)
+    images, labels = resnet.synthetic_batch(cfg, RESNET_BATCH, RESNET_SIZE, cfg.dtype,
+                                            torch.device("cuda"))
+    for _ in range(2):
+        float(step(images, labels))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(step(images, labels))
+    kern: dict = {}
+    for ev in prof.key_averages():
+        if "cuda" in str(ev.device_type).lower():
+            kern[ev.key] = kern.get(ev.key, 0.0) + benchguard.device_time_us(ev)
+    total = sum(kern.values())
+    bn = sum(v for k, v in kern.items() if any(b in k for b in BN_KERNEL_NAMES))
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms=total / 1e3, bn_ms=bn / 1e3,
+                top=[(k[:80], round(v / 1e3, 4)) for k, v in top])
+
+
+def resnet_phase(card: str) -> dict:
+    """ResNet-50 (full width and depth) trained through the bench payload
+    at batch 128 x 224^2 on the card: the third main path."""
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    res = resnet_bench.run(batch=RESNET_BATCH, steps=RESNET_STEPS, size=RESNET_SIZE,
+                           warmup=RESNET_WARMUP, profile=True)  # device: the card
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print("resnet_bench result: " + json.dumps(res), flush=True)
+    steps_run = RESNET_WARMUP + RESNET_STEPS + 1  # the profiled step too
+    per_step = resnet.num_bn_layers(resnet.ResNetConfig())
+    for name, n in launches.items():
+        want = per_step if name in BN_KERNELS else 0
+        if n != want * steps_run or (name in BN_KERNELS and n == 0):
+            fail(f"resnet: {name} launched {n} times in {steps_run} steps, want {want} per step")
+    first, final = res["first_loss"], res["final_loss"]
+    if not (np.isfinite(first) and np.isfinite(final) and final < first):
+        fail(f"resnet: losses first {first} final {final} (want finite, falling)")
+    free_memory()
+    prof = resnet_step_profile()
+    step_ms = res["step_time_ms"]
+    out = dict(launches=launches, step_ms=step_ms, imgs_per_s=res["imgs_per_sec"],
+               mfu=res["mfu"], peak_mem_gib=peak / 2 ** 30, **prof)
+    shares = (f"bn_ms={prof['bn_ms']:.3f} ({100 * prof['bn_ms'] / step_ms:.1f} % of the step, "
+              f"{100 * prof['bn_ms'] / max(prof['device_ms'], 1e-9):.1f} % of device time) "
+              f"device_ms={prof['device_ms']:.3f} ({100 * prof['device_ms'] / step_ms:.1f} % "
+              f"busy)" if prof["device_ms"] else "device time not measured (no device events)")
+    print(f"resnet-50 (batch {RESNET_BATCH} x {RESNET_SIZE}^2, SGD momentum 0.9): "
+          f"losses first={first:.4f} final={final:.4f} step_ms={step_ms:.2f} "
+          f"imgs_per_s={res['imgs_per_sec']:.1f} flops_per_step={res['flops_per_step']:.4e} "
+          f"MFU={res['mfu']} (of {PEAK_BF16_TENSOR:.3e}) peak_mem_gib={out['peak_mem_gib']:.2f} "
+          f"{shares} launches={ {k: v for k, v in launches.items() if v} } on [{card}]",
+          flush=True)
+    print(f"resnet-50 step, top kernels by device ms: {prof['top']}", flush=True)
+    return out
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -713,17 +1029,25 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, attn_train_ms = kernel_phase(dev, gen)
     free_memory()
+    bn_rows = bn_kernel_phase(dev, gen)
+    free_memory()
     forward_phase(dev)
     free_memory()
     train_check_phase(dev)
     free_memory()
+    resnet_check_phase(dev)
+    free_memory()
     serve = serving_phase(card)
     free_memory()  # the server's 16 GB of weights go before the train state comes
     train = train_phase(card, train_kernel_ms(rows, attn_train_ms))
+    free_memory()
+    rn = resnet_phase(card)
+    rows += bn_rows
     for r in rows:
         r["launches_serving"] = serve["launches"][r["name"]]
         r["launches_train"] = train["launches"][r["name"]]
-        r["launches"] = r["launches_serving"] + r["launches_train"]
+        r["launches_resnet"] = rn["launches"][r["name"]]
+        r["launches"] = r["launches_serving"] + r["launches_train"] + r["launches_resnet"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ Every module holds one op's wrapper (a CPU tensor takes the plain
 version, which autograd differentiates; a CUDA tensor launches the kernel
 or raises, through a ``torch.autograd.Function`` whose backward is a
 kernel too where a gradient is wanted), the plain forward and backward,
-and the ``KERNEL`` / ``KERNEL_BWD`` objects that bind the C entry points
-and count their launches.  ``build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
+and the ``build.Kernel`` objects (``KERNEL``, ``KERNEL_BWD``; batch norm's
+``KERNEL_STATS``, ``KERNEL_APPLY``, ``KERNEL_BWD``) that bind the C entry
+points and count their launches.  ``build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
 """

@@ -18,7 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from kubernetes1_tpu_torch.kernels import attention, build, cross_entropy, rmsnorm, rope, swiglu
+from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, rmsnorm,
+                                           rope, swiglu)
 from kubernetes1_tpu_torch.workloads import sharding
 
 REPO = Path(__file__).resolve().parent.parent
@@ -78,7 +79,8 @@ def test_importing_the_port_pulls_in_no_jax():
     import subprocess
 
     code = ("import sys, kubernetes1_tpu_torch.workloads.llama, "
-            "kubernetes1_tpu_torch.kernels.build; "
+            "kubernetes1_tpu_torch.workloads.resnet_bench, "
+            "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -117,7 +119,7 @@ def _plain_must_not_run(*_a, **_k):
     raise AssertionError("the plain version ran on a CUDA tensor")
 
 
-KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy)
+KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy, batchnorm)
 
 
 @pytest.fixture
@@ -127,11 +129,13 @@ def no_kernel_libraries(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_libs", {})
     for mod in KERNEL_MODULES:
-        monkeypatch.setattr(mod.KERNEL, "_fn", None)
-        monkeypatch.setattr(mod.KERNEL_BWD, "_fn", None)
+        for kern in vars(mod).values():
+            if isinstance(kern, build.Kernel):
+                monkeypatch.setattr(kern, "_fn", None)
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy"])
+@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
+                                "batchnorm"])
 def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
                                                            monkeypatch, op):
     B, S, H, Hkv, hd = 2, 8, 4, 2, 16
@@ -144,6 +148,12 @@ def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
         call = lambda: cross_entropy.cross_entropy(
             _FakeCudaTensor(B * S, 1000), _FakeCudaTensor(B * S, dtype=torch.int64))
         kernel = cross_entropy.KERNEL
+    elif op == "batchnorm":
+        monkeypatch.setattr(batchnorm, "batchnorm_plain", _plain_must_not_run)
+        monkeypatch.setattr(batchnorm, "bn_stats_plain", _plain_must_not_run)
+        call = lambda: batchnorm.batchnorm(_FakeCudaTensor(B * S, 64),
+                                           *_fakes((64,), (64,), dtype=torch.float32))
+        kernel = batchnorm.KERNEL_STATS
     elif op == "rmsnorm":
         monkeypatch.setattr(rmsnorm, "rmsnorm_plain", _plain_must_not_run)
         call = lambda: rmsnorm.rmsnorm(_FakeCudaTensor(B * S, 64), _FakeCudaTensor(64))
@@ -169,7 +179,8 @@ def _fakes(*shapes, dtype=torch.bfloat16):
     return [_FakeCudaTensor(*s, dtype=dtype) for s in shapes]
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy"])
+@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
+                                "batchnorm_apply", "batchnorm"])
 def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_libraries, op):
     """The backward entry points, which the autograd Functions call, raise
     like the forward ones and count nothing."""
@@ -183,19 +194,31 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
         "cross_entropy": lambda: cross_entropy.cross_entropy_bwd_kernel(
             *_fakes((16, 1000)), *_fakes((16,), dtype=torch.int64),
             *_fakes((16,), (16,), dtype=f32)),
+        "batchnorm_apply": lambda: batchnorm.bn_apply_kernel(*_fakes((16, 64), (64,), (64,))),
+        "batchnorm": lambda: batchnorm.bn_bwd_kernel(
+            *_fakes((16, 64), (16, 64), (16, 64), (64,)), *_fakes((64,), (4, 64), dtype=f32),
+            relu=True),
     }[op]
-    kernel = {"attention": attention, "rmsnorm": rmsnorm, "rope": rope, "swiglu": swiglu,
-              "cross_entropy": cross_entropy}[op].KERNEL_BWD
+    kernel = {"attention": attention.KERNEL_BWD, "rmsnorm": rmsnorm.KERNEL_BWD,
+              "rope": rope.KERNEL_BWD, "swiglu": swiglu.KERNEL_BWD,
+              "cross_entropy": cross_entropy.KERNEL_BWD, "batchnorm": batchnorm.KERNEL_BWD,
+              "batchnorm_apply": batchnorm.KERNEL_APPLY}[op]
     before = kernel.launches
     with pytest.raises(build.KernelUnavailableError, match="nvcc not found"):
         call()
     assert kernel.launches == before
 
 
-@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy"])
+@pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
+                                "batchnorm"])
 def test_wrapper_takes_plain_version_only_on_cpu(op):
     x = torch.randn(2, 8, 4, 16)
-    if op == "swiglu":
+    if op == "batchnorm":
+        x2, sc = x.reshape(64, 16), torch.linspace(0.5, 1.5, 16)
+        assert torch.equal(batchnorm.batchnorm(x2, sc, -sc, x2, True),
+                           batchnorm.batchnorm_plain(x2, sc, -sc, x2, True))
+        kernel = batchnorm.KERNEL_STATS
+    elif op == "swiglu":
         assert torch.equal(swiglu.swiglu(x, x + 1), swiglu.swiglu_plain(x, x + 1))
         kernel = swiglu.KERNEL
     elif op == "cross_entropy":
@@ -275,7 +298,7 @@ def test_build_all_runs_one_nvcc_per_source_for_sm90a(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_find_nvcc", lambda: _fake_nvcc(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     paths = build.build_all()
-    sources = ["attention", "cross_entropy", "rmsnorm", "rope", "swiglu"]
+    sources = ["attention", "batchnorm", "cross_entropy", "rmsnorm", "rope", "swiglu"]
     assert sorted(paths) == sources
     calls = (tmp_path / "nvcc.log").read_text().splitlines()
     assert len(calls) == len(sources)
