@@ -33,7 +33,18 @@
 9. trains ResNet-50 (full width and depth, random weights from a seed) at
    batch 128 x 224^2 through the bench payload resnet_bench.run, checks the
    losses and the K8 launches per step, and profiles one more step for the
-   batch-norm kernels' share of it.
+   batch-norm kernels' share of it;
+10. (BERT, K7a non-causal attention, K7b LayerNorm, K9 tanh-GELU, K5 over
+   f32 logits) holds each of those kernels, forward and backward, against
+   its plain version at BERT-large's shapes (B=32, S=512 and S=200; 16384
+   rows of 1024, 4096 and 30522) and at odd small ones, and times them;
+11. holds a BERT train step's loss and every gradient on the kernels
+   against those on the plain versions, at BERT-large widths with 2 layers
+   and batch 2 x 512;
+12. trains BERT-large (all 24 layers, remat, random weights from a seed) for
+   5 AdamW steps on the fixed synthetic masked batch 32 x 512 through
+   make_train_state / make_train_step, checks the losses and every new
+   kernel's launches per step, counts the step's FLOPs and profiles one step.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -56,9 +67,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, rmsnorm,
-                                           rope, swiglu)
-from kubernetes1_tpu_torch.workloads import benchguard, llama, resnet, resnet_bench
+from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
+                                           layernorm, rmsnorm, rope, swiglu)
+from kubernetes1_tpu_torch.workloads import bert, benchguard, llama, resnet, resnet_bench
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
 SPIN_CYCLES = 50_000_000
@@ -160,6 +171,42 @@ RESNET_BATCH, RESNET_SIZE = 128, 224  # resnet_bench.py's defaults
 RESNET_STEPS, RESNET_WARMUP = 20, 2  # resnet_bench.py's default --steps
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd")
 
+# BERT (K7a, K7b, K9, K5 over f32 logits), kernel vs plain on the same inputs.
+# Non-causal attention: ATTENTION_TOL forward, BWD_REL_L2_TOL backward, for
+# the reasons given there (the mask changes which keys count, not how).
+# LayerNorm forward: the kernel and the plain version round the same f32
+# value once, but take the row's sums in another order (~1e-7 relative in
+# mu and r), so an output next to a rounding boundary lands one bf16 step
+# away (at most 2^-7 relative); outputs near 0 (bias cancelling) get an
+# absolute floor for that f32 noise.  Backward: BWD_REL_L2_TOL.
+LN_TOL = (1e-5, 2.0 ** -7)
+# GELU forward and backward, kernel vs plain: both compute the same f32
+# expression with the same tanhf and no FMA contraction, then round once,
+# so they must be equal bit for bit (0 bf16 steps).  Backward vs autograd
+# of the plain forward: autograd sums the chain rule's terms in another
+# f32 order, so the rounded result may land one bf16 step away (2^-7
+# relative at most), and near the derivative's zero (x ~ -0.75) the
+# terms (~|dy|) cancel, leaving their f32 error: 1e-6 absolute.
+GELU_TOL = (0.0, 0.0)
+GELU_VJP_TOL = (1e-6, 2.0 ** -7)
+# Cross-entropy over f32 logits: loss and lse as XENT_LOSS_TOL (30522 exps
+# summed in another order); the f32 gradient is not rounded, so it differs
+# only by __expf against expf and the lse's last bits: 1e-5 relative, with
+# an absolute floor of 1e-7 for entries near 0.
+XENT_F32_GRAD_TOL = (1e-7, 1e-5)
+# Train step, kernels vs plain, BERT-large widths, 2 layers, batch 2 x 512:
+# the loss within 1e-2 (its ~150 masked rows average the bf16 logits'
+# rounding differences); each gradient within 5e-2 relative L2 (as
+# TRAIN_GRAD_REL_L2_TOL: each layer's backward chains eight kernels, each a
+# step or two of 2^-8 from its plain version).
+BERT_LOSS_TOL = 1e-2
+BERT_GRAD_REL_L2_TOL = 5e-2
+BERT_CHECK_LAYERS, BERT_CHECK_BATCH = 2, 2
+BERT_BATCH, BERT_SEQ = 32, 512  # 16,384 tokens; BERT pretraining phase 2's length
+BERT_STEPS, BERT_LR = 5, 1e-4
+BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
+                "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
+
 # Every launch counter, by name: the forward kernels, then the backward ones.
 KERNELS = {
     "attention": attention.KERNEL, "rmsnorm": rmsnorm.KERNEL, "rope": rope.KERNEL,
@@ -169,6 +216,11 @@ KERNELS = {
     "cross_entropy_bwd": cross_entropy.KERNEL_BWD,
     "bn_stats": batchnorm.KERNEL_STATS, "bn_apply": batchnorm.KERNEL_APPLY,
     "bn_bwd": batchnorm.KERNEL_BWD,
+    "attention_noncausal": attention.KERNEL_NC, "attention_noncausal_bwd": attention.KERNEL_BWD_NC,
+    "layernorm": layernorm.KERNEL, "layernorm_bwd": layernorm.KERNEL_BWD,
+    "gelu": gelu.KERNEL, "gelu_bwd": gelu.KERNEL_BWD,
+    "cross_entropy_f32": cross_entropy.KERNEL_F32,
+    "cross_entropy_f32_bwd": cross_entropy.KERNEL_BWD_F32,
 }
 
 
@@ -185,6 +237,19 @@ def train_launches_per_step(L: int) -> dict:
     return {"attention": L, "attention_bwd": L, "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
             "rope": L, "rope_bwd": L, "swiglu": 2 * L, "swiglu_bwd": L,
             "cross_entropy": 1, "cross_entropy_bwd": 1}
+
+
+def bert_launches_per_step(L: int) -> dict:
+    """One BERT train step with L layers under full remat (JAX's
+    jax.checkpoint on the whole layer): each layer's forward runs again in
+    backward, so attention and its GELU twice and both its LayerNorms
+    twice; the final LayerNorm and the head's GELU once.
+    tests/test_torch_bert.py asserts the same counts on the CPU with the
+    kernels' plain twins."""
+    return {"attention_noncausal": 2 * L, "attention_noncausal_bwd": L,
+            "layernorm": 4 * L + 1, "layernorm_bwd": 2 * L + 1,
+            "gelu": 2 * L + 1, "gelu_bwd": L + 1,
+            "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1}
 
 
 def fail(msg: str):
@@ -275,6 +340,12 @@ def library_bwd_ms(fn, inputs, cotangents=None) -> float:
     leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
     out = fn(*leaves)
     return time_ms(lambda: torch.autograd.grad(out, leaves, cotangents, retain_graph=True), 5, 1)
+
+
+def print_row(r):
+    print(f"kernel {r['name']} ({r['shape']}): max_abs_err={r['max_abs_err']:.3e} "
+          f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
 
 
 def row(name, source, replaces, shape, err, ms, plain_ms, bound, library_ms,
@@ -444,9 +515,7 @@ def kernel_phase(dev, gen) -> tuple:
     del logits, scratch, loss, lse
 
     for r in out:
-        print(f"kernel {r['name']} ({r['shape']}): max_abs_err={r['max_abs_err']:.3e} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+        print_row(r)
     return out, attn_train_ms
 
 
@@ -491,7 +560,7 @@ def check_swiglu_bwd(name, g, u, dy) -> float:
     return err
 
 
-def check_xent(name, logits, t, grad) -> tuple:
+def check_xent(name, logits, t, grad, grad_tol=XENT_GRAD_TOL) -> tuple:
     """Forward (loss, lse) and backward, each against the plain versions;
     returns the max abs errors of the loss and of the gradient."""
     loss, lse = cross_entropy.cross_entropy_kernel(logits, t)
@@ -500,11 +569,10 @@ def check_xent(name, logits, t, grad) -> tuple:
                          cross_entropy.cross_entropy_lse_plain(logits)], XENT_LOSS_TOL)
     got = cross_entropy.cross_entropy_bwd_kernel(logits, t, lse, grad)
     err_b = check_close(f"{name} grad vs bwd_plain", [got],
-                        [cross_entropy.cross_entropy_bwd_plain(logits, t, lse, grad)],
-                        XENT_GRAD_TOL)
+                        [cross_entropy.cross_entropy_bwd_plain(logits, t, lse, grad)], grad_tol)
     check_close(f"{name} grad vs autograd", [got],
                 plain_vjp(lambda a: cross_entropy.cross_entropy_plain(a, t), [logits], [grad]),
-                XENT_GRAD_TOL)
+                grad_tol)
     inplace = logits.clone()  # the training path writes the gradient over the logits
     cross_entropy.cross_entropy_bwd_kernel(inplace, t, lse, grad, out=inplace)
     torch.cuda.synchronize()
@@ -707,11 +775,12 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
                kernel_ms_per_step=kern_ms, kernel_share=kern_ms / step_ms,
                **step_breakdown(cfg, params, opt, tokens))
     # model FLOPs: 6 per matrix weight per token (embedding gathers excluded)
-    # plus attention's 4 (forward) + 10 (backward) * hd per unmasked pair
+    # plus attention's 4 (forward) + 8 (backward) * hd per unmasked pair;
+    # the backward kernel's recompute of Q K^T is implementation work
     mm_params = n_params - params["embed"].numel() - (2 * cfg.n_layers + 1) * cfg.d_model
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) / 2
     flops = (6 * mm_params * tokens_per_step
-             + 14 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * pairs)
+             + 12 * cfg.n_layers * TRAIN_BATCH * cfg.n_heads * cfg.head_dim * pairs)
     res["model_tflops_per_s"] = flops / step_ms / 1e9
     print(f"train (Llama-3-8B widths, {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
           f"batch {TRAIN_BATCH}x{TRAIN_SEQ}, remat {cfg.remat_policy}, AdamW): "
@@ -848,10 +917,7 @@ def bn_kernel_phase(dev, gen) -> list:
                                [x4, sc, bi], [dy4]), jax_file="resnet.py"),
         ]
         for rw in resnet_rows:
-            print(f"kernel {rw['name']} ({rw['shape']}): max_abs_err={rw['max_abs_err']:.3e} "
-                  f"ms={rw['ms']:.4f} plain_ms={rw['plain_ms']:.4f} "
-                  f"library_ms={rw['library_ms']} bound_ms={rw['bound_ms']:.4f} "
-                  f"({rw['bound_by']})", flush=True)
+            print_row(rw)
         if where == "stem":
             out = resnet_rows
         del x, dy, y, x4, dy4, r
@@ -950,7 +1016,7 @@ def resnet_step_profile() -> dict:
         float(step(images, labels))
     kern: dict = {}
     for ev in prof.key_averages():
-        if "cuda" in str(ev.device_type).lower():
+        if benchguard.is_device_op(ev):
             kern[ev.key] = kern.get(ev.key, 0.0) + benchguard.device_time_us(ev)
     total = sum(kern.values())
     bn = sum(v for k, v in kern.items() if any(b in k for b in BN_KERNEL_NAMES))
@@ -997,6 +1063,303 @@ def resnet_phase(card: str) -> dict:
     print(f"resnet-50 step, top kernels by device ms: {prof['top']}", flush=True)
     return out
 
+# ----------------------------------------------- BERT (K7a, K7b, K9, K5-f32)
+
+
+def check_attention_nc(name, q, k, v, do) -> tuple:
+    """Non-causal forward (o, lse) and backward against the plain versions,
+    the backward also against autograd of the plain forward; returns the
+    max abs errors of o and of (dq, dk, dv)."""
+    o, lse = attention.attention_kernel(q, k, v, True, causal=False)
+    err_f = check_close(f"{name} fwd", [o], [attention.attention_plain(q, k, v, causal=False)],
+                        ATTENTION_TOL)
+    check_close(f"{name} lse", [lse], [attention.attention_lse_plain(q, k, causal=False)],
+                (1e-4, 1e-5))
+    got = attention.attention_bwd_kernel(q, k, v, o, lse, do, causal=False)
+    err_b = check_rel_l2(f"{name} bwd vs bwd_plain", got,
+                         attention.attention_bwd_plain(q, k, v, o, lse, do, causal=False),
+                         BWD_REL_L2_TOL)
+    check_rel_l2(f"{name} bwd vs autograd", got,
+                 plain_vjp(partial(attention.attention_plain, causal=False), [q, k, v], [do]),
+                 BWD_REL_L2_TOL)
+    return err_f, err_b
+
+
+def check_layernorm(name, x, sc, bi, dy) -> tuple:
+    err_f = check_close(f"{name} fwd", [layernorm.layernorm_kernel(x, sc, bi)],
+                        [layernorm.layernorm_plain(x, sc, bi)], LN_TOL)
+    got = layernorm.layernorm_bwd_kernel(x, sc, dy)
+    err_b = check_rel_l2(f"{name} bwd vs bwd_plain", got, layernorm.layernorm_bwd_plain(x, sc, dy),
+                         BWD_REL_L2_TOL)
+    check_rel_l2(f"{name} bwd vs autograd", got,
+                 plain_vjp(layernorm.layernorm_plain, [x, sc, bi], [dy]), BWD_REL_L2_TOL)
+    return err_f, err_b
+
+
+def check_gelu(name, x, dy) -> tuple:
+    err_f = check_close(f"{name} fwd", [gelu.gelu_kernel(x)], [gelu.gelu_plain(x)], GELU_TOL)
+    got = gelu.gelu_bwd_kernel(x, dy)
+    err_b = check_close(f"{name} bwd vs bwd_plain", [got], [gelu.gelu_bwd_plain(x, dy)],
+                        GELU_TOL)
+    check_close(f"{name} bwd vs autograd", [got], plain_vjp(gelu.gelu_plain, [x], [dy]),
+                GELU_VJP_TOL)
+    return err_f, err_b
+
+
+def ln_inputs(rows, d, gen, dev):
+    """A residual-stream activation (mean 0.3, std 1.5), f32 scale and bias."""
+    return (bf16((rows, d), gen, dev, 1.5, 0.3), torch.rand(d, generator=gen, device=dev) + 0.5,
+            torch.randn(d, generator=gen, device=dev) * 0.3)
+
+
+def bert_kernel_phase(dev, gen) -> tuple:
+    """K7a, K7b, K9 and K5-f32, forward and backward, against their plain
+    versions at odd small shapes and at BERT-large's (B=32, S=512, H=16,
+    hd=64; 16384 rows of d=1024, d_ff=4096, vocab=30522); timed at the
+    latter.  Returns the rows and each kernel's time per call in the train
+    step (the head's GELU, on 16384 x 1024, apart)."""
+    cfg = bert.bert_large()
+    for B, S, H, hd in ((2, 37, 4, 16), (1, 100, 8, 64), (3, 130, 4, 32), (1, 65, 8, 128),
+                        (2, 64, 16, 64)):
+        q, k, v, do = (bf16((B, S, H, hd), gen, dev) for _ in range(4))
+        check_attention_nc(f"attention_noncausal {(B, S, H, hd)}", q, k, v, do)
+    for rows, d in ((37, 64), (5, 1000), (1, 8), (300, 4096), (513, 1024)):
+        x, sc, bi = ln_inputs(rows, d, gen, dev)
+        check_layernorm(f"layernorm {rows, d}", x, sc, bi, bf16((rows, d), gen, dev))
+    for rows, n in ((37, 24), (3, 40), (5, 1000)):
+        check_gelu(f"gelu {rows, n}", bf16((rows, n), gen, dev, 3.0), bf16((rows, n), gen, dev))
+    for rows, vocab in ((37, 1003), (16, 30522), (5, 1000), (3, 4097)):  # vec 1, 2, 4 and 1
+        logits = torch.randn((rows, vocab), generator=gen, device=dev) * 3.0
+        t = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+        check_xent(f"cross_entropy_f32 {rows, vocab}", logits, t,
+                   torch.randn(rows, generator=gen, device=dev), XENT_F32_GRAD_TOL)
+
+    out, per_call = [], {}
+    # ---- K7a at B=32, H=16, hd=64: S=512 (the train step's) and S=200 (a
+    # length no multiple of the 64-row tiles: the padding mask)
+    B, H, hd = BERT_BATCH, cfg.n_heads, cfg.head_dim
+    for S in (BERT_SEQ, 200):
+        q, k, v, do = (bf16((B, S, H, hd), gen, dev) for _ in range(4))
+        err_f, err_b = check_attention_nc(f"attention_noncausal B={B} S={S}", q, k, v, do)
+        o, lse = attention.attention_kernel(q, k, v, True, causal=False)
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        shape = f"B={B} S={S} H={H} hd={hd} non-causal"
+        n, stats = q.numel(), 4 * B * H * S
+        rows = [
+            row("attention_noncausal", "attention.cu", 129, shape, err_f,
+                time_ms(lambda: attention.attention_kernel(q, k, v, True, causal=False)),
+                time_ms(lambda: attention.attention_plain(q, k, v, causal=False), 5, 1),
+                bound_ms(2 * 4 * n + stats, 4 * B * H * hd * S * S, PEAK_BF16_TENSOR),
+                time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)), jax_file="bert.py"),
+            row("attention_noncausal_bwd", "attention.cu", 129, shape, err_b,
+                time_ms(lambda: attention.attention_bwd_kernel(q, k, v, o, lse, do, causal=False),
+                        10, 2),
+                time_ms(lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, causal=False),
+                        3, 1),
+                bound_ms(2 * 8 * n + stats, 10 * B * H * hd * S * S, PEAK_BF16_TENSOR),
+                library_bwd_ms(F.scaled_dot_product_attention, [qt, kt, vt], [dot]),
+                jax_file="bert.py"),
+        ]
+        for r in rows:
+            print_row(r)
+        if S == BERT_SEQ:
+            out += rows
+        del q, k, v, do, o, lse, qt, kt, vt, dot
+
+    # ---- K7b on the (16384, 1024) residual stream
+    M, d = BERT_BATCH * BERT_SEQ, cfg.d_model
+    x, sc, bi = ln_inputs(M, d, gen, dev)
+    dy = bf16((M, d), gen, dev)
+    err_f, err_b = check_layernorm(f"layernorm {M, d}", x, sc, bi, dy)
+    n = x.numel()
+    scb, bib = sc.to(x.dtype), bi.to(x.dtype)  # the library call takes bf16 weights
+    shape = f"rows={M} d={d}"
+    ln_rows = [
+        row("layernorm", "layernorm.cu", "113-118", shape, err_f,
+            time_ms(lambda: layernorm.layernorm_kernel(x, sc, bi)),
+            time_ms(lambda: layernorm.layernorm_plain(x, sc, bi), 5, 1),
+            bound_ms(2 * 2 * n + 8 * d, 8 * n, PEAK_F32),
+            time_ms(lambda: F.layer_norm(x, (d,), scb, bib, layernorm.EPS)), jax_file="bert.py"),
+        row("layernorm_bwd", "layernorm.cu", "113-118", shape, err_b,
+            time_ms(lambda: layernorm.layernorm_bwd_kernel(x, sc, dy)),
+            time_ms(lambda: layernorm.layernorm_bwd_plain(x, sc, dy), 5, 1),
+            bound_ms(2 * 3 * n + 12 * d, 16 * n, PEAK_F32),
+            library_bwd_ms(lambda a, w, b: F.layer_norm(a, (d,), w, b, layernorm.EPS),
+                           [x, scb, bib], [dy]), jax_file="bert.py"),
+    ]
+    out += ln_rows
+    del x, dy
+
+    # ---- K9 on the (16384, 4096) output of x @ w_in, and the head's (16384, 1024)
+    for cols in (cfg.d_ff, d):
+        x, dy = bf16((M, cols), gen, dev, 2.0), bf16((M, cols), gen, dev)
+        err_f, err_b = check_gelu(f"gelu {M, cols}", x, dy)
+        n = x.numel()
+        shape = f"rows={M} n={cols}"
+        rows = [
+            row("gelu", "gelu.cu", "132,151", shape, err_f, time_ms(lambda: gelu.gelu_kernel(x)),
+                time_ms(lambda: gelu.gelu_plain(x), 5, 1), bound_ms(2 * 2 * n, 10 * n, PEAK_F32),
+                time_ms(lambda: F.gelu(x, approximate="tanh")), jax_file="bert.py"),
+            row("gelu_bwd", "gelu.cu", "132,151", shape, err_b,
+                time_ms(lambda: gelu.gelu_bwd_kernel(x, dy)),
+                time_ms(lambda: gelu.gelu_bwd_plain(x, dy), 5, 1),
+                bound_ms(2 * 3 * n, 18 * n, PEAK_F32),
+                library_bwd_ms(lambda a: F.gelu(a, approximate="tanh"), [x], [dy]),
+                jax_file="bert.py"),
+        ]
+        for r in rows:
+            print_row(r)
+        if cols == cfg.d_ff:
+            out += rows
+        else:
+            per_call["gelu_head"], per_call["gelu_head_bwd"] = rows[0]["ms"], rows[1]["ms"]
+        del x, dy
+
+    # ---- K5 over the (16384, 30522) f32 logits
+    logits = torch.randn((M, cfg.vocab), generator=gen, device=dev) * 2.0
+    t = torch.randint(0, cfg.vocab, (M,), generator=gen, device=dev)
+    grad = torch.full((M,), 1.0 / M, device=dev)
+    errs = check_xent("cross_entropy_f32 BERT", logits, t, torch.randn(M, generator=gen, device=dev),
+                      XENT_F32_GRAD_TOL)
+    _loss, lse = cross_entropy.cross_entropy_kernel(logits, t)
+    m = logits.numel()
+    shape = f"rows={M} vocab={cfg.vocab} f32"
+    scratch = torch.empty_like(logits)
+    xent_rows = [
+        row("cross_entropy_f32", "cross_entropy.cu", "157-166", shape, errs[0],
+            time_ms(lambda: cross_entropy.cross_entropy_kernel(logits, t)),
+            time_ms(lambda: cross_entropy.cross_entropy_plain(logits, t), 5, 1),
+            bound_ms(4 * m + 8 * M + 8 * M, 4 * m, PEAK_F32),
+            time_ms(lambda: F.cross_entropy(logits, t, reduction="none"), 5, 1), jax_file="bert.py"),
+        row("cross_entropy_f32_bwd", "cross_entropy.cu", "157-166", shape, errs[1],
+            time_ms(lambda: cross_entropy.cross_entropy_bwd_kernel(logits, t, lse, grad,
+                                                                   out=scratch)),
+            time_ms(lambda: cross_entropy.cross_entropy_bwd_plain(logits, t, lse, grad), 5, 1),
+            bound_ms(2 * 4 * m + 16 * M, 4 * m, PEAK_F32),
+            library_bwd_ms(lambda a: F.cross_entropy(a, t), [logits]), jax_file="bert.py"),
+    ]
+    out += xent_rows
+    del logits, scratch, lse
+    for r in ln_rows + xent_rows:
+        print_row(r)
+    per_call.update({r["name"]: r["ms"] for r in out})
+    return out, per_call
+
+
+def bert_check_phase(dev):
+    """A BERT train step's loss and gradients on the kernels vs on the
+    plain versions: BERT-large widths, 2 layers, remat, batch 2 x 512,
+    f32 master weights."""
+    cfg = dataclasses.replace(bert.bert_large(), n_layers=BERT_CHECK_LAYERS)
+    params = bert.init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    leaves = bert.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens, mask = (t.to(dev) for t in bert.synthetic_batch(cfg, BERT_CHECK_BATCH, BERT_SEQ,
+                                                            seed=1))
+    results = []
+    for ops in (bert.KERNELS, bert.PLAIN):
+        loss = bert.mlm_loss_fn(cfg, params, tokens, mask, ops)
+        grads = torch.autograd.grad(loss, leaves)
+        results.append((loss.item(), grads))
+        del loss
+    (k_loss, k_grads), (p_loss, p_grads) = results
+    torch.cuda.synchronize()
+    rels = [((g - w).norm() / w.norm().clamp_min(1e-30)).item() for g, w in zip(k_grads, p_grads)]
+    worst = int(np.argmax(rels))
+    print(f"bert train step, kernels vs plain (BERT-large widths, {cfg.n_layers} layers, "
+          f"{BERT_CHECK_BATCH}x{BERT_SEQ} tokens, {int(mask.sum())} masked): loss "
+          f"{k_loss:.6f} vs {p_loss:.6f} (tol {BERT_LOSS_TOL}), gradients: max relative L2 "
+          f"{rels[worst]:.3e} at leaf {worst} of {len(rels)}, median {float(np.median(rels)):.3e} "
+          f"(tol {BERT_GRAD_REL_L2_TOL})", flush=True)
+    if not (np.isfinite(k_loss) and abs(k_loss - p_loss) <= BERT_LOSS_TOL):
+        fail(f"bert train check: loss {k_loss} vs plain {p_loss}")
+    if not all(np.isfinite(r) and r <= BERT_GRAD_REL_L2_TOL for r in rels):
+        fail(f"bert train check: gradient {worst} relative L2 {rels[worst]:.3e}")
+
+
+def bert_phase(card: str, per_call: dict) -> dict:
+    """BERT-large (full width and depth, remat) trained for 5 AdamW steps on
+    one fixed synthetic masked batch 32 x 512 through make_train_state /
+    make_train_step: the fourth main path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    cfg = bert.bert_large()
+    t0 = time.monotonic()
+    params, opt = bert.make_train_state(cfg, lr=BERT_LR, seed=0)  # device: the card
+    n_params = sum(p.numel() for p in bert.param_leaves(params))
+    step = bert.make_train_step(cfg, params, opt)
+    tokens, mask = (t.cuda() for t in bert.synthetic_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0))
+    torch.cuda.synchronize()
+    print(f"bert: {n_params / 1e6:.2f} M parameters made in {time.monotonic() - t0:.1f} s",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    losses, times = [], []
+    counter = FlopCounterMode(display=False)
+    for i in range(BERT_STEPS):
+        t1 = time.monotonic()
+        if i == 0:  # the first step, which the mean leaves out, counts the FLOPs
+            with counter:
+                loss = step(tokens, mask)
+        else:
+            loss = step(tokens, mask)
+        losses.append(loss.item())  # synchronises
+        times.append(time.monotonic() - t1)
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"bert: losses {losses} (want finite, last below first)")
+    per_step = bert_launches_per_step(cfg.n_layers)
+    for name, n in launches.items():
+        if n != per_step.get(name, 0) * BERT_STEPS:
+            fail(f"bert: {name} launched {n} times in {BERT_STEPS} steps, "
+                 f"want {per_step.get(name, 0)} per step")
+    step_ms = float(np.mean(times[1:])) * 1e3
+    tokens_per_step = BERT_BATCH * BERT_SEQ
+    L, B, S, H, hd = cfg.n_layers, BERT_BATCH, BERT_SEQ, cfg.n_heads, cfg.head_dim
+    pairs = B * H * hd * S * S  # the attention kernels' (query, key) pairs times hd
+    # model FLOPs: 6 per matrix weight per token (the tied decode counts
+    # embed; the gathers, LayerNorms and biases do not) plus attention's
+    # 4 (forward) + 8 (backward) per pair and head dim, as PaLM counts it;
+    # executed FLOPs: FlopCounterMode's count of the step (its matrix
+    # products, the remat's second forward included; it cannot see the
+    # hand kernels) plus the attention kernels' 2 x 4 + 10 (the backward
+    # kernel recomputes Q K^T)
+    mm_params = sum(p.numel() for p in bert.param_leaves(params) if p.dim() == 2
+                    and p is not params["pos_embed"])
+    model_flops = 6 * mm_params * tokens_per_step + 12 * L * pairs
+    counted = float(counter.get_total_flops())
+    executed_flops = counted + 18 * L * pairs
+    kern_ms = sum(per_step[name] * per_call[name] for name in per_step) + (
+        per_call["gelu_head"] - per_call["gelu"]) + (per_call["gelu_head_bwd"] - per_call["gelu_bwd"])
+    prof = benchguard.collect_profile(lambda: float(step(tokens, mask)), top_n=8)
+    device_ms = prof.get("device_time_us", 0.0) / 1e3
+    res = dict(losses=losses, step_ms=step_ms, first_step_ms=times[0] * 1e3,
+               tokens_per_s=tokens_per_step / step_ms * 1e3, peak_mem_gib=peak / 2 ** 30,
+               launches=launches, model_flops=model_flops, counted_flops=counted,
+               executed_flops=executed_flops,
+               model_tflops_per_s=model_flops / step_ms / 1e9,
+               mfu=model_flops / step_ms * 1e3 / PEAK_BF16_TENSOR,
+               kernel_ms_per_step=kern_ms, device_ms=device_ms)
+    busy = (f"device_ms={device_ms:.2f} ({100 * device_ms / step_ms:.1f} % busy)" if device_ms
+            else f"device time not measured ({prof.get('error')})")
+    print(f"bert (BERT-large, {L} layers, {n_params / 1e6:.2f} M params, batch {B}x{S}, remat, "
+          f"AdamW lr {BERT_LR}): losses={[round(x, 4) for x in losses]} step_ms={step_ms:.2f} "
+          f"(first {res['first_step_ms']:.1f}) tokens_per_s={res['tokens_per_s']:.1f} "
+          f"model_tflop_per_step={model_flops / 1e12:.3f} "
+          f"model_tflops_per_s={res['model_tflops_per_s']:.1f} (MFU {100 * res['mfu']:.2f} % "
+          f"of {PEAK_BF16_TENSOR:.3e}) flop_counter_tflop_per_step={counted / 1e12:.3f} "
+          f"executed_tflops_per_s={executed_flops / step_ms / 1e9:.1f} "
+          f"peak_mem_gib={res['peak_mem_gib']:.2f} kernels_ms_per_step={kern_ms:.2f} "
+          f"({100 * kern_ms / step_ms:.1f} %) {busy} "
+          f"launches_per_step={ {k: v // BERT_STEPS for k, v in launches.items() if v} } "
+          f"on [{card}]", flush=True)
+    print(f"bert step, top kernels by device time: {prof.get('top_ops')}", flush=True)
+    del params, opt, step
+    return res
+
 
 def free_memory():
     gc.collect()
@@ -1014,6 +1377,7 @@ def train_kernel_ms(rows: list, attn_train_ms: float) -> dict:
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device is visible")
+    t_start = time.monotonic()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions run in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1031,9 +1395,13 @@ def main():
     free_memory()
     bn_rows = bn_kernel_phase(dev, gen)
     free_memory()
+    bert_rows, bert_per_call = bert_kernel_phase(dev, gen)
+    free_memory()
     forward_phase(dev)
     free_memory()
     train_check_phase(dev)
+    free_memory()
+    bert_check_phase(dev)
     free_memory()
     resnet_check_phase(dev)
     free_memory()
@@ -1042,12 +1410,17 @@ def main():
     train = train_phase(card, train_kernel_ms(rows, attn_train_ms))
     free_memory()
     rn = resnet_phase(card)
-    rows += bn_rows
+    free_memory()
+    bt = bert_phase(card, bert_per_call)
+    rows += bn_rows + bert_rows
     for r in rows:
         r["launches_serving"] = serve["launches"][r["name"]]
         r["launches_train"] = train["launches"][r["name"]]
         r["launches_resnet"] = rn["launches"][r["name"]]
-        r["launches"] = r["launches_serving"] + r["launches_train"] + r["launches_resnet"]
+        r["launches_bert"] = bt["launches"][r["name"]]
+        r["launches"] = (r["launches_serving"] + r["launches_train"] + r["launches_resnet"]
+                         + r["launches_bert"])
+    print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,32 @@
-// K1 causal GQA attention for Hopper: forward and backward.
+// K1 causal GQA attention and K7a non-causal attention for Hopper: forward
+// and backward, one tile loop for both (`causal` picks the mask).
 //
 // Replaces: kubernetes1_tpu/workloads/llama.py `attention`, i.e.
-// jax.nn.dot_product_attention(q, k, v, is_causal=True), which XLA lowers
-// to QK^T (f32 accumulate) * hd^-0.5, causal mask, f32 softmax, probs cast
-// to bf16, P.V.  q: (B, S, H, hd), k/v: (B, S, Hkv, hd), bf16; query head n
-// reads kv head n / (H / Hkv), as JAX's (B, T, K, G, hd) reshape does.
+// jax.nn.dot_product_attention(q, k, v, is_causal=True), and
+// kubernetes1_tpu/workloads/bert.py:129, jax.nn.dot_product_attention(q, k,
+// v) with no mask, which XLA lowers to QK^T (f32 accumulate) * hd^-0.5, the
+// mask, f32 softmax, probs cast to bf16, P.V.  q: (B, S, H, hd), k/v: (B, S,
+// Hkv, hd), bf16; query head n reads kv head n / (H / Hkv), as JAX's (B, T,
+// K, G, hd) reshape does (BERT: H == Hkv).
+//
+// The two masks: causal keeps key <= query, which also hides every key past
+// S from a real query row.  Non-causal walks every K/V tile, so the keys
+// past S in the last tile (zero-filled: a zero key scores 0, not -inf) are
+// masked to -inf explicitly, in the forward and in the backward's P^T.
 //
 // Bound on the H100: operations at the decode server's shapes.  4*hd flops
 // per unmasked (query, key) pair: at B=8, S=1024, H=32, hd=128 that is
 // ~69 GFLOP against ~168 MB of q, k, v and o, about 400 flops per byte,
-// above the card's ~295 bf16 flops per byte.
+// above the card's ~295 bf16 flops per byte.  BERT-large's non-causal
+// B=32, S=512, H=16, hd=64: 34.4 GFLOP against 134 MB, ~256 flops per byte,
+// just under that line, so bytes and operations bound it about equally.
 //
 // Design (flash attention, forward only, no KV cache, as the JAX engine):
 // - one block of 4 warps per (64-row query tile, q head, batch row); each
 //   warp owns 16 query rows.  Tiles are launched last-first, so the long
 //   causal rows start early and the short ones fill the tail;
-// - the block walks 64-row K/V tiles only up to the causal diagonal, through
+// - the block walks 64-row K/V tiles up to the causal diagonal (every tile
+//   when non-causal), through
 //   a two-stage ring in shared memory (2 stages x (K + V) x 17 KB, rows
 //   padded by 16 bytes so ldmatrix hits 32 distinct banks): cp.async fetches
 //   tile j+1 while the tensor cores work on tile j.  K and V of a kv head are
@@ -31,13 +42,13 @@
 //   is divided by the f32 row sum at the end;
 // - K/V rows past S are zero-filled (cp.async with source size 0), so a
 //   masked (zero) probability never meets garbage; query rows past S are
-//   computed and not stored.
+//   computed and not stored; non-causal masks the keys past S to -inf.
 // - optionally (training), the f32 log-sum-exp of each row, m + log(l), for
 //   the backward; serving passes a null pointer and writes none.
 // Not yet: TMA, wgmma, warp specialisation.
 //
 // Backward (flash-attention style, recomputing P from q, k and the lse):
-//   D = rowsum(dO o O);  P = exp(scale * Q K^T - lse) under the causal mask;
+//   D = rowsum(dO o O);  P = exp(scale * Q K^T - lse) under the mask;
 //   dV = P^T dO;  dS = P o (dO V^T - D);  dK = scale * dS^T Q;  dQ = scale * dS K.
 // P meets dO and dS meets Q and K in bf16 on the tensor cores (f32
 // accumulate), as the forward rounds P for P.V; attention_bwd_plain in
@@ -47,7 +58,7 @@
 // - one block of 4 warps per (64-row key tile, kv head, batch row).  The
 //   block keeps its K and V tiles in shared memory and walks, for each of
 //   the H/Hkv query heads of its kv head, the query tiles from the diagonal
-//   down; each warp owns 16 key rows and accumulates their dK and dV in
+//   down (from tile 0 when non-causal); each warp owns 16 key rows and accumulates their dK and dV in
 //   registers across all those heads and tiles, so GQA is summed in place,
 //   with no K/V repeat and no atomics on dK, dV;
 // - dQ of a query tile gets a part from every key tile, so the blocks add
@@ -117,7 +128,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 // Three blocks per SM (<= 170 registers a thread; hd=128 then spills 36
 // bytes): the extra resident warps hide the K/V fetches and the softmax,
 // 0.36 vs 0.43 ms at B=8, S=1024 on an H100 (chip_smoke.py shapes).
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 3)
 attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -178,10 +189,12 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   load_tile(0, 0);
   cp_async_commit();
 
-  for (int j = 0; j <= qt; ++j) {  // kBlockM == kBlockN: tile qt holds the diagonal
+  // kBlockM == kBlockN: tile qt holds the diagonal
+  const int last = CAUSAL ? qt : (S + kBlockN - 1) / kBlockN - 1;
+  for (int j = 0; j <= last; ++j) {
     const int kv0 = j * kBlockN;
     const int st = j & 1;
-    if (j < qt) load_tile(j + 1, st ^ 1);
+    if (j < last) load_tile(j + 1, st ^ 1);
     cp_async_commit();   // an empty group on the last tile keeps the count uniform
     cp_async_wait<1>();  // tile j has landed (tile j+1 may still be in flight)
     __syncthreads();
@@ -203,17 +216,18 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       }
     }
 
-    // Scale in f32, mask above the diagonal, update the running max.
+    // Scale in f32, mask above the diagonal (causal) or past S (non-causal),
+    // update the running max.
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int n = 0; n < kBlockN / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float s = sc[n][e] * scale;
-        if (j == qt) {
+        if (j == last) {
           const int col = kv0 + n * 8 + t * 2 + (e & 1);
           const int row = e < 2 ? r0 : r1;
-          if (col > row) s = -INFINITY;
+          if (CAUSAL ? col > row : col >= S) s = -INFINITY;
         }
         sc[n][e] = s;
       }
@@ -225,7 +239,8 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
-    // Every row sees key kv0 <= its own index in every tile, so mx is finite.
+    // Every tile holds key kv0, which is unmasked (causal: kv0 <= the row's
+    // index; non-causal: kv0 < S), so mx is finite.
     const float alpha0 = __expf(m0 - mx0), alpha1 = __expf(m1 - mx1);
     m0 = mx0;
     m1 = mx1;
@@ -289,17 +304,18 @@ attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
             int H, int Hkv, float scale, cudaStream_t stream) {
   constexpr int smem = 2 * 2 * kBlockN * (HD + 8) * sizeof(__nv_bfloat16);  // 2 stages, K and V
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per process
   if (!attr_set) {
-    cudaFuncSetAttribute(attention_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(attention_fwd_kernel<HD, CAUSAL>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set = true;
   }
   const dim3 grid((S + kBlockM - 1) / kBlockM, H, B);
-  attention_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  attention_fwd_kernel<HD, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H, Hkv,
       scale);
@@ -345,7 +361,7 @@ attention_bwd_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -404,7 +420,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const float* del_b = delta + (static_cast<long long>(b) * H + h) * S;
     float* dqb = dq_acc + static_cast<long long>(b) * S * q_row + h * HD;
 
-    for (int qt = kt; qt < nq; ++qt) {
+    for (int qt = CAUSAL ? kt : 0; qt < nq; ++qt) {
       const int q0 = qt * kBlockM;
       __syncthreads();  // the previous tile's qs, dos, dss, lse_s, d_s are no longer read
       for (int idx = threadIdx.x; idx < kBlockM * CHUNKS; idx += kThreads) {
@@ -440,7 +456,8 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           mma_16816(st[n + 1], a, bq[2], bq[3]);
         }
       }
-      // P^T = exp(scale * S^T - lse[query]) where key <= query < S, else 0
+      // P^T = exp(scale * S^T - lse[query]) where query < S and key <= query
+      // (causal) or key < S (non-causal), else 0
 #pragma unroll
       for (int n = 0; n < kBlockM / 8; ++n) {
 #pragma unroll
@@ -448,7 +465,8 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           const int qi = n * 8 + t * 2 + (e & 1);
           const int key = k0 + wk + g + (e < 2 ? 0 : 8);
           const int qr = q0 + qi;
-          st[n][e] = (qr < S && key <= qr) ? __expf(st[n][e] * scale - lse_s[qi]) : 0.f;
+          const bool keep = qr < S && (CAUSAL ? key <= qr : key < S);
+          st[n][e] = keep ? __expf(st[n][e] * scale - lse_s[qi]) : 0.f;
         }
       }
       // dV += P^T dO (k-steps over queries)
@@ -563,7 +581,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int HD>
+template <int HD, bool CAUSAL>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
                        int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
@@ -572,49 +590,70 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attention_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attention_bwd_kernel<HD, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((S + kBlockN - 1) / kBlockN, Hkv, B);
-  attention_bwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  attention_bwd_kernel<HD, CAUSAL><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
       dq_acc, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, Hkv, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); bf16 contiguous; H % Hkv == 0;
-// hd in {16, 32, 64, 128}.  lse: null, or (B, H, S) f32 to receive each
-// row's log-sum-exp of the scaled scores (for the backward).
-extern "C" int ktpu_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                       void* lse, int B, int S, int H, int Hkv, int hd,
-                                       float scale, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+template <bool CAUSAL>
+int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+              int H, int Hkv, int hd, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: launch<16>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
-    case 32: launch<32>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
-    case 64: launch<64>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
-    case 128: launch<128>(q, k, v, o, l, B, S, H, Hkv, scale, st); break;
+    case 16: launch<16, CAUSAL>(q, k, v, o, lse, B, S, H, Hkv, scale, st); break;
+    case 32: launch<32, CAUSAL>(q, k, v, o, lse, B, S, H, Hkv, scale, st); break;
+    case 64: launch<64, CAUSAL>(q, k, v, o, lse, B, S, H, Hkv, scale, st); break;
+    case 128: launch<128, CAUSAL>(q, k, v, o, lse, B, S, H, Hkv, scale, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool CAUSAL>
+cudaError_t launch_bwd_hd(const void* q, const void* k, const void* v, const void* dout,
+                          const float* l, const float* dl, float* acc, void* dk, void* dv,
+                          int B, int S, int H, int Hkv, int hd, float scale, cudaStream_t st) {
+  switch (hd) {
+    case 16: return launch_bwd<16, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 32: return launch_bwd<32, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 64: return launch_bwd<64, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 128: return launch_bwd<128, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, o: (B, S, H, hd); k, v: (B, S, Hkv, hd); bf16 contiguous; H % Hkv == 0;
+// hd in {16, 32, 64, 128}.  lse: null, or (B, H, S) f32 to receive each
+// row's log-sum-exp of the scaled scores (for the backward).  causal: 1
+// keeps key <= query (K1), 0 keeps every key < S (K7a).
+extern "C" int ktpu_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int B, int S, int H, int Hkv, int hd,
+                                       float scale, int causal, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  return causal ? launch_hd<true>(q, k, v, o, l, B, S, H, Hkv, hd, scale, st)
+                : launch_hd<false>(q, k, v, o, l, B, S, H, Hkv, hd, scale, st);
+}
+
 // Shapes as the forward; o, dout: (B, S, H, hd) bf16; lse: (B, H, S) f32 from
 // the forward; scratch: delta (B, H, S) f32 and dq_acc (B, S, H, hd) f32
-// (zeroed here); out: dq like q, dk and dv like k, bf16.  Three launches:
-// D, the tile pass, the dQ rounding.
+// (zeroed here); out: dq like q, dk and dv like k, bf16; causal as the
+// forward.  Three launches: D, the tile pass, the dQ rounding.
 extern "C" int ktpu_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* delta, void* dq_acc, void* dq, void* dk, void* dv,
                                        int B, int S, int H, int Hkv, int hd, float scale,
-                                       void* stream) {
+                                       int causal, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -628,13 +667,8 @@ extern "C" int ktpu_attention_bwd_bf16(const void* q, const void* k, const void*
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* acc = static_cast<float*>(dq_acc);
-  switch (hd) {
-    case 16: e = launch_bwd<16>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
-    case 32: e = launch_bwd<32>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
-    case 64: e = launch_bwd<64>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
-    case 128: e = launch_bwd<128>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  e = causal ? launch_bwd_hd<true>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, hd, scale, st)
+             : launch_bwd_hd<false>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, hd, scale, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long n4 = rows * hd / 4;
   const long long blocks = (n4 + 255) / 256;

@@ -1,26 +1,35 @@
-// K5 fused cross-entropy for Hopper: forward and backward over bf16 logits.
+// K5 fused cross-entropy for Hopper: forward and backward over bf16 or f32
+// logits (one template on the element type).
 //
-// Replaces: kubernetes1_tpu/workloads/llama.py `loss_fn`, lines 196-202:
-// logits.astype(f32), jax.nn.log_softmax, take_along_axis of the target,
-// mean.  Per row of the bf16 logits (rows, vocab):
+// Replaces: kubernetes1_tpu/workloads/llama.py `loss_fn`, lines 196-202
+// (bf16 logits): logits.astype(f32), jax.nn.log_softmax, take_along_axis of
+// the target, mean; and kubernetes1_tpu/workloads/bert.py `mlm_loss_fn`,
+// lines 157-166, whose logits are f32 (the bf16 decode plus the f32
+// mlm_bias): log_softmax, take_along_axis, the masked mean.  Per row of the
+// logits (rows, vocab):
 //   forward:  lse = log(sum(exp(x))), loss = lse - x[target], both f32;
-//   backward: dlogits = bf16((exp(x - lse) - onehot(target)) * grad[row]),
-//             which is where the VJP of JAX's astype(float32) rounds it.
-// The mean over rows stays a torch op.  Neither the f32 logits, their
-// log-softmax nor their f32 gradient exist in device memory: at
-// Llama-3-8B's 8192 x 128256 each would be 4.2 GB.
+//   backward: dlogits = T((exp(x - lse) - onehot(target)) * grad[row]): for
+//             bf16 where the VJP of JAX's astype(float32) rounds it, for
+//             f32 not rounded at all.
+// The mean (Llama) or the mask weighting (BERT) over rows stays a torch
+// op.  For bf16 logits neither the f32 logits, their log-softmax nor their
+// f32 gradient exist in device memory: at Llama-3-8B's 8192 x 128256 each
+// would be 4.2 GB.  For f32 logits the log-softmax and a second gradient
+// tensor never exist: at BERT's 16384 x 30522 each would be 2.0 GB.
 //
-// Bound on the H100: bytes.  Forward reads the logits once (2 bytes and
-// ~4 flops an element); backward reads them and writes the gradient (4
-// bytes, ~4 flops).  The backward may write over the logits in place
-// (dlogits == logits): each element is read and then written by the same
-// thread.
+// Bound on the H100: bytes.  Forward reads the logits once (2 or 4 bytes
+// and ~4 flops an element); backward reads them and writes the gradient
+// (4 or 8 bytes, ~4 flops).  The backward may write over the logits in
+// place (dlogits == logits): each element is read and then written by the
+// same thread.
 //
 // Design: one block of 512 threads per row.  Forward: each thread keeps an
-// online (max, sum of exp) pair over its elements, 8 at a time (16-byte
-// loads when vocab % 8 == 0, scalar loads otherwise), then the pairs are
-// merged across the warp with shuffles and across the warps in shared
-// memory.  A target outside [0, vocab) gives a NaN loss.
+// online (max, sum of exp) pair over its elements, VEC at a time (bf16: 8,
+// 16-byte loads, when vocab % 8 == 0; f32: 4 or 2, 16- or 8-byte loads,
+// when vocab % 4 or % 2 == 0 -- BERT's 30522 takes 2; scalar loads
+// otherwise), then the pairs are merged across the warp with shuffles and
+// across the warps in shared memory.  A target outside [0, vocab) gives a
+// NaN loss.
 
 #include "common.cuh"
 
@@ -36,31 +45,47 @@ __device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
   m = mx;
 }
 
-template <bool kVec>
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return ktpu::bf2f(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return ktpu::f2bf(v);
+}
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+
+// The register type of one VEC-element load: 16, 8 or 4 bytes.
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = unsigned; };
+
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-xent_fwd_kernel(const __nv_bfloat16* __restrict__ logits, const long long* __restrict__ targets,
+xent_fwd_kernel(const T* __restrict__ logits, const long long* __restrict__ targets,
                 float* __restrict__ loss, float* __restrict__ lse, int V) {
   __shared__ float sm_m[kThreads / 32], sm_s[kThreads / 32];
   const long long row = blockIdx.x;
-  const __nv_bfloat16* x = logits + row * V;
+  const T* x = logits + row * V;
   float m = -INFINITY, s = 0.f;
-  if (kVec) {
-    for (int c = threadIdx.x * 8; c < V; c += kThreads * 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + c);
-      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      float f[8], mx = -INFINITY;
+  if constexpr (VEC > 1) {
+    using R = typename Raw<VEC * sizeof(T)>::type;
+    for (int c = threadIdx.x * VEC; c < V; c += kThreads * VEC) {
+      const R raw = *reinterpret_cast<const R*>(x + c);
+      const T* v = reinterpret_cast<const T*>(&raw);
+      float f[VEC], mx = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        f[e] = ktpu::bf2f(v[e]);
+      for (int e = 0; e < VEC; ++e) {
+        f[e] = to_f(v[e]);
         mx = fmaxf(mx, f[e]);
       }
       float part = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) part += __expf(f[e] - mx);
+      for (int e = 0; e < VEC; ++e) part += __expf(f[e] - mx);
       merge(m, s, mx, part);
     }
   } else {
-    for (int c = threadIdx.x; c < V; c += kThreads) merge(m, s, ktpu::bf2f(x[c]), 1.f);
+    for (int c = threadIdx.x; c < V; c += kThreads) merge(m, s, to_f(x[c]), 1.f);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -87,75 +112,119 @@ xent_fwd_kernel(const __nv_bfloat16* __restrict__ logits, const long long* __res
       const float l = m + logf(s);
       const long long t = targets[row];
       lse[row] = l;
-      loss[row] = (t >= 0 && t < V) ? l - ktpu::bf2f(x[t]) : NAN;
+      loss[row] = (t >= 0 && t < V) ? l - to_f(x[t]) : NAN;
     }
   }
 }
 
-template <bool kVec>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-xent_bwd_kernel(const __nv_bfloat16* logits, const long long* __restrict__ targets,
+xent_bwd_kernel(const T* logits, const long long* __restrict__ targets,
                 const float* __restrict__ lse, const float* __restrict__ grad,
-                __nv_bfloat16* dlogits, int V) {
+                T* dlogits, int V) {
   const long long row = blockIdx.x;
-  const __nv_bfloat16* x = logits + row * V;
-  __nv_bfloat16* dx = dlogits + row * V;
+  const T* x = logits + row * V;
+  T* dx = dlogits + row * V;
   const float l = lse[row], gr = grad[row];
   const long long t = targets[row];
-  if (kVec) {
-    for (int c = threadIdx.x * 8; c < V; c += kThreads * 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(x + c);
-      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      uint4 res;
-      __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&res);
+  if constexpr (VEC > 1) {
+    using R = typename Raw<VEC * sizeof(T)>::type;
+    for (int c = threadIdx.x * VEC; c < V; c += kThreads * VEC) {
+      const R raw = *reinterpret_cast<const R*>(x + c);
+      const T* v = reinterpret_cast<const T*>(&raw);
+      R res;
+      T* o = reinterpret_cast<T*>(&res);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float p = __expf(ktpu::bf2f(v[e]) - l);
-        o[e] = ktpu::f2bf((p - (c + e == t ? 1.f : 0.f)) * gr);
+      for (int e = 0; e < VEC; ++e) {
+        const float p = __expf(to_f(v[e]) - l);
+        o[e] = from_f<T>((p - (c + e == t ? 1.f : 0.f)) * gr);
       }
-      *reinterpret_cast<uint4*>(dx + c) = res;
+      *reinterpret_cast<R*>(dx + c) = res;
     }
   } else {
     for (int c = threadIdx.x; c < V; c += kThreads) {
-      const float p = __expf(ktpu::bf2f(x[c]) - l);
-      dx[c] = ktpu::f2bf((p - (c == t ? 1.f : 0.f)) * gr);
+      const float p = __expf(to_f(x[c]) - l);
+      dx[c] = from_f<T>((p - (c == t ? 1.f : 0.f)) * gr);
     }
   }
+}
+
+// The widest load that every row start allows (rows of V elements in a
+// 16-byte aligned tensor): bf16 8 or 1 elements, f32 4, 2 or 1.
+template <typename T>
+int vec_for(int V) {
+  if (sizeof(T) == 2) return V % 8 == 0 ? 8 : 1;
+  return V % 4 == 0 ? 4 : (V % 2 == 0 ? 2 : 1);
+}
+
+template <typename T>
+int launch_fwd(const void* logits, const void* targets, void* loss, void* lse, int rows, int V,
+               void* stream) {
+  if (rows <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const T*>(logits);
+  const auto* t = static_cast<const long long*>(targets);
+  auto* lo = static_cast<float*>(loss);
+  auto* ls = static_cast<float*>(lse);
+  const int vec = vec_for<T>(V);
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 8) xent_fwd_kernel<T, 8><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+    else xent_fwd_kernel<T, 1><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+  } else {
+    if (vec == 4) xent_fwd_kernel<T, 4><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+    else if (vec == 2) xent_fwd_kernel<T, 2><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+    else xent_fwd_kernel<T, 1><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* logits, const void* targets, const void* lse, const void* grad,
+               void* dlogits, int rows, int V, void* stream) {
+  if (rows <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const T*>(logits);
+  const auto* t = static_cast<const long long*>(targets);
+  const auto* l = static_cast<const float*>(lse);
+  const auto* g = static_cast<const float*>(grad);
+  auto* dx = static_cast<T*>(dlogits);
+  const int vec = vec_for<T>(V);
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 8) xent_bwd_kernel<T, 8><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
+    else xent_bwd_kernel<T, 1><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
+  } else {
+    if (vec == 4) xent_bwd_kernel<T, 4><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
+    else if (vec == 2) xent_bwd_kernel<T, 2><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
+    else xent_bwd_kernel<T, 1><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// logits: (rows, V) bf16 contiguous; targets: (rows,) int64; loss, lse: (rows,) f32.
+// logits: (rows, V) bf16 or f32 contiguous; targets: (rows,) int64; loss,
+// lse: (rows,) f32.
 extern "C" int ktpu_xent_fwd_bf16(const void* logits, const void* targets, void* loss,
                                   void* lse, int rows, int V, void* stream) {
-  if (rows <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const __nv_bfloat16*>(logits);
-  const auto* t = static_cast<const long long*>(targets);
-  if (V % 8 == 0)
-    xent_fwd_kernel<true><<<rows, kThreads, 0, st>>>(x, t, static_cast<float*>(loss),
-                                                     static_cast<float*>(lse), V);
-  else
-    xent_fwd_kernel<false><<<rows, kThreads, 0, st>>>(x, t, static_cast<float*>(loss),
-                                                      static_cast<float*>(lse), V);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<__nv_bfloat16>(logits, targets, loss, lse, rows, V, stream);
 }
 
-// logits, dlogits: (rows, V) bf16 contiguous, dlogits may be logits (in
-// place); targets: (rows,) int64; lse, grad: (rows,) f32.
+extern "C" int ktpu_xent_fwd_f32(const void* logits, const void* targets, void* loss,
+                                 void* lse, int rows, int V, void* stream) {
+  return launch_fwd<float>(logits, targets, loss, lse, rows, V, stream);
+}
+
+// logits, dlogits: (rows, V) contiguous, of one dtype (bf16 or f32),
+// dlogits may be logits (in place); targets: (rows,) int64; lse, grad:
+// (rows,) f32.
 extern "C" int ktpu_xent_bwd_bf16(const void* logits, const void* targets, const void* lse,
                                   const void* grad, void* dlogits, int rows, int V,
                                   void* stream) {
-  if (rows <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const __nv_bfloat16*>(logits);
-  const auto* t = static_cast<const long long*>(targets);
-  const auto* l = static_cast<const float*>(lse);
-  const auto* g = static_cast<const float*>(grad);
-  auto* dx = static_cast<__nv_bfloat16*>(dlogits);
-  if (V % 8 == 0)
-    xent_bwd_kernel<true><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
-  else
-    xent_bwd_kernel<false><<<rows, kThreads, 0, st>>>(x, t, l, g, dx, V);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<__nv_bfloat16>(logits, targets, lse, grad, dlogits, rows, V, stream);
+}
+
+extern "C" int ktpu_xent_bwd_f32(const void* logits, const void* targets, const void* lse,
+                                 const void* grad, void* dlogits, int rows, int V,
+                                 void* stream) {
+  return launch_bwd<float>(logits, targets, lse, grad, dlogits, rows, V, stream);
 }

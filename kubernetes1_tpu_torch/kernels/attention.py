@@ -1,10 +1,12 @@
-"""K1 causal GQA attention: the hand-written CUDA kernels (forward and
-backward) and their plain PyTorch versions.
+"""K1 causal GQA attention and K7a non-causal attention: the hand-written
+CUDA kernels (forward and backward) and their plain PyTorch versions.
 
 Replaces ``jax.nn.dot_product_attention(q, k, v, is_causal=True)`` in the
-JAX package's ``workloads/llama.py`` ``attention``; the kernels are in
-``csrc/attention.cu``.  Layouts are JAX's: q (B, S, H, hd), k and v
-(B, S, Hkv, hd), and query head n reads kv head n // (H // Hkv).
+JAX package's ``workloads/llama.py`` ``attention`` (``causal=True``, the
+default) and ``jax.nn.dot_product_attention(q, k, v)`` in its
+``workloads/bert.py`` ``layer_fn`` (``causal=False``); one pair of kernels
+in ``csrc/attention.cu`` serves both.  Layouts are JAX's: q (B, S, H, hd),
+k and v (B, S, Hkv, hd), and query head n reads kv head n // (H // Hkv).
 """
 
 from __future__ import annotations
@@ -17,55 +19,66 @@ import torch
 
 from . import build
 
-KERNEL = build.Kernel("attention", "ktpu_attention_fwd_bf16", [
+_FWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v, o
     ctypes.c_void_p,                                                     # lse or null
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Hkv, hd
-    ctypes.c_float,                                                      # scale
+    ctypes.c_float, ctypes.c_int,                                        # scale, causal
     ctypes.c_void_p,                                                     # stream
-])
-KERNEL_BWD = build.Kernel("attention", "ktpu_attention_bwd_bf16", [
+]
+_BWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # q, k, v
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # o, dout, lse
     ctypes.c_void_p, ctypes.c_void_p,                                    # delta, dq_acc
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # dq, dk, dv
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Hkv, hd
-    ctypes.c_float,                                                      # scale
+    ctypes.c_float, ctypes.c_int,                                        # scale, causal
     ctypes.c_void_p,                                                     # stream
-])
+]
+# One entry point per direction; the causal (K1) and non-causal (K7a)
+# launches are counted apart.
+KERNEL = build.Kernel("attention", "ktpu_attention_fwd_bf16", _FWD_ARGS)
+KERNEL_BWD = build.Kernel("attention", "ktpu_attention_bwd_bf16", _BWD_ARGS)
+KERNEL_NC = build.Kernel("attention", "ktpu_attention_fwd_bf16", _FWD_ARGS)
+KERNEL_BWD_NC = build.Kernel("attention", "ktpu_attention_bwd_bf16", _BWD_ARGS)
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max  # JAX's causal mask value
 
 
-def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """hd^-0.5 * Q K^T in f32 with the causal mask, (B, Hkv, G, S, S)."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """hd^-0.5 * Q K^T in f32, with the causal mask where ``causal``,
+    (B, Hkv, G, S, S)."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, H // Hkv, hd)
     logits = torch.einsum("btkgh,bskh->bkgts", qg.float(), k.float())
     logits = logits * (1.0 / math.sqrt(hd))
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    return logits.masked_fill(~causal, MASK_VALUE)
+    if not causal:
+        return logits
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    return logits.masked_fill(~mask, MASK_VALUE)
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
     """JAX's ``_dot_product_attention_core``, step for step: QK^T with f32
-    accumulation, times hd^-0.5 in f32, causal mask (JAX's large negative,
-    not -inf), f32 softmax, probabilities cast to v's dtype, then P.V."""
+    accumulation, times hd^-0.5 in f32, the causal mask where ``causal``
+    (JAX's large negative, not -inf), f32 softmax, probabilities cast to
+    v's dtype, then P.V."""
     B, S, H, hd = q.shape
-    probs = torch.softmax(_scores(q, k), dim=-1).to(v.dtype)
+    probs = torch.softmax(_scores(q, k, causal), dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskh->btkgh", probs.float(), v.float())
     return out.to(q.dtype).reshape(B, S, H, hd)
 
 
-def attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """The f32 log-sum-exp of each row's scaled scores, (B, H, S): what
     the forward kernel hands its backward."""
     B, S, H, _hd = q.shape
-    return torch.logsumexp(_scores(q, k), dim=-1).reshape(B, H, S)
+    return torch.logsumexp(_scores(q, k, causal), dim=-1).reshape(B, H, S)
 
 
-def attention_bwd_plain(q, k, v, o, lse, dout) -> Tuple[torch.Tensor, ...]:
+def attention_bwd_plain(q, k, v, o, lse, dout, causal: bool = True) -> Tuple[torch.Tensor, ...]:
     """The backward the kernel computes, in f32, rounding where it does:
     P = exp(scores - lse) rounded to q's dtype for dV = P^T dO;
     D = rowsum(dO * O); dS = P * (dO V^T - D) rounded for dK = scale *
@@ -74,7 +87,7 @@ def attention_bwd_plain(q, k, v, o, lse, dout) -> Tuple[torch.Tensor, ...]:
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     G, dt, scale = H // Hkv, q.dtype, 1.0 / math.sqrt(hd)
-    p = torch.exp(_scores(q, k) - lse.reshape(B, Hkv, G, S, 1))
+    p = torch.exp(_scores(q, k, causal) - lse.reshape(B, Hkv, G, S, 1))
     d5 = dout.reshape(B, S, Hkv, G, hd).float()
     delta = (d5 * o.reshape(B, S, Hkv, G, hd).float()).sum(-1)          # (B, S, Hkv, G)
     dv = torch.einsum("bkgts,btkgh->bskh", p.to(dt).float(), d5)
@@ -96,24 +109,27 @@ def _check(q, k, v):
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     with_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                     with_lse: bool = False,
+                     causal: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch of the forward kernel: (o, lse (B, H, S) f32 or None)."""
-    KERNEL.load()
+    kernel = KERNEL if causal else KERNEL_NC
+    kernel.load()
     build.check_cuda_tensors("attention", q, k, v)
     _check(q, k, v)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), device=q.device, dtype=torch.float32) if with_lse else None
-    KERNEL.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   lse.data_ptr() if with_lse else None, B, S, H, k.shape[2], hd,
-                  1.0 / math.sqrt(hd))
+                  1.0 / math.sqrt(hd), int(causal))
     return o, lse
 
 
-def attention_bwd_kernel(q, k, v, o, lse, dout) -> Tuple[torch.Tensor, ...]:
+def attention_bwd_kernel(q, k, v, o, lse, dout, causal: bool = True) -> Tuple[torch.Tensor, ...]:
     """One call of the backward entry point (three launches inside it:
     D, the tile pass, the dQ rounding): (dq, dk, dv)."""
-    KERNEL_BWD.load()
+    kernel = KERNEL_BWD if causal else KERNEL_BWD_NC
+    kernel.load()
     build.check_cuda_tensors("attention backward", q, k, v, o, dout)
     build.check_cuda_tensors("attention backward", lse, dtype=torch.float32)
     _check(q, k, v)
@@ -124,44 +140,48 @@ def attention_bwd_kernel(q, k, v, o, lse, dout) -> Tuple[torch.Tensor, ...]:
     delta = torch.empty((B, H, S), device=q.device, dtype=torch.float32)
     dq_acc = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    KERNEL_BWD.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                      1.0 / math.sqrt(hd))
+                      1.0 / math.sqrt(hd), int(causal))
     return dq, dk, dv
 
 
 class _AttentionFn(torch.autograd.Function):
     """The forward kernel, keeping q, k, v, o and the lse for the backward
-    kernel: the attention forward runs once per layer and step, remat or
-    not (the ``save_attn`` policy)."""
+    kernel (Llama's ``save_attn`` policy keeps them across the remat
+    boundary; BERT's full remat runs the forward again in backward)."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = attention_kernel(q, k, v, with_lse=True)
+    def forward(ctx, q, k, v, causal):
+        o, lse = attention_kernel(q, k, v, with_lse=True, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        return attention_bwd_kernel(q, k, v, o, lse, dout.contiguous())
+        return (*attention_bwd_kernel(q, k, v, o, lse, dout.contiguous(), ctx.causal), None)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention, scale hd^-0.5.
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """GQA attention, scale hd^-0.5, causal (Llama) unless ``causal=False``
+    (BERT's bidirectional encoder).
 
     A CPU tensor takes the plain version (autograd differentiates it); a
     CUDA tensor launches the kernel (bf16, hd in HEAD_DIMS) or raises, and
     where a gradient is wanted, the backward kernel differentiates it."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    return attention_on_kernels(q, k, v)
+        return attention_plain(q, k, v, causal)
+    return attention_on_kernels(q, k, v, causal)
 
 
-def attention_on_kernels(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def attention_on_kernels(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
     """The wrapper's kernel path: the forward kernel alone, or, where a
     gradient is wanted, the autograd Function over both kernels."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _AttentionFn.apply(q, k, v)
-    return attention_kernel(q, k, v)[0]
+        return _AttentionFn.apply(q, k, v, causal)
+    return attention_kernel(q, k, v, causal=causal)[0]

@@ -2,10 +2,12 @@
 backward) and their plain PyTorch versions.
 
 Replaces the ``log_softmax`` / ``take_along_axis`` of the JAX package's
-``workloads/llama.py`` ``loss_fn`` over the logits (rows, vocab): the
-kernels read the bf16 logits and never hold them, their log-softmax or
-their gradient in f32.  The mean over rows stays a torch op.  The
-kernels are in ``csrc/cross_entropy.cu``.
+``workloads/llama.py`` ``loss_fn`` over bf16 logits (rows, vocab), and of
+its ``workloads/bert.py`` ``mlm_loss_fn`` over f32 logits: the kernels
+never hold the log-softmax, nor (bf16) the logits or their gradient in
+f32.  The mean (Llama) or the mask weighting (BERT) over rows stays a
+torch op.  One templated source, ``csrc/cross_entropy.cu``, has an entry
+point per dtype, each with its own launch count.
 """
 
 from __future__ import annotations
@@ -17,19 +19,26 @@ import torch
 
 from . import build
 
-KERNEL = build.Kernel("cross_entropy", "ktpu_xent_fwd_bf16", [
+_FWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,                   # logits, targets
     ctypes.c_void_p, ctypes.c_void_p,                   # loss, lse
     ctypes.c_int, ctypes.c_int,                         # rows, vocab
     ctypes.c_void_p,                                    # stream
-])
-KERNEL_BWD = build.Kernel("cross_entropy", "ktpu_xent_bwd_bf16", [
+]
+_BWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,                   # logits, targets
     ctypes.c_void_p, ctypes.c_void_p,                   # lse, grad
     ctypes.c_void_p,                                    # dlogits (may be logits)
     ctypes.c_int, ctypes.c_int,                         # rows, vocab
     ctypes.c_void_p,                                    # stream
-])
+]
+# bf16 logits (Llama)
+KERNEL = build.Kernel("cross_entropy", "ktpu_xent_fwd_bf16", _FWD_ARGS)
+KERNEL_BWD = build.Kernel("cross_entropy", "ktpu_xent_bwd_bf16", _BWD_ARGS)
+# f32 logits (BERT's masked LM)
+KERNEL_F32 = build.Kernel("cross_entropy", "ktpu_xent_fwd_f32", _FWD_ARGS)
+KERNEL_BWD_F32 = build.Kernel("cross_entropy", "ktpu_xent_bwd_f32", _BWD_ARGS)
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def cross_entropy_plain(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -49,8 +58,8 @@ def cross_entropy_lse_plain(logits: torch.Tensor) -> torch.Tensor:
 def cross_entropy_bwd_plain(logits: torch.Tensor, targets: torch.Tensor, lse: torch.Tensor,
                             grad: torch.Tensor) -> torch.Tensor:
     """The backward the kernel computes: (exp(x - lse) - onehot) * grad
-    per row, in f32, rounded once to the logits' dtype (where the VJP of
-    JAX's cast to f32 rounds it)."""
+    per row, in f32, rounded once to the logits' dtype (for bf16, where
+    the VJP of JAX's cast to f32 rounds it; f32 is not rounded)."""
     d = torch.exp(logits.float() - lse[:, None])
     d.scatter_add_(1, targets[:, None], torch.full_like(d[:, :1], -1.0))
     return (d * grad[:, None]).to(logits.dtype)
@@ -60,19 +69,23 @@ def _check(logits, targets):
     if logits.dim() != 2 or targets.shape != (logits.shape[0],):
         raise ValueError(f"cross_entropy: logits (rows, vocab) and targets (rows,) required, "
                          f"got {tuple(logits.shape)} and {tuple(targets.shape)}")
+    if logits.dtype not in DTYPES:
+        raise TypeError(f"cross_entropy: kernel takes bf16 or f32 logits, got {logits.dtype}")
 
 
 def cross_entropy_kernel(logits: torch.Tensor,
                          targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the forward kernel: (loss, lse), each (rows,) f32."""
-    KERNEL.load()
-    build.check_cuda_tensors("cross_entropy", logits)
-    build.check_cuda_tensors("cross_entropy", targets, dtype=torch.int64)
+    """One launch of the forward kernel for the logits' dtype (bf16 or
+    f32): (loss, lse), each (rows,) f32."""
     _check(logits, targets)
+    kernel = KERNEL if logits.dtype == torch.bfloat16 else KERNEL_F32
+    kernel.load()
+    build.check_cuda_tensors("cross_entropy", logits, dtype=logits.dtype)
+    build.check_cuda_tensors("cross_entropy", targets, dtype=torch.int64)
     rows, vocab = logits.shape
     loss = torch.empty(rows, device=logits.device, dtype=torch.float32)
     lse = torch.empty_like(loss)
-    KERNEL.launch(logits.device, logits.data_ptr(), targets.data_ptr(), loss.data_ptr(),
+    kernel.launch(logits.device, logits.data_ptr(), targets.data_ptr(), loss.data_ptr(),
                   lse.data_ptr(), rows, vocab)
     return loss, lse
 
@@ -80,30 +93,32 @@ def cross_entropy_kernel(logits: torch.Tensor,
 def cross_entropy_bwd_kernel(logits: torch.Tensor, targets: torch.Tensor, lse: torch.Tensor,
                              grad: torch.Tensor,
                              out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of the backward kernel: dlogits in the logits' dtype.
-    ``out`` may be ``logits`` itself: the gradient is then written over
-    the logits, in place."""
-    KERNEL_BWD.load()
+    """One launch of the backward kernel for the logits' dtype: dlogits in
+    that dtype.  ``out`` may be ``logits`` itself: the gradient is then
+    written over the logits, in place."""
+    _check(logits, targets)
+    kernel = KERNEL_BWD if logits.dtype == torch.bfloat16 else KERNEL_BWD_F32
+    kernel.load()
     out = torch.empty_like(logits) if out is None else out
-    build.check_cuda_tensors("cross_entropy backward", logits, out)
+    build.check_cuda_tensors("cross_entropy backward", logits, out, dtype=logits.dtype)
     build.check_cuda_tensors("cross_entropy backward", targets, dtype=torch.int64)
     build.check_cuda_tensors("cross_entropy backward", lse, grad, dtype=torch.float32)
-    _check(logits, targets)
     rows, vocab = logits.shape
     if out.shape != logits.shape or lse.shape != (rows,) or grad.shape != (rows,):
         raise ValueError(f"cross_entropy backward: out like logits, lse and grad ({rows},) "
                          f"required")
-    KERNEL_BWD.launch(logits.device, logits.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-                      grad.data_ptr(), out.data_ptr(), rows, vocab)
+    kernel.launch(logits.device, logits.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+                  grad.data_ptr(), out.data_ptr(), rows, vocab)
     return out
 
 
 class _CrossEntropyFn(torch.autograd.Function):
-    """Keeps the bf16 logits and the lse; the backward writes the gradient
-    OVER the saved logits (2.1 GB not allocated at Llama-3-8B's 8192 x
-    128256), so it runs once per forward (a second backward through a
-    retained graph raises), and no caller may read the logits after it
-    (``loss_fn`` holds none)."""
+    """Keeps the logits and the lse; the backward writes the gradient OVER
+    the saved logits (2.1 GB not allocated at Llama-3-8B's 8192 x 128256
+    bf16, 2.0 GB at BERT-large's 16384 x 30522 f32), so it runs once per
+    forward (a second backward through a retained graph raises), and no
+    caller may read the logits after it (``loss_fn`` and ``mlm_loss_fn``
+    hold none)."""
 
     @staticmethod
     def forward(ctx, logits, targets):
@@ -128,8 +143,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     vocab) at integer ``targets`` (rows,).
 
     A CPU tensor takes the plain version (autograd differentiates it); a
-    CUDA tensor launches the kernel (bf16 logits, int64 targets) or
-    raises."""
+    CUDA tensor launches the kernel (bf16 or f32 logits, int64 targets)
+    or raises."""
     if logits.device.type == "cpu":
         return cross_entropy_plain(logits, targets)
     return cross_entropy_on_kernels(logits, targets)

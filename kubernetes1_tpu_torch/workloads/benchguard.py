@@ -71,13 +71,21 @@ def device_time_us(event) -> float:
     return 0.0
 
 
+def is_device_op(event) -> bool:
+    """A kernel, copy or set that ran on the device.  Host-side ops are
+    not, and neither are the device-side ranges of ``record_function``
+    annotations (``Optimizer.step#AdamW.step``): their self device time is
+    the same kernels counted again, as torch's own table leaves them out."""
+    return ("cuda" in str(getattr(event, "device_type", "")).lower()
+            and not getattr(event, "is_user_annotation", False))
+
+
 def summarize_device_ops(events, top_n: int = 5) -> dict:
-    """The device's own activity (kernels, copies, sets) among the
-    profiler's averaged events, by self device time.  Host-side ops are
-    left out: their self device time is the same kernels counted again."""
+    """The device's own activity (``is_device_op``) among the profiler's
+    averaged events, by self device time."""
     rows = []
     for ev in events:
-        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+        if not is_device_op(ev):
             continue
         us = device_time_us(ev)
         if us > 0:

@@ -18,8 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, rmsnorm,
-                                           rope, swiglu)
+from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
+                                           layernorm, rmsnorm, rope, swiglu)
 from kubernetes1_tpu_torch.workloads import sharding
 
 REPO = Path(__file__).resolve().parent.parent
@@ -80,7 +80,8 @@ def test_importing_the_port_pulls_in_no_jax():
 
     code = ("import sys, kubernetes1_tpu_torch.workloads.llama, "
             "kubernetes1_tpu_torch.workloads.resnet_bench, "
-            "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.kernels.build; "
+            "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.workloads.bert, "
+            "kubernetes1_tpu_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -119,7 +120,7 @@ def _plain_must_not_run(*_a, **_k):
     raise AssertionError("the plain version ran on a CUDA tensor")
 
 
-KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy, batchnorm)
+KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy, batchnorm, layernorm, gelu)
 
 
 @pytest.fixture
@@ -135,11 +136,31 @@ def no_kernel_libraries(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
-                                "batchnorm"])
+                                "batchnorm", "attention_noncausal", "layernorm", "gelu",
+                                "cross_entropy_f32"])
 def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
                                                            monkeypatch, op):
     B, S, H, Hkv, hd = 2, 8, 4, 2, 16
-    if op == "swiglu":
+    if op == "attention_noncausal":
+        monkeypatch.setattr(attention, "attention_plain", _plain_must_not_run)
+        call = lambda: attention.attention(*_fakes(*[(B, S, H, hd)] * 3), causal=False)
+        kernel = attention.KERNEL_NC
+    elif op == "layernorm":
+        monkeypatch.setattr(layernorm, "layernorm_plain", _plain_must_not_run)
+        call = lambda: layernorm.layernorm(_FakeCudaTensor(B * S, 64),
+                                           *_fakes((64,), (64,), dtype=torch.float32))
+        kernel = layernorm.KERNEL
+    elif op == "gelu":
+        monkeypatch.setattr(gelu, "gelu_plain", _plain_must_not_run)
+        call = lambda: gelu.gelu(_FakeCudaTensor(B * S, 64))
+        kernel = gelu.KERNEL
+    elif op == "cross_entropy_f32":
+        monkeypatch.setattr(cross_entropy, "cross_entropy_plain", _plain_must_not_run)
+        call = lambda: cross_entropy.cross_entropy(
+            _FakeCudaTensor(B * S, 1001, dtype=torch.float32),
+            _FakeCudaTensor(B * S, dtype=torch.int64))
+        kernel = cross_entropy.KERNEL_F32
+    elif op == "swiglu":
         monkeypatch.setattr(swiglu, "swiglu_plain", _plain_must_not_run)
         call = lambda: swiglu.swiglu(_FakeCudaTensor(B * S, 64), _FakeCudaTensor(B * S, 64))
         kernel = swiglu.KERNEL
@@ -180,7 +201,8 @@ def _fakes(*shapes, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
-                                "batchnorm_apply", "batchnorm"])
+                                "batchnorm_apply", "batchnorm", "attention_noncausal",
+                                "layernorm", "gelu", "cross_entropy_f32"])
 def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_libraries, op):
     """The backward entry points, which the autograd Functions call, raise
     like the forward ones and count nothing."""
@@ -198,11 +220,21 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
         "batchnorm": lambda: batchnorm.bn_bwd_kernel(
             *_fakes((16, 64), (16, 64), (16, 64), (64,)), *_fakes((64,), (4, 64), dtype=f32),
             relu=True),
+        "attention_noncausal": lambda: attention.attention_bwd_kernel(
+            *_fakes(qs, qs, qs, qs), *_fakes((2, 4, 8), dtype=f32), *_fakes(qs), causal=False),
+        "layernorm": lambda: layernorm.layernorm_bwd_kernel(
+            _FakeCudaTensor(16, 64), _FakeCudaTensor(64, dtype=f32), _FakeCudaTensor(16, 64)),
+        "gelu": lambda: gelu.gelu_bwd_kernel(*_fakes((16, 64), (16, 64))),
+        "cross_entropy_f32": lambda: cross_entropy.cross_entropy_bwd_kernel(
+            *_fakes((16, 1001), dtype=f32), *_fakes((16,), dtype=torch.int64),
+            *_fakes((16,), (16,), dtype=f32)),
     }[op]
     kernel = {"attention": attention.KERNEL_BWD, "rmsnorm": rmsnorm.KERNEL_BWD,
               "rope": rope.KERNEL_BWD, "swiglu": swiglu.KERNEL_BWD,
               "cross_entropy": cross_entropy.KERNEL_BWD, "batchnorm": batchnorm.KERNEL_BWD,
-              "batchnorm_apply": batchnorm.KERNEL_APPLY}[op]
+              "batchnorm_apply": batchnorm.KERNEL_APPLY,
+              "attention_noncausal": attention.KERNEL_BWD_NC, "layernorm": layernorm.KERNEL_BWD,
+              "gelu": gelu.KERNEL_BWD, "cross_entropy_f32": cross_entropy.KERNEL_BWD_F32}[op]
     before = kernel.launches
     with pytest.raises(build.KernelUnavailableError, match="nvcc not found"):
         call()
@@ -210,10 +242,28 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
 
 
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
-                                "batchnorm"])
+                                "batchnorm", "attention_noncausal", "layernorm", "gelu",
+                                "cross_entropy_f32"])
 def test_wrapper_takes_plain_version_only_on_cpu(op):
     x = torch.randn(2, 8, 4, 16)
-    if op == "batchnorm":
+    if op == "attention_noncausal":
+        assert torch.equal(attention.attention(x, x + 1, x - 1, causal=False),
+                           attention.attention_plain(x, x + 1, x - 1, causal=False))
+        kernel = attention.KERNEL_NC
+    elif op == "layernorm":
+        sc, bi = torch.linspace(0.5, 1.5, 16), torch.linspace(-1, 1, 16)
+        xb = x.bfloat16()
+        assert torch.equal(layernorm.layernorm(xb, sc, bi), layernorm.layernorm_plain(xb, sc, bi))
+        kernel = layernorm.KERNEL
+    elif op == "gelu":
+        assert torch.equal(gelu.gelu(x.bfloat16()), gelu.gelu_plain(x.bfloat16()))
+        kernel = gelu.KERNEL
+    elif op == "cross_entropy_f32":
+        logits, t = x.reshape(16, 64), torch.arange(16)
+        assert torch.equal(cross_entropy.cross_entropy(logits, t),
+                           cross_entropy.cross_entropy_plain(logits, t))
+        kernel = cross_entropy.KERNEL_F32
+    elif op == "batchnorm":
         x2, sc = x.reshape(64, 16), torch.linspace(0.5, 1.5, 16)
         assert torch.equal(batchnorm.batchnorm(x2, sc, -sc, x2, True),
                            batchnorm.batchnorm_plain(x2, sc, -sc, x2, True))
@@ -298,7 +348,8 @@ def test_build_all_runs_one_nvcc_per_source_for_sm90a(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_find_nvcc", lambda: _fake_nvcc(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     paths = build.build_all()
-    sources = ["attention", "batchnorm", "cross_entropy", "rmsnorm", "rope", "swiglu"]
+    sources = ["attention", "batchnorm", "cross_entropy", "gelu", "layernorm", "rmsnorm", "rope",
+               "swiglu"]
     assert sorted(paths) == sources
     calls = (tmp_path / "nvcc.log").read_text().splitlines()
     assert len(calls) == len(sources)

@@ -422,6 +422,19 @@ def test_collect_profile_summarizes_device_ops_and_never_raises():
     assert err["error"].startswith("ZeroDivisionError")
 
 
+def test_profile_summary_leaves_out_user_annotations():
+    """A record_function range (the optimizer's step) also shows on the
+    device with the self time of the kernels inside it; counting it would
+    count those kernels twice."""
+    ann = _Event("Optimizer.step#AdamW.step", "DeviceType.CUDA", 40.0)
+    ann.is_user_annotation = True
+    events = [_Event("multi_tensor_apply_kernel", "DeviceType.CUDA", 40.0),
+              _Event("nvjet_gemm", "DeviceType.CUDA", 60.0), ann]
+    res = benchguard.summarize_device_ops(events, top_n=5)
+    assert res["device_time_us"] == 100.0 and res["ops_counted"] == 2
+    assert [r["op"] for r in res["top_ops"]] == ["nvjet_gemm", "multi_tensor_apply_kernel"]
+
+
 def test_acquisition_watchdog_stands_down_when_cancelled():
     timer = benchguard.device_acquisition_watchdog("", 60.0)
     assert timer.daemon

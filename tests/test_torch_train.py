@@ -192,8 +192,9 @@ TWINS = [
      lambda q, k, theta, inverse=False: (trope.rope_bwd_plain if inverse else trope.rope_plain)(
          q, k, theta), "rope"),
     (tattention, "attention_kernel",
-     lambda q, k, v, with_lse=False: (tattention.attention_plain(q, k, v),
-                                      tattention.attention_lse_plain(q, k) if with_lse else None),
+     lambda q, k, v, with_lse=False, causal=True: (
+         tattention.attention_plain(q, k, v, causal),
+         tattention.attention_lse_plain(q, k, causal) if with_lse else None),
      "attention"),
     (tattention, "attention_bwd_kernel", tattention.attention_bwd_plain, "attention_bwd"),
     (tswiglu, "swiglu_kernel", tswiglu.swiglu_plain, "swiglu"),
