@@ -44,7 +44,16 @@
 12. trains BERT-large (all 24 layers, remat, random weights from a seed) for
    5 AdamW steps on the fixed synthetic masked batch 32 x 512 through
    make_train_state / make_train_step, checks the losses and every new
-   kernel's launches per step, counts the step's FLOPs and profiles one step.
+   kernel's launches per step, counts the step's FLOPs and profiles one step;
+13. (ring attention, K6) holds the ring's block, merge and accumulating
+   block-backward kernels against their plain versions at Llama-3-8B's
+   attention widths (a 2-rank ring's second rank by hand, blocks of 2048)
+   and times them at blocks of 8192;
+14. runs ring attention's own steps for 8 virtual ranks x 8192 tokens
+   (65,536 causal) and 4 x 2048 (non-causal) in lockstep on the card,
+   forward and backward, against the dense kernels at the whole length,
+   and ring_attention itself over a 1-rank NCCL group against K1, and
+   checks the K6 launches of each ring.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -69,7 +78,9 @@ import torch.nn.functional as F
 
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
                                            layernorm, rmsnorm, rope, swiglu)
-from kubernetes1_tpu_torch.workloads import bert, benchguard, llama, resnet, resnet_bench
+from kubernetes1_tpu_torch.kernels import ringattention as ring_kernels
+from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, resnet, resnet_bench,
+                                             ringattention)
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
 SPIN_CYCLES = 50_000_000
@@ -204,6 +215,23 @@ BERT_GRAD_REL_L2_TOL = 5e-2
 BERT_CHECK_LAYERS, BERT_CHECK_BATCH = 2, 2
 BERT_BATCH, BERT_SEQ = 32, 512  # 16,384 tokens; BERT pretraining phase 2's length
 BERT_STEPS, BERT_LR = 5, 1e-4
+# Ring attention (K6), Llama-3-8B's attention widths (H 32, Hkv 8, hd 128).
+# The block kernels against block_attn_plain: ATTENTION_TOL and the lse's
+# (1e-4, 1e-5), as K1 (the same kernels).  The merge against merge_plain:
+# f32 arithmetic with expf/logf against torch's exp/log, so each element
+# within MERGE_RTOL of the sum of the two terms' magnitudes (a relative
+# bar that cancellation between the terms cannot break) and the lse within
+# MERGE_RTOL relative.  The backward: BWD_REL_L2_TOL.  A whole ring against
+# the dense kernel at the full length: the output within RING_OUT_TOL (max
+# abs, relative L2; the bars K1 meets against its plain version), each
+# gradient within RING_GRAD_REL_L2_TOL relative L2 (two backward kernels'
+# bf16 roundings of P and dS, each within BWD_REL_L2_TOL of the truth).
+MERGE_RTOL = 1e-6
+RING_OUT_TOL = (3.2e-2, 1e-2)
+RING_GRAD_REL_L2_TOL = 2e-2
+RING_BLOCK = 8192            # llama_3_8b().max_seq: one rank's block in the ring phase
+RING_RANKS = 8               # one 8-GPU host: 65,536 tokens of causal context
+RING_NC_RANKS, RING_NC_BLOCK = 4, 2048
 BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
                 "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
 
@@ -221,6 +249,9 @@ KERNELS = {
     "gelu": gelu.KERNEL, "gelu_bwd": gelu.KERNEL_BWD,
     "cross_entropy_f32": cross_entropy.KERNEL_F32,
     "cross_entropy_f32_bwd": cross_entropy.KERNEL_BWD_F32,
+    "ring_block": ring_kernels.RING_BLOCK, "ring_block_nc": ring_kernels.RING_BLOCK_NC,
+    "ring_merge": ring_kernels.RING_MERGE, "ring_block_bwd": ring_kernels.RING_BLOCK_BWD,
+    "ring_block_bwd_nc": ring_kernels.RING_BLOCK_BWD_NC,
 }
 
 
@@ -1361,6 +1392,332 @@ def bert_phase(card: str, per_call: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------- ring attention (K6)
+
+
+def ring_launches(n: int, causal: bool) -> dict:
+    """The K6 launches of one ring of n ranks (forward and backward): a
+    causal ring folds n diagonal and n(n-1)/2 behind blocks (the n(n-1)/2
+    ahead are skipped), with one merge fewer than blocks on each rank; a
+    non-causal ring folds all n^2 blocks.  tests/test_torch_ringattention.py
+    asserts the same counts on the CPU."""
+    if causal:
+        behind = n * (n - 1) // 2
+        return {"ring_block": n, "ring_block_nc": behind, "ring_merge": behind,
+                "ring_block_bwd": n, "ring_block_bwd_nc": behind}
+    return {"ring_block_nc": n * n, "ring_merge": n * (n - 1), "ring_block_bwd_nc": n * n}
+
+
+def ring_qkv(B, S, gen, dev, cfg):
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return [bf16((B, S, h, hd), gen, dev) for h in (H, Hkv, Hkv, H)]  # q, k, v, dout
+
+
+def check_merge(name, o_acc, lse_a, o_blk, lse_n) -> float:
+    """ring_merge, the f32 accumulator and the final bf16 output, against
+    merge_plain: each element within MERGE_RTOL of the sum of the two
+    terms' magnitudes (f32 arithmetic, exp and log in another library),
+    the final bf16 output within one more bf16 step; lse within MERGE_RTOL
+    relative, -inf exactly where the plain version has it."""
+    want_o, want_lse = ring_kernels.merge_plain(o_acc, lse_a, o_blk, lse_n)
+    terms = ring_kernels.merge_plain(o_acc.abs(), lse_a, o_blk.abs(), lse_n)[0]
+    got_o, got_lse = ring_kernels.ring_merge_kernel(o_acc.clone(), lse_a, o_blk, lse_n)
+    fin_o, fin_lse = ring_kernels.ring_merge_kernel(o_acc.clone(), lse_a, o_blk, lse_n, final=True)
+    torch.cuda.synchronize()
+    dead = want_lse == -float("inf")
+    for lse in (got_lse, fin_lse):
+        if not torch.equal(lse[dead], want_lse[dead]) or not bool(
+                ((lse - want_lse).abs()[~dead] <= MERGE_RTOL * want_lse.abs()[~dead]).all()):
+            fail(f"{name}: lse beyond {MERGE_RTOL} relative or -inf rows differ")
+    err = (got_o - want_o).abs()
+    if not torch.isfinite(got_o).all() or not bool((err <= MERGE_RTOL * terms).all()):
+        fail(f"{name}: f32 output max abs err {err.max().item():.3e} beyond {MERGE_RTOL} "
+             f"relative to the terms")
+    want_b = want_o.to(torch.bfloat16).float()
+    err_b = (fin_o.float() - want_b).abs()
+    if not bool((err_b <= MERGE_RTOL * terms + 2.0 ** -7 * want_b.abs()).all()):
+        fail(f"{name}: final bf16 output max abs err {err_b.max().item():.3e}")
+    return max(err.max().item(), err_b.max().item())
+
+
+def check_ring_bwd(name, q, k, v, do, lse, delta, causal, bufs, o=None, times=1) -> float:
+    """ring_block_bwd adds the block's gradients into ``bufs`` (dq, dk, dv
+    f32, holding ``times - 1`` such additions already); held to ``times``
+    x block_bwd_plain (relative L2 of each, BWD_REL_L2_TOL)."""
+    ring_kernels.ring_block_bwd_kernel(q, k, v, do, lse, delta, causal, *bufs, o=o)
+    if o is not None:
+        check_close(f"{name} delta", [delta], [ring_kernels.delta_plain(o, do)], (1e-4, 1e-5))
+    want = ring_kernels.block_bwd_plain(q, k, v, do, lse, delta, causal)
+    return check_rel_l2(name, bufs, [times * w for w in want], BWD_REL_L2_TOL)
+
+
+def check_ring_blocks(q, k1, v1, k0, v0, do) -> dict:
+    """K6 against the plain versions on a 2-rank causal ring's second rank,
+    by hand: the diagonal block (k1, v1) and the one behind it (k0, v0),
+    the merge of the two (the f32 accumulator and the final bf16 output),
+    and each block's accumulating backward with the final lse and delta,
+    the block behind adding into the diagonal's dq as the ring does; and
+    rows with nothing folded in the merge, a backward added twice.
+    Returns each kernel's max abs error."""
+    Sb = q.shape[1]
+    o_d, lse_d = ring_kernels.ring_block_kernel(q, k1, v1, Sb, Sb, True)
+    want = ring_kernels.block_attn_plain(q, k1, v1, Sb, Sb, True)
+    errs = {"ring_block": check_close("ring_block diagonal", [o_d], want[:1], ATTENTION_TOL)}
+    check_close("ring_block diagonal lse", [lse_d], want[1:], (1e-4, 1e-5))
+    o_b, lse_b = ring_kernels.ring_block_kernel(q, k0, v0, Sb, 0, True)
+    want = ring_kernels.block_attn_plain(q, k0, v0, Sb, 0, True)
+    errs["ring_block_nc"] = check_close("ring_block behind", [o_b], want[:1], ATTENTION_TOL)
+    check_close("ring_block behind lse", [lse_b], want[1:], (1e-4, 1e-5))
+    del want
+    errs["ring_merge"] = check_merge("ring_merge", o_d.float(), lse_d, o_b, lse_b)
+    o_a, lse_a, o_n, lse_n = o_d.float(), lse_d.clone(), o_b.clone(), lse_b.clone()
+    o_a[:, :64], lse_a[..., :64] = 0, -float("inf")  # nothing folded yet in rows 0-63, and
+    o_n[:, :32], lse_n[..., :32] = 0, -float("inf")  # a block with rows 0-31 fully masked
+    errs["ring_merge"] = max(errs["ring_merge"], check_merge("ring_merge, dead rows", o_a, lse_a,
+                                                             o_n, lse_n))
+    del o_a, lse_a, o_n, lse_n
+    o, lse = ring_kernels.ring_merge_kernel(o_d.float(), lse_d, o_b, lse_b, final=True)
+    delta = torch.empty_like(lse)
+    f32 = partial(torch.zeros, dtype=torch.float32, device=q.device)
+    dq = f32(q.shape)
+    errs["ring_block_bwd"] = check_ring_bwd("ring_block_bwd diagonal", q, k1, v1, do, lse, delta,
+                                            True, [dq, f32(k1.shape), f32(k1.shape)], o=o)
+    bufs = [f32(q.shape), f32(k0.shape), f32(k0.shape)]
+    ring_kernels.ring_block_bwd_kernel(q, k0, v0, do, lse, delta, False, *bufs)
+    errs["ring_block_bwd_nc"] = check_ring_bwd("ring_block_bwd behind, added twice", q, k0, v0, do,
+                                               lse, delta, False, bufs, times=2)
+    # and into the diagonal's dq, as the ring adds both there
+    ring_kernels.ring_block_bwd_kernel(q, k0, v0, do, lse, delta, False, dq, *bufs[1:])
+    check_rel_l2("ring_block_bwd dq of both blocks", [dq], [
+        ring_kernels.block_bwd_plain(q, k1, v1, do, lse, delta, True)[0]
+        + ring_kernels.block_bwd_plain(q, k0, v0, do, lse, delta, False)[0]], BWD_REL_L2_TOL)
+    return errs
+
+
+def ring_kernel_phase(dev, gen) -> list:
+    """K6 against the plain versions at Llama-3-8B's attention widths, at
+    both of the ring phase's blocks: 2048 (the non-causal ring's) and
+    8192 (the causal ring's and the NCCL entry's), where each is also timed, with
+    its bound and one-call library yardstick.  The rows carry the errors
+    at 8192, the shape they name."""
+    cfg = llama.llama_3_8b()
+    B, H, hd = 1, cfg.n_heads, cfg.head_dim
+    errs = {}
+    for Sb in (RING_NC_BLOCK, RING_BLOCK):
+        q, k1, v1, do = ring_qkv(B, Sb, gen, dev, cfg)
+        k0, v0 = (bf16(k1.shape, gen, dev) for _ in range(2))
+        errs[Sb] = check_ring_blocks(q, k1, v1, k0, v0, do)
+        print(f"ring kernels against their plain versions at block {Sb}: max abs err "
+              f"{ {k: float(f'{e:.3e}') for k, e in errs[Sb].items()} }", flush=True)
+        del q, k1, v1, do, k0, v0
+        free_memory()
+    errs = errs[RING_BLOCK]
+
+    out = []
+    Sb = RING_BLOCK
+    q, k, v, do = ring_qkv(B, Sb, gen, dev, cfg)
+    G = H // cfg.n_kv_heads
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k.repeat_interleave(G, 2),
+                                                  v.repeat_interleave(G, 2), do))
+    shape = f"B={B} block={Sb} H={H} Hkv={cfg.n_kv_heads} hd={hd}"
+    n, nk, stats = q.numel(), k.numel(), 4 * B * H * Sb
+    for name, q_off, kv_off, pairs in (("ring_block", Sb, Sb, Sb * (Sb + 1) / 2),
+                                       ("ring_block_nc", Sb, 0, Sb * Sb)):
+        causal = q_off == kv_off
+        flash = torch.ops.aten._scaled_dot_product_flash_attention
+        out.append(row(name, "attention.cu", 29, f"{shape} {'diagonal' if causal else 'behind'}",
+                       errs[name],
+                       time_ms(lambda: ring_kernels.ring_block_kernel(q, k, v, q_off, kv_off, True)),
+                       time_ms(lambda: ring_kernels.block_attn_plain(q, k, v, q_off, kv_off, True),
+                               2, 1),
+                       bound_ms(2 * (2 * n + 2 * nk) + stats, 4 * B * H * hd * pairs,
+                                PEAK_BF16_TENSOR),
+                       time_ms(lambda: flash(qt, kt, vt, 0.0, causal)), jax_file="ringattention.py"))
+    o_d, lse_d = ring_kernels.ring_block_kernel(q, k, v, Sb, Sb, True)
+    o_b, lse_b = ring_kernels.ring_block_kernel(q, k, v, Sb, 0, True)
+    acc = o_d.float()
+    merge_bytes = 4 * n + 2 * n + 4 * n + 3 * stats  # o_acc read, o_blk read, o_acc written, lses
+    out.append(row("ring_merge", "ring_merge.cu", 50, shape, errs["ring_merge"],
+                   time_ms(lambda: ring_kernels.ring_merge_kernel(acc, lse_d, o_b, lse_b)),
+                   time_ms(lambda: ring_kernels.merge_op_plain(acc, lse_d, o_b, lse_b), 5, 1),
+                   bound_ms(merge_bytes, 3 * n + 8 * stats // 4, PEAK_F32), None,
+                   jax_file="ringattention.py"))
+    fin_ms = time_ms(lambda: ring_kernels.ring_merge_kernel(acc, lse_d, o_b, lse_b, final=True))
+    print(f"ring_merge final (bf16 output) ms={fin_ms:.4f} bound_ms="
+          f"{bound_ms(4 * n + 2 * n + 2 * n + 3 * stats, 3 * n, PEAK_F32)[0]:.4f}", flush=True)
+    delta = ring_kernels.delta_plain(o_d, do).contiguous()
+    bufs = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in (q, k, v)]
+    for name, lse, causal, pairs in (("ring_block_bwd", lse_d, True, Sb * (Sb + 1) / 2),
+                                     ("ring_block_bwd_nc", lse_b, False, Sb * Sb)):
+        bwd_bytes = 2 * (2 * n + 2 * nk) + 2 * stats + 8 * n + 8 * 2 * nk
+        out.append(row(name, "attention.cu", "29,50", f"{shape} {'diagonal' if causal else 'behind'}",
+                       errs[name],
+                       time_ms(lambda: ring_kernels.ring_block_bwd_kernel(
+                           q, k, v, do, lse, delta, causal, *bufs), 10, 2),
+                       time_ms(lambda: ring_kernels.block_bwd_plain(q, k, v, do, lse, delta, causal),
+                               2, 1),
+                       bound_ms(bwd_bytes, 10 * B * H * hd * pairs, PEAK_BF16_TENSOR),
+                       library_bwd_ms(partial(F.scaled_dot_product_attention, is_causal=causal),
+                                      [qt, kt, vt], [dot]), jax_file="ringattention.py"))
+    for r in out:
+        print_row(r)
+    return out
+
+
+def lockstep_ring(n, Sb, causal, gen, dev, cfg):
+    """The inputs of an n-rank ring of blocks Sb (q, k, v, dout at the whole
+    length) and, before it runs, the dense attention kernel's output and
+    gradients on them: K1 (causal) or K7a, timed (CUDA events, the second
+    of two calls each; the first pays the allocator's first requests).
+    Returns (inputs, dense, dense forward ms, dense backward ms)."""
+    q, k, v, do = ring_qkv(1, n * Sb, gen, dev, cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(2):
+        ev[0].record()
+        o, lse = attention.attention_kernel(q, k, v, with_lse=True, causal=causal)
+        ev[1].record()
+        grads = attention.attention_bwd_kernel(q, k, v, o, lse, do, causal=causal)
+        ev[2].record()
+        torch.cuda.synchronize()
+    return (q, k, v, do), (o, *grads), ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+
+def run_lockstep(inputs, n, causal, ops=ringattention.KERNELS) -> tuple:
+    """The ring's steps for n virtual ranks on this card, on ``ops`` (the
+    kernels, or the plain versions), timed (CUDA events, one call each):
+    (outputs and gradients at the whole length, forward ms, backward ms)."""
+    qs, ks, vs, dos = ([t[:, r * (t.shape[1] // n):(r + 1) * (t.shape[1] // n)].contiguous()
+                        for r in range(n)] for t in inputs)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    os_, lses = ringattention.lockstep_forward(qs, ks, vs, causal, ops)
+    ev[1].record()
+    grads = ringattention.lockstep_backward(qs, ks, vs, os_, lses, dos, causal, ops)
+    ev[2].record()
+    torch.cuda.synchronize()
+    got = [torch.cat(ts, 1) for ts in (os_, *grads)]
+    return got, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+
+def ring_entry_run(q, k, v, do) -> list:
+    """``ring_attention`` itself, forward and backward, over a 1-rank NCCL
+    group on this card (rendezvous through a FileStore in a temp dir)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tmp = tempfile.mkdtemp(prefix="ring_store")
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            o = ringattention.ring_attention(*leaves, mesh, "sp", causal=True)
+            o.backward(do)
+            torch.cuda.synchronize()
+            return [o.detach()] + [t.grad for t in leaves]
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_ring(name, got, want) -> str:
+    """A ring's output and gradients against another's (the dense kernel's,
+    or the same ring on the plain versions): the output
+    within RING_OUT_TOL (max abs, relative L2), each gradient within
+    RING_GRAD_REL_L2_TOL.  Returns the errors, printable."""
+    err_o = check_rel_l2(f"{name} output", got[:1], want[:1], RING_OUT_TOL[1])
+    if err_o > RING_OUT_TOL[0]:
+        fail(f"{name} output: max abs err {err_o:.3e} beyond {RING_OUT_TOL[0]}")
+    err_g = check_rel_l2(f"{name} gradients", got[1:], want[1:], RING_GRAD_REL_L2_TOL)
+    rels = [((g.float() - w.float()).norm() / w.float().norm()).item() for g, w in zip(got, want)]
+    return (f"o max abs err {err_o:.3e}, gradients max abs err {err_g:.3e}, relative L2 of o, dq, "
+            f"dk, dv {[float(f'{r:.3e}') for r in rels]} (tol {RING_OUT_TOL}, "
+            f"{RING_GRAD_REL_L2_TOL})")
+
+
+def ring_phase(dev, card: str) -> dict:
+    """Ring attention at Llama-3-8B's attention widths: an 8-rank causal
+    ring of 8192-token blocks (a 65,536-token context) and a 4-rank
+    non-causal ring of 2048-token blocks, each rank's steps run in
+    lockstep on this card, forward and backward, and ring_attention over a
+    1-rank NCCL group.  Each lockstep ring is held to the same ring run on
+    the plain versions (ringattention.PLAIN) and to the dense kernel (K1,
+    K7a) at the whole length."""
+    cfg = llama.llama_3_8b()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, Sb = RING_RANKS, cfg.max_seq
+    causal_in, causal_dense, dense_fwd_ms, dense_bwd_ms = lockstep_ring(n, Sb, True, gen, dev, cfg)
+    nc_in, nc_dense, nc_dense_fwd_ms, nc_dense_bwd_ms = lockstep_ring(
+        RING_NC_RANKS, RING_NC_BLOCK, False, gen, dev, cfg)
+    entry_in = [t[:, :Sb].contiguous() for t in causal_in]
+    o, lse = attention.attention_kernel(*entry_in[:3], with_lse=True)
+    entry_dense = [o, *attention.attention_bwd_kernel(*entry_in[:3], o, lse, entry_in[3])]
+    run_lockstep(causal_in, n, True)  # the allocator's first requests
+    run_lockstep(nc_in, RING_NC_RANKS, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in KERNELS.values():
+        kern.launches = 0
+    causal_got, fwd_ms, bwd_ms = run_lockstep(causal_in, n, True)
+    causal_launches = {name: kern.launches for name, kern in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    nc_got, nc_fwd_ms, nc_bwd_ms = run_lockstep(nc_in, RING_NC_RANKS, False)
+    entry_got = ring_entry_run(*entry_in)
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    # the same rings on the plain versions, after the kernels' (whose times
+    # they would otherwise disturb)
+    causal_plain, plain_fwd_ms, plain_bwd_ms = run_lockstep(causal_in, n, True,
+                                                            ringattention.PLAIN)
+    nc_plain = run_lockstep(nc_in, RING_NC_RANKS, False, ringattention.PLAIN)[0]
+
+    want = ring_launches(n, True)
+    for name, cnt in causal_launches.items():
+        if cnt != want.get(name, 0):
+            fail(f"ring: {name} launched {cnt} times in the {n}-rank causal ring, want "
+                 f"{want.get(name, 0)}")
+    want_all = {k: want.get(k, 0) + ring_launches(RING_NC_RANKS, False).get(k, 0)
+                + ring_launches(1, True).get(k, 0) for k in KERNELS}
+    if launches != want_all:
+        fail(f"ring: launches {launches}, want {want_all}")
+    plain_errs = check_ring(f"ring {n}x{Sb} causal vs the plain ring", causal_got, causal_plain)
+    errs = check_ring(f"ring {n}x{Sb} causal vs dense K1", causal_got, causal_dense)
+    nc_plain_errs = check_ring(f"ring {RING_NC_RANKS}x{RING_NC_BLOCK} non-causal vs the plain ring",
+                               nc_got, nc_plain)
+    nc_errs = check_ring(f"ring {RING_NC_RANKS}x{RING_NC_BLOCK} non-causal vs dense K7a", nc_got,
+                         nc_dense)
+    # one rank: the ring's output is K1's block output as it stands
+    if not torch.equal(entry_got[0], entry_dense[0]):
+        fail("ring_attention over 1 NCCL rank: output differs from K1's")
+    # dK and dV: the same tile loop's sums, added to 0 in f32, rounded once
+    # as K1 rounds them (one bf16 step allowed); dQ: scaled per tile and
+    # summed by f32 atomics in another order
+    e_dkv = check_close("ring_attention over 1 NCCL rank dk, dv", entry_got[2:], entry_dense[2:],
+                        (0.0, 2.0 ** -7))
+    same = [bool(torch.equal(g, w)) for g, w in zip(entry_got[2:], entry_dense[2:])]
+    e_dq = check_rel_l2("ring_attention over 1 NCCL rank dq", entry_got[1:2], entry_dense[1:2],
+                        BWD_REL_L2_TOL)
+    res = dict(launches=launches, fwd_ms=fwd_ms, bwd_ms=bwd_ms, peak_mem_gib=peak / 2 ** 30)
+    print(f"ring (Llama-3-8B attention widths, {n} ranks x {Sb} tokens = {n * Sb} causal, "
+          f"lockstep on one card): fwd_ms={fwd_ms:.2f} bwd_ms={bwd_ms:.2f} (dense K1, the same "
+          f"work in one call each: fwd_ms={dense_fwd_ms:.2f} bwd_ms={dense_bwd_ms:.2f}) "
+          f"peak_mem_gib={res['peak_mem_gib']:.2f} (dense references resident) "
+          f"launches_per_ring={ {k: v for k, v in causal_launches.items() if v} } "
+          f"vs the plain ring (fwd_ms={plain_fwd_ms:.2f} bwd_ms={plain_bwd_ms:.2f}): {plain_errs}; "
+          f"vs dense K1: {errs} on [{card}]", flush=True)
+    print(f"ring ({RING_NC_RANKS} ranks x {RING_NC_BLOCK} tokens, non-causal, lockstep): "
+          f"fwd_ms={nc_fwd_ms:.2f} bwd_ms={nc_bwd_ms:.2f} (dense K7a: fwd_ms={nc_dense_fwd_ms:.2f} "
+          f"bwd_ms={nc_dense_bwd_ms:.2f}) vs the plain ring: {nc_plain_errs}; vs dense K7a: "
+          f"{nc_errs}", flush=True)
+    print(f"ring_attention over a 1-rank NCCL group (1 x {Sb}): output equal to K1's bit for bit; "
+          f"dk, dv bit-equal: {same}, max abs err {e_dkv:.3e} (one bf16 step allowed); dq max "
+          f"abs err {e_dq:.3e} (rel L2 tol {BWD_REL_L2_TOL})", flush=True)
+    return res
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -1397,6 +1754,8 @@ def main():
     free_memory()
     bert_rows, bert_per_call = bert_kernel_phase(dev, gen)
     free_memory()
+    ring_rows = ring_kernel_phase(dev, gen)
+    free_memory()
     forward_phase(dev)
     free_memory()
     train_check_phase(dev)
@@ -1412,14 +1771,17 @@ def main():
     rn = resnet_phase(card)
     free_memory()
     bt = bert_phase(card, bert_per_call)
-    rows += bn_rows + bert_rows
+    free_memory()
+    ring = ring_phase(dev, card)
+    rows += bn_rows + bert_rows + ring_rows
     for r in rows:
         r["launches_serving"] = serve["launches"][r["name"]]
         r["launches_train"] = train["launches"][r["name"]]
         r["launches_resnet"] = rn["launches"][r["name"]]
         r["launches_bert"] = bt["launches"][r["name"]]
+        r["launches_ring"] = ring["launches"][r["name"]]
         r["launches"] = (r["launches_serving"] + r["launches_train"] + r["launches_resnet"]
-                         + r["launches_bert"])
+                         + r["launches_bert"] + r["launches_ring"])
     print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -70,6 +70,21 @@
 //   shared memory once, transposed, for dQ = dS K (warp: 16 queries).
 // Not yet: a second stage for the Q/dO tiles, wgmma, a dQ pass without
 // atomics.
+//
+// Ring attention's backward (K6, kubernetes1_tpu/workloads/ringattention.py,
+// the gradient of `_block_attn`, `_merge` and the normalise at :100-101 that
+// jax.grad derives) is the same tile loop in an accumulating mode (template
+// flag ACCUM, entry ktpu_ring_block_bwd_bf16): one (q block, kv block) pair
+// of the ring, its P recomputed from the FINAL lse of the ring's forward and
+// its D = rowsum(dO o O) from the final output, so the block's gradients are
+// its exact share of the whole.  dQ takes its scale in the tile pass and
+// adds into the caller's f32 buffer by the same atomics (no zeroing, no
+// rounding pass); dK and dV are ADDED into caller-owned f32 buffers (the K/V
+// block's accumulators, which travel around the ring with it): each (key
+// tile, kv head, batch row) has one owning block, so a plain read-add-write
+// suffices.  With ACCUM false the code is the one above, unchanged.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -361,13 +376,16 @@ attention_bwd_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict
   }
 }
 
-template <int HD, bool CAUSAL>
+// GradT: bf16 dK, dV stored (ACCUM false) or f32 accumulators added into.
+template <int HD, bool CAUSAL, bool ACCUM>
 __global__ void __launch_bounds__(kThreads, 2)
 attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int S, int H, int Hkv, float scale) {
+                     float* __restrict__ dq_acc,
+                     std::conditional_t<ACCUM, float, __nv_bfloat16>* __restrict__ dk,
+                     std::conditional_t<ACCUM, float, __nv_bfloat16>* __restrict__ dv,
+                     int S, int H, int Hkv, float scale) {
   constexpr int KSTEPS = HD / 16;
   constexpr int DTILES = HD / 8;
   constexpr int LD = HD + 8;
@@ -551,6 +569,13 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
           mma_16816(a1, sa[kk], bk[2], bk[3]);
         }
         const int c = n * 8 + t * 2;
+        if constexpr (ACCUM) {  // no rounding pass follows: scale here
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a0[e] *= scale;
+            a1[e] *= scale;
+          }
+        }
         if (qr0 < S) {
           atomicAdd(reinterpret_cast<float2*>(dqb + qr0 * q_row + c), make_float2(a0[0], a0[1]));
           atomicAdd(reinterpret_cast<float2*>(dqb + qr0 * q_row + c + 8), make_float2(a1[0], a1[1]));
@@ -564,41 +589,64 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 
   // dK (scaled) and dV of this warp's 16 keys
-  __nv_bfloat16* dkb = dk + static_cast<long long>(b) * S * kv_row + kvh * HD;
-  __nv_bfloat16* dvb = dv + static_cast<long long>(b) * S * kv_row + kvh * HD;
+  auto* dkb = dk + static_cast<long long>(b) * S * kv_row + kvh * HD;
+  auto* dvb = dv + static_cast<long long>(b) * S * kv_row + kvh * HD;
   const int kr0 = k0 + wk + g, kr1 = kr0 + 8;
+  if constexpr (ACCUM) {  // this block owns these rows of the accumulators
+    auto add2 = [](float* p, float x, float y) {
+      float2 a = *reinterpret_cast<float2*>(p);
+      a.x += x;
+      a.y += y;
+      *reinterpret_cast<float2*>(p) = a;
+    };
 #pragma unroll
-  for (int n = 0; n < DTILES; ++n) {
-    const int c = n * 8 + t * 2;
-    if (kr0 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + kr0 * kv_row + c) = pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + kr0 * kv_row + c) = pack_bf16(dva[n][0], dva[n][1]);
+    for (int n = 0; n < DTILES; ++n) {
+      const int c = n * 8 + t * 2;
+      if (kr0 < S) {
+        add2(dkb + kr0 * kv_row + c, dka[n][0] * scale, dka[n][1] * scale);
+        add2(dvb + kr0 * kv_row + c, dva[n][0], dva[n][1]);
+      }
+      if (kr1 < S) {
+        add2(dkb + kr1 * kv_row + c, dka[n][2] * scale, dka[n][3] * scale);
+        add2(dvb + kr1 * kv_row + c, dva[n][2], dva[n][3]);
+      }
     }
-    if (kr1 < S) {
-      *reinterpret_cast<uint32_t*>(dkb + kr1 * kv_row + c) = pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + kr1 * kv_row + c) = pack_bf16(dva[n][2], dva[n][3]);
+  } else {
+#pragma unroll
+    for (int n = 0; n < DTILES; ++n) {
+      const int c = n * 8 + t * 2;
+      if (kr0 < S) {
+        *reinterpret_cast<uint32_t*>(dkb + kr0 * kv_row + c) = pack_bf16(dka[n][0] * scale, dka[n][1] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + kr0 * kv_row + c) = pack_bf16(dva[n][0], dva[n][1]);
+      }
+      if (kr1 < S) {
+        *reinterpret_cast<uint32_t*>(dkb + kr1 * kv_row + c) = pack_bf16(dka[n][2] * scale, dka[n][3] * scale);
+        *reinterpret_cast<uint32_t*>(dvb + kr1 * kv_row + c) = pack_bf16(dva[n][2], dva[n][3]);
+      }
     }
   }
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, bool CAUSAL, bool ACCUM>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
                        int B, int S, int H, int Hkv, float scale, cudaStream_t stream) {
+  using GradT = std::conditional_t<ACCUM, float, __nv_bfloat16>;
   constexpr int smem = 4 * kBlockN * (HD + 8) * sizeof(__nv_bfloat16) +
                        kBlockM * (kBlockM + 8) * sizeof(__nv_bfloat16) + 2 * kBlockM * sizeof(float);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attention_bwd_kernel<HD, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attention_bwd_kernel<HD, CAUSAL, ACCUM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((S + kBlockN - 1) / kBlockN, Hkv, B);
-  attention_bwd_kernel<HD, CAUSAL><<<grid, kThreads, smem, stream>>>(
+  attention_bwd_kernel<HD, CAUSAL, ACCUM><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      dq_acc, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, Hkv, scale);
+      dq_acc, static_cast<GradT*>(dk), static_cast<GradT*>(dv), S, H, Hkv, scale);
   return cudaGetLastError();
 }
 
@@ -615,17 +663,26 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, bool ACCUM = false>
 cudaError_t launch_bwd_hd(const void* q, const void* k, const void* v, const void* dout,
                           const float* l, const float* dl, float* acc, void* dk, void* dv,
                           int B, int S, int H, int Hkv, int hd, float scale, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_bwd<16, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
-    case 32: return launch_bwd<32, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
-    case 64: return launch_bwd<64, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
-    case 128: return launch_bwd<128, CAUSAL>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 16: return launch_bwd<16, CAUSAL, ACCUM>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 32: return launch_bwd<32, CAUSAL, ACCUM>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 64: return launch_bwd<64, CAUSAL, ACCUM>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
+    case 128: return launch_bwd<128, CAUSAL, ACCUM>(q, k, v, dout, l, dl, acc, dk, dv, B, S, H, Hkv, scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t launch_delta(const void* o, const void* dout, void* delta, int B, int S, int H,
+                         int hd, cudaStream_t st) {
+  const long long rows = static_cast<long long>(B) * S * H;
+  attention_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<float*>(delta), rows, S, H, hd);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -660,10 +717,7 @@ extern "C" int ktpu_attention_bwd_bf16(const void* q, const void* k, const void*
   const long long rows = static_cast<long long>(B) * S * H;
   cudaError_t e = cudaMemsetAsync(dq_acc, 0, sizeof(float) * rows * hd, st);
   if (e != cudaSuccess) return static_cast<int>(e);
-  attention_bwd_delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<float*>(delta), rows, S, H, hd);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  if ((e = launch_delta(o, dout, delta, B, S, H, hd, st)) != cudaSuccess) return static_cast<int>(e);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* acc = static_cast<float*>(dq_acc);
@@ -675,4 +729,33 @@ extern "C" int ktpu_attention_bwd_bf16(const void* q, const void* k, const void*
   attention_bwd_dq_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(
       acc, static_cast<__nv_bfloat16*>(dq), n4, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One (q block, kv block) pair of ring attention's backward (K6), both
+// blocks S rows long: shapes as the backward above; lse (B, H, S) f32 the
+// ring's final log-sum-exp; delta (B, H, S) f32, D = rowsum(dO o O) of the
+// ring's final output, computed here first when o is not null (the ring's
+// first step) and read as given otherwise.  Adds: dq_acc (B, S, H, hd) f32
+// += scale * dS K; dk_acc, dv_acc (B, S, Hkv, hd) f32 += scale * dS^T Q,
+// P^T dO.  causal: 1 for the diagonal block (key <= query within the
+// block), 0 for a block wholly behind (or any block of a non-causal ring).
+// One launch (two when o is given).
+extern "C" int ktpu_ring_block_bwd_bf16(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dout, const void* lse,
+                                        void* delta, void* dq_acc, void* dk_acc, void* dv_acc,
+                                        int B, int S, int H, int Hkv, int hd, float scale,
+                                        int causal, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || B > 65535 || Hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (o != nullptr && (e = launch_delta(o, dout, delta, B, S, H, hd, st)) != cudaSuccess)
+    return static_cast<int>(e);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* acc = static_cast<float*>(dq_acc);
+  e = causal
+          ? launch_bwd_hd<true, true>(q, k, v, dout, l, dl, acc, dk_acc, dv_acc, B, S, H, Hkv, hd, scale, st)
+          : launch_bwd_hd<false, true>(q, k, v, dout, l, dl, acc, dk_acc, dv_acc, B, S, H, Hkv, hd, scale, st);
+  return static_cast<int>(e);
 }

@@ -109,10 +109,13 @@ def _check(q, k, v):
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     with_lse: bool = False,
-                     causal: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One launch of the forward kernel: (o, lse (B, H, S) f32 or None)."""
-    kernel = KERNEL if causal else KERNEL_NC
+                     with_lse: bool = False, causal: bool = True,
+                     kernel: Optional[build.Kernel] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the forward kernel: (o, lse (B, H, S) f32 or None).
+    ``kernel``: the counter the launch goes to (ring attention's blocks
+    count apart); by default K1's or K7a's."""
+    kernel = kernel or (KERNEL if causal else KERNEL_NC)
     kernel.load()
     build.check_cuda_tensors("attention", q, k, v)
     _check(q, k, v)

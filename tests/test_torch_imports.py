@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
-                                           layernorm, rmsnorm, rope, swiglu)
+                                           layernorm, ringattention, rmsnorm, rope, swiglu)
 from kubernetes1_tpu_torch.workloads import sharding
 
 REPO = Path(__file__).resolve().parent.parent
@@ -81,7 +81,7 @@ def test_importing_the_port_pulls_in_no_jax():
     code = ("import sys, kubernetes1_tpu_torch.workloads.llama, "
             "kubernetes1_tpu_torch.workloads.resnet_bench, "
             "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.workloads.bert, "
-            "kubernetes1_tpu_torch.kernels.build; "
+            "kubernetes1_tpu_torch.workloads.ringattention, kubernetes1_tpu_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -120,7 +120,8 @@ def _plain_must_not_run(*_a, **_k):
     raise AssertionError("the plain version ran on a CUDA tensor")
 
 
-KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy, batchnorm, layernorm, gelu)
+KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy, batchnorm, layernorm, gelu,
+                  ringattention)
 
 
 @pytest.fixture
@@ -137,11 +138,32 @@ def no_kernel_libraries(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
                                 "batchnorm", "attention_noncausal", "layernorm", "gelu",
-                                "cross_entropy_f32"])
+                                "cross_entropy_f32", "ring_block", "ring_block_nc", "ring_merge",
+                                "ring_block_bwd"])
 def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
                                                            monkeypatch, op):
     B, S, H, Hkv, hd = 2, 8, 4, 2, 16
-    if op == "attention_noncausal":
+    f32 = torch.float32
+    for name in ("block_attn_plain", "merge_op_plain", "merge_plain", "block_bwd_op_plain",
+                 "block_bwd_plain"):
+        monkeypatch.setattr(ringattention, name, _plain_must_not_run)
+    if op in ("ring_block", "ring_block_nc"):  # the diagonal, and a block behind
+        call = lambda: ringattention.ring_block(*_fakes((B, S, H, hd), (B, S, Hkv, hd),
+                                                        (B, S, Hkv, hd)),
+                                                S, 0 if op == "ring_block_nc" else S, True)
+        kernel = ringattention.RING_BLOCK_NC if op == "ring_block_nc" else ringattention.RING_BLOCK
+    elif op == "ring_merge":
+        call = lambda: ringattention.ring_merge(
+            _FakeCudaTensor(B, S, H, hd, dtype=f32), _FakeCudaTensor(B, H, S, dtype=f32),
+            _FakeCudaTensor(B, S, H, hd), _FakeCudaTensor(B, H, S, dtype=f32), True)
+        kernel = ringattention.RING_MERGE
+    elif op == "ring_block_bwd":
+        call = lambda: ringattention.ring_block_bwd(
+            *_fakes((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd), (B, S, H, hd)),
+            *_fakes((B, H, S), (B, H, S), dtype=f32), True,
+            *_fakes((B, S, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd), dtype=f32))
+        kernel = ringattention.RING_BLOCK_BWD
+    elif op == "attention_noncausal":
         monkeypatch.setattr(attention, "attention_plain", _plain_must_not_run)
         call = lambda: attention.attention(*_fakes(*[(B, S, H, hd)] * 3), causal=False)
         kernel = attention.KERNEL_NC
@@ -202,7 +224,7 @@ def _fakes(*shapes, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
                                 "batchnorm_apply", "batchnorm", "attention_noncausal",
-                                "layernorm", "gelu", "cross_entropy_f32"])
+                                "layernorm", "gelu", "cross_entropy_f32", "ring_block_bwd_nc"])
 def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_libraries, op):
     """The backward entry points, which the autograd Functions call, raise
     like the forward ones and count nothing."""
@@ -228,8 +250,12 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
         "cross_entropy_f32": lambda: cross_entropy.cross_entropy_bwd_kernel(
             *_fakes((16, 1001), dtype=f32), *_fakes((16,), dtype=torch.int64),
             *_fakes((16,), (16,), dtype=f32)),
+        "ring_block_bwd_nc": lambda: ringattention.ring_block_bwd_kernel(
+            *_fakes(qs, ks, ks, qs), *_fakes((2, 4, 8), (2, 4, 8), dtype=f32), False,
+            *_fakes(qs, ks, ks, dtype=f32), o=_FakeCudaTensor(*qs)),
     }[op]
-    kernel = {"attention": attention.KERNEL_BWD, "rmsnorm": rmsnorm.KERNEL_BWD,
+    kernel = {"ring_block_bwd_nc": ringattention.RING_BLOCK_BWD_NC,
+              "attention": attention.KERNEL_BWD, "rmsnorm": rmsnorm.KERNEL_BWD,
               "rope": rope.KERNEL_BWD, "swiglu": swiglu.KERNEL_BWD,
               "cross_entropy": cross_entropy.KERNEL_BWD, "batchnorm": batchnorm.KERNEL_BWD,
               "batchnorm_apply": batchnorm.KERNEL_APPLY,
@@ -243,10 +269,33 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
 
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
                                 "batchnorm", "attention_noncausal", "layernorm", "gelu",
-                                "cross_entropy_f32"])
+                                "cross_entropy_f32", "ring_block", "ring_merge",
+                                "ring_block_bwd"])
 def test_wrapper_takes_plain_version_only_on_cpu(op):
     x = torch.randn(2, 8, 4, 16)
-    if op == "attention_noncausal":
+    k = x[:, :, :2].contiguous()
+    if op == "ring_block":
+        got, want = (f(x, k, k - 1, 8, 0, True) for f in (ringattention.ring_block,
+                                                          ringattention.block_attn_plain))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        kernel = ringattention.RING_BLOCK_NC
+    elif op == "ring_merge":
+        lse = torch.randn(2, 4, 8)
+        got, want = (f(x, lse, x - 1, lse + 1, True) for f in (ringattention.ring_merge,
+                                                                ringattention.merge_op_plain))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        kernel = ringattention.RING_MERGE
+    elif op == "ring_block_bwd":
+        o, lse = ringattention.block_attn_plain(x, k, k, 0, 0, True)
+        bufs = [[torch.zeros(t.shape) for t in (x, k, k)] for _ in range(2)]
+        deltas = [torch.empty(2, 4, 8) for _ in range(2)]
+        for f, b, d in zip((ringattention.ring_block_bwd, ringattention.block_bwd_op_plain), bufs,
+                           deltas):
+            f(x, k, k, x + 1, lse, d, True, *b, o=o)
+        assert torch.equal(deltas[0], deltas[1])
+        assert all(torch.equal(g, w) for g, w in zip(*bufs)) and bufs[0][0].abs().sum() > 0
+        kernel = ringattention.RING_BLOCK_BWD
+    elif op == "attention_noncausal":
         assert torch.equal(attention.attention(x, x + 1, x - 1, causal=False),
                            attention.attention_plain(x, x + 1, x - 1, causal=False))
         kernel = attention.KERNEL_NC
@@ -348,8 +397,8 @@ def test_build_all_runs_one_nvcc_per_source_for_sm90a(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_find_nvcc", lambda: _fake_nvcc(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     paths = build.build_all()
-    sources = ["attention", "batchnorm", "cross_entropy", "gelu", "layernorm", "rmsnorm", "rope",
-               "swiglu"]
+    sources = ["attention", "batchnorm", "cross_entropy", "gelu", "layernorm", "ring_merge",
+               "rmsnorm", "rope", "swiglu"]
     assert sorted(paths) == sources
     calls = (tmp_path / "nvcc.log").read_text().splitlines()
     assert len(calls) == len(sources)
