@@ -53,7 +53,19 @@
    (65,536 causal) and 4 x 2048 (non-causal) in lockstep on the card,
    forward and backward, against the dense kernels at the whole length,
    and ring_attention itself over a 1-rank NCCL group against K1, and
-   checks the K6 launches of each ring.
+   checks the K6 launches of each ring;
+15. (optimizer updates, K10 AdamW, K10b Adafactor, K10c SGD with momentum)
+   holds each multi-tensor kernel against its plain version (optax's
+   formula) over 3 steps on the llama_bench 1b-tpu preset's 1.12 B f32
+   weights at full width, plus two leaves whose sizes are not multiples of
+   4, and times each against its bound and against torch.optim's fused
+   AdamW and SGD (SGD at ResNet-50's 25.6 M weights, its main path);
+16. runs the Llama bench payload llama_bench on the card: main() at the
+   1b-tpu preset (22 layers, 4 x 2048, Adafactor, 10 steps), a batch sweep
+   over 4, 6, 8 and 3-step AdamW and SGD runs, checking the losses, the
+   JAX payload's result keys and every kernel's launches per step.
+The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
+SGD, AdamW), whose launches per step are checked there.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -65,8 +77,10 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -76,11 +90,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kubernetes1_tpu_torch import optim
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
                                            layernorm, rmsnorm, rope, swiglu)
+from kubernetes1_tpu_torch.kernels import optim as optim_kernels
 from kubernetes1_tpu_torch.kernels import ringattention as ring_kernels
-from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, resnet, resnet_bench,
-                                             ringattention)
+from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, resnet,
+                                             resnet_bench, ringattention)
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
 SPIN_CYCLES = 50_000_000
@@ -232,6 +248,28 @@ RING_GRAD_REL_L2_TOL = 2e-2
 RING_BLOCK = 8192            # llama_3_8b().max_seq: one rank's block in the ring phase
 RING_RANKS = 8               # one 8-GPU host: 65,536 tokens of causal context
 RING_NC_RANKS, RING_NC_BLOCK = 4, 2048
+# Optimizer updates (K10, K10b, K10c), kernel vs plain version after
+# OPTIM_STEPS steps on the same f32 weights and gradients, on every element
+# |kernel - plain| <= atol + rtol |plain|: the kernels' f32 arithmetic may
+# be contracted into FMAs where the plain version rounds each op (an ulp or
+# two, 2^-23 relative each, per op of a step), and Adafactor's means and
+# sums over up to 254 M elements run in another order (~1e-6 relative in
+# its statistics and scales); the absolute floor covers values that cancel
+# towards 0 (a momentum whose gradient changed sign), whose error is an ulp
+# of the terms (~1e-7 at |g| ~ 1).
+OPTIM_TOL = (1e-6, 1e-5)
+OPTIM_STEPS = 3
+OPTIM_LR = 3e-4          # llama_bench.py's default learning rate
+BENCH_PRESET, BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = "1b-tpu", 4, 2048, 10  # its defaults
+BENCH_WARMUP = 2         # llama_bench.run's default
+BENCH_SWEEP, BENCH_PROBE_STEPS, BENCH_SWEEP_STEPS = (4, 6, 8), 3, 5
+BENCH_SHORT_STEPS = 3    # the AdamW and SGD runs
+# what llama_bench.run returns: the JAX payload's keys (its llama_bench.py:170-193)
+BENCH_KEYS = {"workload", "device_kind", "platform", "n_devices", "device_granularity",
+              "params_matmul", "batch", "seq", "steps", "optimizer", "remat", "compile_s",
+              "step_time_ms", "tokens_per_sec", "tokens_per_sec_per_device",
+              "model_flops_per_step", "exec_flops_per_step", "peak_flops_per_device", "mfu",
+              "hfu", "final_loss", "profile"}
 BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
                 "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
 
@@ -252,6 +290,8 @@ KERNELS = {
     "ring_block": ring_kernels.RING_BLOCK, "ring_block_nc": ring_kernels.RING_BLOCK_NC,
     "ring_merge": ring_kernels.RING_MERGE, "ring_block_bwd": ring_kernels.RING_BLOCK_BWD,
     "ring_block_bwd_nc": ring_kernels.RING_BLOCK_BWD_NC,
+    "adamw": optim_kernels.KERNEL_ADAMW, "adafactor": optim_kernels.KERNEL_ADAFACTOR,
+    "sgdm": optim_kernels.KERNEL_SGDM,
 }
 
 
@@ -267,7 +307,22 @@ def train_launches_per_step(L: int) -> dict:
     asserts the same counts on the CPU with the kernels' plain twins."""
     return {"attention": L, "attention_bwd": L, "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
             "rope": L, "rope_bwd": L, "swiglu": 2 * L, "swiglu_bwd": L,
-            "cross_entropy": 1, "cross_entropy_bwd": 1}
+            "cross_entropy": 1, "cross_entropy_bwd": 1, "adamw": 1}
+
+
+def bench_launches_per_step(L: int, optimizer: str) -> dict:
+    """One llama_bench step: the Llama train step's kernels and the named
+    optimizer's one update (its launch counter has the optimizer's name)."""
+    per_step = {k: v for k, v in train_launches_per_step(L).items() if k != "adamw"}
+    return {**per_step, optimizer: 1}
+
+
+def resnet_launches_per_step(n_bn: int) -> dict:
+    """One ResNet-50 step: each batch-norm kernel once per layer, the
+    cross-entropy over the f32 logits forward and backward, one SGD
+    update."""
+    return {**{name: n_bn for name in BN_KERNELS}, "cross_entropy_f32": 1,
+            "cross_entropy_f32_bwd": 1, "sgdm": 1}
 
 
 def bert_launches_per_step(L: int) -> dict:
@@ -280,7 +335,7 @@ def bert_launches_per_step(L: int) -> dict:
     return {"attention_noncausal": 2 * L, "attention_noncausal_bwd": L,
             "layernorm": 4 * L + 1, "layernorm_bwd": 2 * L + 1,
             "gelu": 2 * L + 1, "gelu_bwd": L + 1,
-            "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1}
+            "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1, "adamw": 1}
 
 
 def fail(msg: str):
@@ -798,13 +853,18 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
             fail(f"train: {name} launched {n} times in {TRAIN_STEPS} steps, "
                  f"want {per_step.get(name, 0)} per step")
     step_ms = float(np.mean(times[1:])) * 1e3  # the first step pays for cuBLAS's set-up
+    parts = step_breakdown(cfg, params, opt, tokens)
+    parts["torch_adamw_ms"] = torch_adamw_ms(llama.param_leaves(params), 0.1)
+    kernel_ms = {**kernel_ms, "adamw": parts["optimizer_ms"]}
     kern_ms = sum(per_step[name] * kernel_ms[name] for name in per_step)
     tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    # AdamW's least traffic: p, g, m, v read and p, m, v written, f32
+    opt_bound_ms = bound_ms(28 * n_params, 16 * n_params, PEAK_F32)[0]
     res = dict(losses=losses, step_ms=step_ms, first_step_ms=times[0] * 1e3,
                tokens_per_s=tokens_per_step / step_ms * 1e3,
                peak_mem_gib=peak / 2 ** 30, launches=launches,
                kernel_ms_per_step=kern_ms, kernel_share=kern_ms / step_ms,
-               **step_breakdown(cfg, params, opt, tokens))
+               optimizer_bound_ms=opt_bound_ms, **parts)
     # model FLOPs: 6 per matrix weight per token (embedding gathers excluded)
     # plus attention's 4 (forward) + 8 (backward) * hd per unmasked pair;
     # the backward kernel's recompute of Q K^T is implementation work
@@ -822,14 +882,41 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
           f"peak_mem_gib={res['peak_mem_gib']:.2f} kernels_ms_per_step={kern_ms:.2f} "
           f"({100 * res['kernel_share']:.1f} %) forward_ms={res['forward_ms']:.2f} "
           f"backward_ms={res['backward_ms']:.2f} optimizer_ms={res['optimizer_ms']:.2f} "
+          f"(K10 AdamW, bound {opt_bound_ms:.2f} ms at 28 bytes a parameter; "
+          f"torch.optim.AdamW foreach on the same step {res['torch_adamw_ms']:.2f}) "
           f"launches={launches} on [{card}]", flush=True)
     del params, opt, step
     return res
 
 
+def torch_adamw_ms(leaves, weight_decay: float) -> float:
+    """torch.optim.AdamW in its default (foreach) form, the port's optimizer
+    before K10, timed on the same weights and gradients as a yardstick
+    (its first step, which makes its state, untimed)."""
+    lib = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+    lib.step()
+    ms = optimizer_step_ms(lib)
+    del lib
+    free_memory()
+    return ms
+
+
+def optimizer_step_ms(opt) -> float:
+    """One more update on the gradients the last step left, timed with
+    CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    opt.step()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
 def step_breakdown(cfg, params, opt, tokens) -> dict:
     """One more step, its parts timed apart with CUDA events: the loss
-    (forward), its backward, and the AdamW update."""
+    (forward), its backward, and the AdamW update (one K10 launch)."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     opt.zero_grad(set_to_none=True)
     ev[0].record()
@@ -980,7 +1067,8 @@ def resnet_check_phase(dev):
         return y
 
     results = {}
-    for name, ops, dtype in (("kernels", resnet.Ops(recording_bn), cfg.dtype),
+    for name, ops, dtype in (("kernels", resnet.Ops(recording_bn, cross_entropy.cross_entropy),
+                              cfg.dtype),
                              ("plain", resnet.PLAIN, cfg.dtype),
                              ("f32", resnet.PLAIN, torch.float32)):
         c = dataclasses.replace(cfg, dtype=dtype)
@@ -1068,10 +1156,10 @@ def resnet_phase(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     print("resnet_bench result: " + json.dumps(res), flush=True)
     steps_run = RESNET_WARMUP + RESNET_STEPS + 1  # the profiled step too
-    per_step = resnet.num_bn_layers(resnet.ResNetConfig())
+    per_step = resnet_launches_per_step(resnet.num_bn_layers(resnet.ResNetConfig()))
     for name, n in launches.items():
-        want = per_step if name in BN_KERNELS else 0
-        if n != want * steps_run or (name in BN_KERNELS and n == 0):
+        want = per_step.get(name, 0)
+        if n != want * steps_run or (name in per_step and n == 0):
             fail(f"resnet: {name} launched {n} times in {steps_run} steps, want {want} per step")
     first, final = res["first_loss"], res["final_loss"]
     if not (np.isfinite(first) and np.isfinite(final) and final < first):
@@ -1348,6 +1436,8 @@ def bert_phase(card: str, per_call: dict) -> dict:
             fail(f"bert: {name} launched {n} times in {BERT_STEPS} steps, "
                  f"want {per_step.get(name, 0)} per step")
     step_ms = float(np.mean(times[1:])) * 1e3
+    per_call = {**per_call, "adamw": optimizer_step_ms(opt)}
+    lib_adamw_ms = torch_adamw_ms(bert.param_leaves(params), 0.01)
     tokens_per_step = BERT_BATCH * BERT_SEQ
     L, B, S, H, hd = cfg.n_layers, BERT_BATCH, BERT_SEQ, cfg.n_heads, cfg.head_dim
     pairs = B * H * hd * S * S  # the attention kernels' (query, key) pairs times hd
@@ -1373,7 +1463,8 @@ def bert_phase(card: str, per_call: dict) -> dict:
                executed_flops=executed_flops,
                model_tflops_per_s=model_flops / step_ms / 1e9,
                mfu=model_flops / step_ms * 1e3 / PEAK_BF16_TENSOR,
-               kernel_ms_per_step=kern_ms, device_ms=device_ms)
+               kernel_ms_per_step=kern_ms, device_ms=device_ms,
+               optimizer_ms=per_call["adamw"], torch_adamw_ms=lib_adamw_ms)
     busy = (f"device_ms={device_ms:.2f} ({100 * device_ms / step_ms:.1f} % busy)" if device_ms
             else f"device time not measured ({prof.get('error')})")
     print(f"bert (BERT-large, {L} layers, {n_params / 1e6:.2f} M params, batch {B}x{S}, remat, "
@@ -1384,7 +1475,9 @@ def bert_phase(card: str, per_call: dict) -> dict:
           f"of {PEAK_BF16_TENSOR:.3e}) flop_counter_tflop_per_step={counted / 1e12:.3f} "
           f"executed_tflops_per_s={executed_flops / step_ms / 1e9:.1f} "
           f"peak_mem_gib={res['peak_mem_gib']:.2f} kernels_ms_per_step={kern_ms:.2f} "
-          f"({100 * kern_ms / step_ms:.1f} %) {busy} "
+          f"({100 * kern_ms / step_ms:.1f} %) optimizer_ms={per_call['adamw']:.2f} (K10 AdamW, "
+          f"bound {bound_ms(28 * n_params, 16 * n_params, PEAK_F32)[0]:.2f} ms; torch.optim.AdamW "
+          f"foreach {lib_adamw_ms:.2f}) {busy} "
           f"launches_per_step={ {k: v // BERT_STEPS for k, v in launches.items() if v} } "
           f"on [{card}]", flush=True)
     print(f"bert step, top kernels by device time: {prof.get('top_ops')}", flush=True)
@@ -1718,6 +1811,265 @@ def ring_phase(dev, card: str) -> dict:
     return res
 
 
+# ---------------------------------------- optimizer updates (K10, K10b, K10c)
+
+
+ADAFACTOR_NO_LIBRARY = ("none exists: torch.optim.Adafactor is another algorithm (no block-RMS "
+                        "clip of optax's kind, no parameter-scale rule, another decay)")
+
+
+def bench_weights(dev, gen) -> list:
+    """The llama_bench 1b-tpu preset's f32 weights at full width as JAX
+    leaf groups (embed (32000, 2048), 22 layers, final norm, unembed), and
+    two more leaves whose sizes are not multiples of 4 floats: a (1001,)
+    vector and a factored (129, 131) matrix."""
+    cfg = llama.LlamaConfig(**llama_bench.PRESETS[BENCH_PRESET])
+    params = llama.init_params(cfg, gen, dtype=torch.float32)
+    odd = [("odd_vector", [torch.randn(1001, generator=gen, device=dev)]),
+           ("odd_matrix", [torch.randn((129, 131), generator=gen, device=dev)])]
+    return llama.leaf_groups(params) + odd
+
+
+def clone_groups(groups) -> list:
+    return [(name, [t.detach().clone() for t in ts]) for name, ts in groups]
+
+
+def make_opt(name: str, groups):
+    leaves = [t for _n, ts in groups for t in ts]
+    if name == "adamw":
+        return optim.AdamW(leaves, lr=OPTIM_LR, weight_decay=0.1)
+    if name == "sgdm":
+        return optim.SGD(leaves, lr=OPTIM_LR, momentum=0.9)
+    return optim.Adafactor(groups, lr=OPTIM_LR)
+
+
+def run_plain(name: str, opt):
+    """The update's plain version on the optimizer's own table and count."""
+    h = opt.param_groups[0]
+    if name == "adamw":
+        optim_kernels.adamw_plain(opt.table, opt.count, h["lr"], *h["betas"], h["eps"],
+                                  h["weight_decay"])
+    elif name == "sgdm":
+        optim_kernels.sgdm_plain(opt.table, h["lr"], h["momentum"])
+    else:
+        optim_kernels.adafactor_plain(opt.table, opt.count, h["lr"])
+
+
+def run_kernel(name: str, opt):
+    """The update's kernel on the optimizer's own table and count: what
+    opt.step() launches, without its gradient refresh."""
+    h = opt.param_groups[0]
+    if name == "adamw":
+        optim_kernels.adamw_kernel(opt.table, opt.count, h["lr"], *h["betas"], h["eps"],
+                                   h["weight_decay"])
+    elif name == "sgdm":
+        optim_kernels.sgdm_kernel(opt.table, h["lr"], h["momentum"])
+    else:
+        optim_kernels.adafactor_kernel(opt.table, opt.count, h["lr"])
+
+
+def optim_bound(name: str, table) -> tuple:
+    """The least an update must move (each input read once, each output
+    written once) and its f32 operations, over the table's leaves."""
+    nbytes = flops = 0
+    for leaf in table.leaves:
+        n = leaf.p.numel()
+        if name == "adamw":      # p, g, m, v in; p, m, v out; ~16 flops
+            nbytes, flops = nbytes + 28 * n, flops + 16 * n
+        elif name == "sgdm":     # p, g, t in; p, t out; 4 flops
+            nbytes, flops = nbytes + 20 * n, flops + 4 * n
+        elif leaf.mode == optim_kernels.FLAT:  # p, g, v in; p, v out
+            nbytes, flops = nbytes + 20 * n, flops + 14 * n
+        else:                    # p, g in; p out; v_row, v_col in and out
+            stats = sum(s.numel() for s in leaf.states)
+            nbytes, flops = nbytes + 12 * n + 8 * stats, flops + 14 * n
+    return bound_ms(nbytes, flops, PEAK_F32)
+
+
+def check_optimizer(name: str, groups, gen) -> tuple:
+    """OPTIM_STEPS updates of the kernel (through opt.step()) and of the
+    plain version on copies of the same weights, with the same random
+    gradients; fails beyond OPTIM_TOL.  Returns the kernel's optimizer and
+    {weights or state: max abs error}."""
+    kern, plain = make_opt(name, groups), make_opt(name, clone_groups(groups))
+    k_leaves = [p for g in kern.param_groups for p in g["params"]]
+    p_leaves = [p for g in plain.param_groups for p in g["params"]]
+    for _ in range(OPTIM_STEPS):
+        for kp, pp in zip(k_leaves, p_leaves):
+            kp.grad = torch.randn(kp.shape, generator=gen, device=kp.device)
+            pp.grad = kp.grad
+        kern.step()
+        plain.table.set_grads([p.grad for p in p_leaves])
+        run_plain(name, plain)
+    errs = {"p": check_close(f"{name} weights", k_leaves, p_leaves, OPTIM_TOL)}
+    for key in sorted({k for st in kern.state.values() for k in st}):
+        pairs = [(kern.state[kp][key], plain.state[pp][key])
+                 for kp, pp in zip(k_leaves, p_leaves) if key in kern.state[kp]]
+        errs[key] = check_close(f"{name} {key}", *zip(*pairs), OPTIM_TOL)
+    if name != "sgdm" and not int(kern.count) == int(plain.count) == OPTIM_STEPS:
+        fail(f"{name}: count {int(kern.count)} (plain {int(plain.count)}) after "
+             f"{OPTIM_STEPS} steps")
+    del plain
+    return kern, errs
+
+
+def optim_kernel_phase(dev, gen) -> list:
+    """K10, K10b and K10c against their plain versions at the 1b-tpu
+    preset's weights, timed there (SGD also at ResNet-50's), each with its
+    bound and torch.optim's fused update where one exists."""
+    rows = []
+    for name, replaces, jax_file in (("adafactor", "74", "llama_bench.py"),
+                                     ("adamw", "210", "llama.py"),
+                                     ("sgdm", "143", "resnet.py")):
+        groups = bench_weights(dev, gen)
+        opt, errs = check_optimizer(name, groups, gen)
+        n = sum(t.numel() for _n, ts in groups for t in ts)
+        shape = f"1b-tpu weights + 2 odd leaves: {n} f32 in {len(opt.table.leaves)} leaves"
+        if name == "sgdm":  # timed where the main path runs it: ResNet-50
+            del opt, groups
+            free_memory()
+            params = resnet.init_params(resnet.ResNetConfig(), torch.Generator(device=dev)
+                                        .manual_seed(0))
+            leaves = resnet.param_leaves(params)
+            groups = [("resnet50", [p.requires_grad_(True) for p in leaves])]
+            opt = make_opt(name, groups)
+            for p in leaves:
+                p.grad = torch.randn(p.shape, generator=gen, device=dev)
+            opt.step()
+            n = sum(p.numel() for p in leaves)
+            shape = f"ResNet-50 weights: {n} f32 in {len(leaves)} leaves (checked at 1b-tpu)"
+        kernel_ms = time_ms(lambda: run_kernel(name, opt), 10, 2)
+        plain_ms = time_ms(lambda: run_plain(name, opt), 2, 1)
+        library_ms = None
+        if name != "adafactor":
+            leaves = [p for g in opt.param_groups for p in g["params"]]
+            lib = (torch.optim.AdamW(leaves, lr=OPTIM_LR, weight_decay=0.1, fused=True)
+                   if name == "adamw" else
+                   torch.optim.SGD(leaves, lr=OPTIM_LR, momentum=0.9, fused=True))
+            library_ms = time_ms(lib.step, 10, 2)
+            del lib
+        bound = optim_bound(name, opt.table)
+        r = row(name, "optim.cu", replaces, shape, max(errs.values()), kernel_ms, plain_ms,
+                bound, library_ms, jax_file=jax_file)
+        rows.append(r)
+        print_row(r)
+        print(f"{name}: max abs err after {OPTIM_STEPS} steps vs plain by tensor {errs}; "
+              f"{kernel_ms:.4f} ms is {100 * bound[0] / kernel_ms:.1f} % of the bound; library: "
+              f"{'fused torch.optim, ' + format(library_ms, '.4f') + ' ms' if library_ms else ADAFACTOR_NO_LIBRARY}",
+              flush=True)
+        del opt, groups
+        free_memory()
+    return rows
+
+
+# ------------------------------------------------ the Llama bench payload
+
+
+def recording_train_step(losses: list):
+    """llama.make_train_step, with each step's loss kept (a device tensor:
+    no read-back inside the timed loop)."""
+    make = llama.make_train_step
+
+    def wrapped(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def recorded(tokens):
+            loss = step(tokens)
+            losses.append(loss)
+            return loss
+
+        return recorded
+
+    return make, wrapped
+
+
+def bench_run(card: str, optimizer: str, steps_run: int, call) -> tuple:
+    """One llama_bench call with the launch counters from 0: the losses of
+    every step, the result, and the launches, checked against steps_run
+    steps of the named optimizer."""
+    losses: list = []
+    make, llama.make_train_step = recording_train_step(losses)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    try:
+        res = call()
+    finally:
+        llama.make_train_step = make
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    losses = [float(x) for x in losses]
+    cfg = llama.LlamaConfig(**llama_bench.PRESETS[BENCH_PRESET])
+    per_step = bench_launches_per_step(cfg.n_layers, optimizer)
+    for name, n in launches.items():
+        if n != per_step.get(name, 0) * steps_run or (name in per_step and n == 0):
+            fail(f"llama_bench {optimizer}: {name} launched {n} times in {steps_run} steps, "
+                 f"want {per_step.get(name, 0)} per step")
+    if len(losses) != steps_run or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"llama_bench {optimizer}: losses {losses} (want {steps_run}, finite, falling)")
+    return res, losses, launches
+
+
+def check_bench_result(res: dict, optimizer: str, batch: int, steps: int, sweep: bool = False):
+    keys = BENCH_KEYS | ({"sweep", "sweep_winner_batch"} if sweep else set())
+    if set(res) != keys:
+        fail(f"llama_bench: result keys {sorted(res)}, want the JAX payload's {sorted(keys)}")
+    if (res["n_devices"] != 1 or res["platform"] != "gpu" or res["optimizer"] != optimizer
+            or res["batch"] != batch or res["steps"] != steps
+            or res["workload"] != f"llama-{BENCH_PRESET}" or not np.isfinite(res["final_loss"])
+            or not res["mfu"] or res["device_kind"] != torch.cuda.get_device_name(0)):
+        fail(f"llama_bench: result {res}")
+
+
+def llama_bench_phase(card: str) -> dict:
+    """The Llama bench payload on the card: main() at its defaults (1b-tpu,
+    4 x 2048, Adafactor, 10 steps, profiled), a batch sweep, and short
+    AdamW and SGD runs: the llama_bench main path."""
+    out_dir = tempfile.mkdtemp(prefix="llama-bench-")
+    out = os.path.join(out_dir, "result.json")
+    argv = ["--preset", BENCH_PRESET, "--batch", str(BENCH_BATCH), "--seq", str(BENCH_SEQ),
+            "--steps", str(BENCH_STEPS), "--out", out]
+    torch.cuda.reset_peak_memory_stats()
+    res, losses, launches = bench_run(
+        card, "adafactor", BENCH_WARMUP + BENCH_STEPS + 1,  # the profiled step too
+        lambda: (llama_bench.main(argv), json.load(open(out)))[1])
+    peak = torch.cuda.max_memory_allocated()
+    check_bench_result(res, "adafactor", BENCH_BATCH, BENCH_STEPS)
+    print("llama_bench result: " + json.dumps(res), flush=True)
+    print(f"llama_bench (1b-tpu, 22 layers, {BENCH_BATCH}x{BENCH_SEQ}, Adafactor): losses="
+          f"{[round(x, 4) for x in losses]} step_ms={res['step_time_ms']} "
+          f"tokens_per_s={res['tokens_per_sec']} mfu={res['mfu']} hfu={res['hfu']} "
+          f"peak_mem_gib={peak / 2 ** 30:.2f} launches_per_step="
+          f"{ {k: v // (BENCH_WARMUP + BENCH_STEPS + 1) for k, v in launches.items() if v} } "
+          f"on [{card}]", flush=True)
+    free_memory()
+    n_probe = len(BENCH_SWEEP) * (1 + BENCH_PROBE_STEPS) + BENCH_WARMUP + BENCH_SWEEP_STEPS
+    sweep, _sweep_losses, sweep_launches = bench_run(
+        card, "adafactor", n_probe,
+        lambda: llama_bench.run_sweep(list(BENCH_SWEEP), BENCH_PRESET, BENCH_SEQ,
+                                      BENCH_SWEEP_STEPS, "adafactor",
+                                      probe_steps=BENCH_PROBE_STEPS, profile=False))
+    check_bench_result(sweep, "adafactor", sweep["batch"], BENCH_SWEEP_STEPS, sweep=True)
+    print(f"llama_bench sweep {list(BENCH_SWEEP)} (probe {BENCH_PROBE_STEPS} steps): "
+          f"{json.dumps(sweep['sweep'])} winner {sweep['sweep_winner_batch']} "
+          f"step_ms={sweep['step_time_ms']} tokens_per_s={sweep['tokens_per_sec']} "
+          f"mfu={sweep['mfu']} on [{card}]", flush=True)
+    free_memory()
+    runs = {"adafactor": res}
+    all_launches = {k: launches[k] + sweep_launches[k] for k in launches}
+    for optimizer in ("adamw", "sgdm"):
+        r, ls, lc = bench_run(
+            card, optimizer, BENCH_WARMUP + BENCH_SHORT_STEPS,
+            lambda: llama_bench.run(BENCH_PRESET, BENCH_BATCH, BENCH_SEQ, BENCH_SHORT_STEPS,
+                                    optimizer, profile=False))
+        check_bench_result(r, optimizer, BENCH_BATCH, BENCH_SHORT_STEPS)
+        print(f"llama_bench {optimizer} ({BENCH_SHORT_STEPS} steps): losses="
+              f"{[round(x, 4) for x in ls]} step_ms={r['step_time_ms']} "
+              f"tokens_per_s={r['tokens_per_sec']} mfu={r['mfu']} on [{card}]", flush=True)
+        runs[optimizer] = r
+        all_launches = {k: all_launches[k] + lc[k] for k in all_launches}
+        free_memory()
+    return dict(launches=all_launches, runs=runs, sweep=sweep, peak_mem_gib=peak / 2 ** 30)
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -1773,15 +2125,17 @@ def main():
     bt = bert_phase(card, bert_per_call)
     free_memory()
     ring = ring_phase(dev, card)
-    rows += bn_rows + bert_rows + ring_rows
+    free_memory()
+    optim_rows = optim_kernel_phase(dev, gen)
+    free_memory()
+    bench = llama_bench_phase(card)
+    rows += bn_rows + bert_rows + ring_rows + optim_rows
+    paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,
+             "llama_bench": bench}
     for r in rows:
-        r["launches_serving"] = serve["launches"][r["name"]]
-        r["launches_train"] = train["launches"][r["name"]]
-        r["launches_resnet"] = rn["launches"][r["name"]]
-        r["launches_bert"] = bt["launches"][r["name"]]
-        r["launches_ring"] = ring["launches"][r["name"]]
-        r["launches"] = (r["launches_serving"] + r["launches_train"] + r["launches_resnet"]
-                         + r["launches_bert"] + r["launches_ring"])
+        for path, res in paths.items():
+            r[f"launches_{path}"] = res["launches"][r["name"]]
+        r["launches"] = sum(r[f"launches_{path}"] for path in paths)
     print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,9 @@ transform head and the decode tied to the token embedding, trained by
 AdamW with weight decay 0.01 on f32 master weights in bf16 compute.  The
 non-causal attention, LayerNorm, tanh-GELU and the cross-entropy over the
 f32 logits run as hand-written CUDA kernels on the card, forward and
-backward (``kubernetes1_tpu_torch.kernels``); the matrix products stay
-``torch.matmul`` and the optimizer ``torch.optim.AdamW``, as the JAX
-package left them to XLA and optax.
+backward (``kubernetes1_tpu_torch.kernels``), and so does the AdamW
+update (``kubernetes1_tpu_torch.optim``); the matrix products stay
+``torch.matmul``, as the JAX package left them to XLA.
 
 Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 ``x @ W``, so weights carried over from the JAX pytree
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import optim
 from ..kernels import attention as _attention
 from ..kernels import cross_entropy as _cross_entropy
 from ..kernels import gelu as _gelu
@@ -226,8 +227,8 @@ def make_train_state(cfg: BertConfig, device: Optional[torch.device | str] = Non
                      params: Optional[Dict[str, Any]] = None
                      ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
     """f32 master weights (random from ``seed``, or ``params``, e.g. from
-    ``params_from_jax``) that require grad, and AdamW over all of them:
-    optax's ``adamw(lr, weight_decay=0.01)`` with its defaults, decay on
+    ``params_from_jax``) that require grad, and the port's AdamW (K10) over
+    all of them: optax's ``adamw(lr, weight_decay=0.01)`` with its defaults, decay on
     every leaf.  ``device`` defaults to the card and raises without one."""
     dev = resolve_device(device)
     if params is None:
@@ -235,8 +236,7 @@ def make_train_state(cfg: BertConfig, device: Optional[torch.device | str] = Non
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
-    return params, opt
+    return params, optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
 
 
 def make_train_step(cfg: BertConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,

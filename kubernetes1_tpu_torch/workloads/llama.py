@@ -8,9 +8,10 @@ remat) and the continuous-batching decode server (``BatchEngine``,
 ``DecodeServer``) with the same HTTP contract and the same
 ``ktpu_llama_*`` metrics.  Attention, RMSNorm, RoPE, SwiGLU and the
 cross-entropy run as hand-written CUDA kernels on the card, forward and
-backward (``kubernetes1_tpu_torch.kernels``); the matrix products stay
-``torch.matmul``, the sampling ``torch.argmax`` and the optimizer
-``torch.optim.AdamW``, as the JAX package left them to XLA and optax.
+backward (``kubernetes1_tpu_torch.kernels``), and so does the AdamW
+update (``kubernetes1_tpu_torch.optim``); the matrix products stay
+``torch.matmul`` and the sampling ``torch.argmax``, as the JAX package
+left them to XLA.
 
 Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 ``h @ W``, so weights carried over from the JAX pytree
@@ -44,6 +45,7 @@ from ..kernels import cross_entropy as _cross_entropy
 from ..kernels import rmsnorm as _rmsnorm
 from ..kernels import rope as _rope
 from ..kernels import swiglu as _swiglu
+from .. import optim
 from ..obs.appmetrics import AppMetrics
 from .sharding import resolve_device
 
@@ -166,6 +168,16 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
             + [params["final_norm"], params["unembed"]])
 
 
+def leaf_groups(params: Dict[str, Any]) -> List[Tuple[str, List[torch.Tensor]]]:
+    """The JAX pytree's leaves, each as (name, its tensors): embed, then
+    each of LAYER_KEYS as ``layers.<key>`` with one tensor per layer (the
+    leaf JAX stacks on a leading axis), final_norm, unembed.  The same
+    tensors as ``param_leaves``, grouped as Adafactor needs them."""
+    return ([("embed", [params["embed"]])]
+            + [(f"layers.{key}", [lp[key] for lp in params["layers"]]) for key in LAYER_KEYS]
+            + [("final_norm", [params["final_norm"]]), ("unembed", [params["unembed"]])])
+
+
 # ------------------------------------------------------------------ modules
 
 class Ops(NamedTuple):
@@ -271,9 +283,10 @@ def make_train_state(cfg: LlamaConfig, device: Optional[torch.device | str] = No
                      params: Optional[Dict[str, Any]] = None
                      ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
     """f32 master weights (random from ``seed``, or ``params``, e.g. from
-    ``params_from_jax``) that require grad, and AdamW over all of them:
-    optax's ``adamw(lr, weight_decay=0.1)`` with its defaults, decay on
-    every leaf.  ``device`` defaults to the card and raises without one."""
+    ``params_from_jax``) that require grad, and the port's AdamW (K10) over
+    all of them: optax's ``adamw(lr, weight_decay=0.1)`` with its
+    defaults, decay on every leaf.  ``device`` defaults to the card and
+    raises without one."""
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -281,8 +294,7 @@ def make_train_state(cfg: LlamaConfig, device: Optional[torch.device | str] = No
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
-    return params, opt
+    return params, optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
 
 
 def make_train_step(cfg: LlamaConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,

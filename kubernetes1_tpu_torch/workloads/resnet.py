@@ -5,9 +5,11 @@ model (``forward`` over a plain parameter dict), the loss and the SGD
 train step (``make_train_state``, ``make_train_step``, ``train_demo``,
 ``bench_imgs_per_sec``).  Batch norm with its ReLU and residual add runs
 as hand-written CUDA kernels on the card, forward and backward
-(``kernels/batchnorm.py``, K8); the convolutions stay ``F.conv2d``
-(cuDNN) and the pooling ``F.max_pool2d``, as the JAX package left them to
-XLA.
+(``kernels/batchnorm.py``, K8), and so do the cross-entropy over the f32
+logits (``kernels/cross_entropy.py``, K5) and the SGD-momentum update
+(``kubernetes1_tpu_torch.optim``, K10c); the convolutions stay
+``F.conv2d`` (cuDNN) and the pooling ``F.max_pool2d``, as the JAX package
+left them to XLA.
 
 Layout: the public functions keep JAX's NHWC images (B, H, W, 3).  Inside,
 activations are logical NCHW tensors in ``torch.channels_last`` memory,
@@ -33,7 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import optim
 from ..kernels import batchnorm as _batchnorm
+from ..kernels import cross_entropy as _cross_entropy
 from .sharding import resolve_device
 
 # (blocks per stage, bottleneck mid-channels) for ResNet-50
@@ -151,16 +155,17 @@ def param_leaves(tree: Dict[str, Any]) -> List[Any]:
 # ------------------------------------------------------------------ modules
 
 class Ops(NamedTuple):
-    """The kernel-backed op of the model."""
+    """The kernel-backed ops of the model and its loss."""
 
     batchnorm: Callable
+    cross_entropy: Callable
 
 
-# The wrapper: the kernels on CUDA tensors (forward and backward), the plain
-# versions on CPU ones.
-KERNELS = Ops(_batchnorm.batchnorm)
-# The plain version on every device: the reference a card run compares with.
-PLAIN = Ops(_batchnorm.batchnorm_plain)
+# The wrappers: the kernels on CUDA tensors (forward and backward), the
+# plain versions on CPU ones.
+KERNELS = Ops(_batchnorm.batchnorm, _cross_entropy.cross_entropy)
+# The plain versions on every device: the reference a card run compares with.
+PLAIN = Ops(_batchnorm.batchnorm_plain, _cross_entropy.cross_entropy_plain)
 
 
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -227,8 +232,10 @@ def forward(cfg: ResNetConfig, params: Dict[str, Any], images: torch.Tensor,
 
 def loss_fn(cfg: ResNetConfig, params: Dict[str, Any], images: torch.Tensor,
             labels: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
-    """Mean softmax cross entropy of the f32 logits, a 0-dim f32 tensor."""
-    return F.cross_entropy(forward(cfg, params, images, ops), labels.long())
+    """Mean softmax cross entropy of the f32 logits, a 0-dim f32 tensor:
+    the cross-entropy op's per-row NLL (JAX's
+    ``optax.softmax_cross_entropy_with_integer_labels``), then the mean."""
+    return ops.cross_entropy(forward(cfg, params, images, ops), labels.long()).mean()
 
 
 # --------------------------------------------------------------- train step
@@ -237,17 +244,17 @@ def make_train_state(cfg: ResNetConfig, device: Optional[torch.device | str] = N
                      seed: int = 0, params: Optional[Dict[str, Any]] = None
                      ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
     """f32 weights (random from ``seed``, or ``params``, e.g. from
-    ``params_from_jax``) that require grad, and SGD with momentum 0.9 over
-    all of them: optax's ``sgd(0.1, momentum=0.9)`` (optax's trace starts
-    at 0 and torch's buffer at the first gradient, so the updates agree).
-    ``device`` defaults to the card and raises without one."""
+    ``params_from_jax``) that require grad, and the port's SGD with
+    momentum 0.9 (K10c) over all of them: optax's ``sgd(0.1,
+    momentum=0.9)``.  ``device`` defaults to the card and raises without
+    one."""
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    return params, torch.optim.SGD(leaves, lr=0.1, momentum=0.9)
+    return params, optim.SGD(leaves, lr=0.1, momentum=0.9)
 
 
 def make_train_step(cfg: ResNetConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,

@@ -38,6 +38,7 @@ import torch
 
 from kubernetes1_tpu.workloads import bert as jbert
 from kubernetes1_tpu.workloads import sharding as jsh
+from kubernetes1_tpu_torch import optim as toptim
 from kubernetes1_tpu_torch.kernels import attention as tattention
 from kubernetes1_tpu_torch.kernels import cross_entropy as txent
 from kubernetes1_tpu_torch.kernels import gelu as tgelu
@@ -344,7 +345,7 @@ def test_make_train_state_is_adamw_wd_001_over_f32_leaves():
     params, opt = tbert.make_train_state(cfg, "cpu", lr=1e-3, seed=1)
     leaves = tbert.param_leaves(params)
     assert all(p.dtype == torch.float32 and p.requires_grad for p in leaves)
-    assert isinstance(opt, torch.optim.AdamW)
+    assert isinstance(opt, toptim.AdamW)
     group = opt.param_groups[0]
     assert len(group["params"]) == len(leaves) == 6 + 10 * cfg.n_layers
     assert (group["lr"], group["betas"], group["eps"], group["weight_decay"]) == (

@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
-                                           layernorm, ringattention, rmsnorm, rope, swiglu)
+                                           layernorm, optim, ringattention, rmsnorm, rope,
+                                           swiglu)
 from kubernetes1_tpu_torch.workloads import sharding
 
 REPO = Path(__file__).resolve().parent.parent
@@ -81,7 +82,9 @@ def test_importing_the_port_pulls_in_no_jax():
     code = ("import sys, kubernetes1_tpu_torch.workloads.llama, "
             "kubernetes1_tpu_torch.workloads.resnet_bench, "
             "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.workloads.bert, "
-            "kubernetes1_tpu_torch.workloads.ringattention, kubernetes1_tpu_torch.kernels.build; "
+            "kubernetes1_tpu_torch.workloads.ringattention, kubernetes1_tpu_torch.kernels.build, "
+            "kubernetes1_tpu_torch.workloads.llama_bench, kubernetes1_tpu_torch.optim, "
+            "kubernetes1_tpu_torch.kernels.optim; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -121,7 +124,7 @@ def _plain_must_not_run(*_a, **_k):
 
 
 KERNEL_MODULES = (attention, rmsnorm, rope, swiglu, cross_entropy, batchnorm, layernorm, gelu,
-                  ringattention)
+                  ringattention, optim)
 
 
 @pytest.fixture
@@ -139,7 +142,7 @@ def no_kernel_libraries(monkeypatch, tmp_path):
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
                                 "batchnorm", "attention_noncausal", "layernorm", "gelu",
                                 "cross_entropy_f32", "ring_block", "ring_block_nc", "ring_merge",
-                                "ring_block_bwd"])
+                                "ring_block_bwd", "adamw", "adafactor", "sgdm"])
 def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
                                                            monkeypatch, op):
     B, S, H, Hkv, hd = 2, 8, 4, 2, 16
@@ -147,7 +150,21 @@ def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
     for name in ("block_attn_plain", "merge_op_plain", "merge_plain", "block_bwd_op_plain",
                  "block_bwd_plain"):
         monkeypatch.setattr(ringattention, name, _plain_must_not_run)
-    if op in ("ring_block", "ring_block_nc"):  # the diagonal, and a block behind
+    for name in ("adamw_plain", "adafactor_plain", "sgdm_plain"):
+        monkeypatch.setattr(optim, name, _plain_must_not_run)
+    # a leaf table on a card, as far as the wrappers look
+    table = types.SimpleNamespace(device=torch.device("cuda", 0), grads=[object()])
+    count = _FakeCudaTensor(dtype=torch.int32)
+    if op == "adamw":
+        call = lambda: optim.adamw(table, count, 1e-3)
+        kernel = optim.KERNEL_ADAMW
+    elif op == "adafactor":
+        call = lambda: optim.adafactor(table, count, 1e-3)
+        kernel = optim.KERNEL_ADAFACTOR
+    elif op == "sgdm":
+        call = lambda: optim.sgdm(table, 0.1)
+        kernel = optim.KERNEL_SGDM
+    elif op in ("ring_block", "ring_block_nc"):  # the diagonal, and a block behind
         call = lambda: ringattention.ring_block(*_fakes((B, S, H, hd), (B, S, Hkv, hd),
                                                         (B, S, Hkv, hd)),
                                                 S, 0 if op == "ring_block_nc" else S, True)
@@ -270,11 +287,29 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
                                 "batchnorm", "attention_noncausal", "layernorm", "gelu",
                                 "cross_entropy_f32", "ring_block", "ring_merge",
-                                "ring_block_bwd"])
+                                "ring_block_bwd", "adamw", "adafactor", "sgdm"])
 def test_wrapper_takes_plain_version_only_on_cpu(op):
     x = torch.randn(2, 8, 4, 16)
     k = x[:, :, :2].contiguous()
-    if op == "ring_block":
+    if op in ("adamw", "adafactor", "sgdm"):
+        tables = []
+        for _ in range(2):
+            p = x.reshape(64, 16).clone()
+            states = (torch.zeros(64, 16),) * (2 if op == "adamw" else 1)
+            tables.append(optim.LeafTable([optim.Leaf(p, tuple(t.clone() for t in states))],
+                                          adafactor=op == "adafactor"))
+            tables[-1].set_grads([x.reshape(64, 16) - 1])
+        counts = [torch.zeros((), dtype=torch.int32) for _ in range(2)]
+        for f, table, count in zip((getattr(optim, op), getattr(optim, f"{op}_plain")), tables,
+                                   counts):
+            f(table, 0.1) if op == "sgdm" else f(table, count, 0.1)
+        leaf0, leaf1 = (t.leaves[0] for t in tables)
+        assert torch.equal(leaf0.p, leaf1.p) and not torch.equal(leaf0.p, x.reshape(64, 16))
+        assert all(torch.equal(a, b) for a, b in zip(leaf0.states, leaf1.states))
+        assert torch.equal(counts[0], counts[1])
+        kernel = {"adamw": optim.KERNEL_ADAMW, "adafactor": optim.KERNEL_ADAFACTOR,
+                  "sgdm": optim.KERNEL_SGDM}[op]
+    elif op == "ring_block":
         got, want = (f(x, k, k - 1, 8, 0, True) for f in (ringattention.ring_block,
                                                           ringattention.block_attn_plain))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -397,8 +432,8 @@ def test_build_all_runs_one_nvcc_per_source_for_sm90a(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_find_nvcc", lambda: _fake_nvcc(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     paths = build.build_all()
-    sources = ["attention", "batchnorm", "cross_entropy", "gelu", "layernorm", "ring_merge",
-               "rmsnorm", "rope", "swiglu"]
+    sources = ["attention", "batchnorm", "cross_entropy", "gelu", "layernorm", "optim",
+               "ring_merge", "rmsnorm", "rope", "swiglu"]
     assert sorted(paths) == sources
     calls = (tmp_path / "nvcc.log").read_text().splitlines()
     assert len(calls) == len(sources)

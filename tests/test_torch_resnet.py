@@ -42,7 +42,9 @@ import pytest
 import torch
 
 from kubernetes1_tpu.workloads import resnet as jresnet
+from kubernetes1_tpu_torch import optim as toptim
 from kubernetes1_tpu_torch.kernels import batchnorm as tbn
+from kubernetes1_tpu_torch.kernels import cross_entropy as txent
 from kubernetes1_tpu_torch.workloads import benchguard, gpu_peaks
 from kubernetes1_tpu_torch.workloads import resnet as tresnet
 from kubernetes1_tpu_torch.workloads import resnet_bench
@@ -304,11 +306,10 @@ def test_make_train_state_is_sgd_momentum_over_f32_leaves():
     params, opt = tresnet.make_train_state(cfg, "cpu", seed=1)
     leaves = tresnet.param_leaves(params)
     assert all(p.dtype == torch.float32 and p.requires_grad for p in leaves)
-    assert isinstance(opt, torch.optim.SGD)
+    assert isinstance(opt, toptim.SGD)
     group = opt.param_groups[0]
     assert len(group["params"]) == len(leaves)
-    assert (group["lr"], group["momentum"], group["dampening"], group["nesterov"]) == (
-        0.1, 0.9, 0, False)
+    assert (group["lr"], group["momentum"]) == (0.1, 0.9)
     assert params["stem"]["conv"].shape == (64, 3, 7, 7)  # OIHW
     again, _ = tresnet.make_train_state(cfg, "cpu", seed=1)
     assert torch.equal(again["stem"]["conv"], params["stem"]["conv"])
@@ -317,18 +318,30 @@ def test_make_train_state_is_sgd_momentum_over_f32_leaves():
 # ----------------------------------- the kernel path, kernels swapped for plain
 
 
-def test_resnet50_train_step_launches_53_of_each_kernel(bn_kernels_as_plain):
+def test_resnet50_train_step_launches_53_of_each_kernel(bn_kernels_as_plain, monkeypatch):
     """ResNet-50 (all 16 blocks, full width) at 64 x 64: one step on the
-    kernels' autograd Function (each kernel swapped for its plain twin)
+    kernels' autograd Functions (each kernel swapped for its plain twin)
     launches each K8 entry point once per batch-norm layer, 53 in all, and
-    gives the plain model's loss and gradients."""
+    the cross-entropy over the f32 logits (K5) once forward and once
+    backward, and gives the plain model's loss and gradients."""
+    def xent(x, t):
+        bn_kernels_as_plain["cross_entropy_f32"] += 1
+        return txent.cross_entropy_plain(x, t), txent.cross_entropy_lse_plain(x)
+
+    def xent_bwd(logits, targets, lse, grad, out=None):
+        bn_kernels_as_plain["cross_entropy_f32_bwd"] += 1
+        return out.copy_(txent.cross_entropy_bwd_plain(logits, targets, lse, grad))
+
+    monkeypatch.setattr(txent, "cross_entropy_kernel", xent)
+    monkeypatch.setattr(txent, "cross_entropy_bwd_kernel", xent_bwd)
     cfg = tresnet.ResNetConfig(dtype=torch.float32)
     assert tresnet.num_bn_layers(cfg) == 53 and tresnet.num_bn_layers(tresnet.tiny()) == 9
     params = tresnet.init_params(cfg, torch.Generator().manual_seed(0))
     leaves = tresnet.param_leaves(params)
     images, labels = (torch.from_numpy(a) for a in _batch(cfg, 2, 64, 13))
     results = []
-    for ops in (tresnet.PLAIN, tresnet.Ops(tbn.batchnorm_on_kernels)):
+    for ops in (tresnet.PLAIN, tresnet.Ops(tbn.batchnorm_on_kernels,
+                                           txent.cross_entropy_on_kernels)):
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
@@ -336,7 +349,8 @@ def test_resnet50_train_step_launches_53_of_each_kernel(bn_kernels_as_plain):
         loss = tresnet.loss_fn(cfg, params, images, labels, ops)
         loss.backward()
         results.append((loss.item(), [p.grad.clone() for p in leaves]))
-    assert dict(bn_kernels_as_plain) == {"bn_stats": 53, "bn_apply": 53, "bn_bwd": 53}
+    assert dict(bn_kernels_as_plain) == {"bn_stats": 53, "bn_apply": 53, "bn_bwd": 53,
+                                         "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1}
     (k_loss, k_grads), (p_loss, p_grads) = results[1], results[0]
     assert abs(k_loss - p_loss) <= 1e-5
     assert all(_rel_l2(g, w) <= 1e-4 for g, w in zip(k_grads, p_grads))

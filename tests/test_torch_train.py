@@ -40,6 +40,7 @@ import torch
 
 from kubernetes1_tpu.workloads import llama as jllama
 from kubernetes1_tpu.workloads import sharding as jsh
+from kubernetes1_tpu_torch import optim as toptim
 from kubernetes1_tpu_torch.kernels import attention as tattention
 from kubernetes1_tpu_torch.kernels import cross_entropy as txent
 from kubernetes1_tpu_torch.kernels import rmsnorm as trmsnorm
@@ -394,7 +395,7 @@ def test_make_train_state_is_adamw_over_f32_leaves():
     params, opt = tllama.make_train_state(cfg, "cpu", lr=1e-3, seed=1)
     leaves = tllama.param_leaves(params)
     assert all(p.dtype == torch.float32 and p.requires_grad for p in leaves)
-    assert isinstance(opt, torch.optim.AdamW)
+    assert isinstance(opt, toptim.AdamW)
     group = opt.param_groups[0]
     assert len(group["params"]) == len(leaves) == 3 + 9 * cfg.n_layers
     assert (group["lr"], group["betas"], group["eps"], group["weight_decay"]) == (
