@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc;
+1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc,
+   and prints what ptxas reported for the attention kernels (registers,
+   spills) beside each one's shared memory and threads;
 2. holds each kernel, forward and backward, against its plain PyTorch
    version on the card, at the main paths' shapes (the decode server's
    B=8, S=1024 for the serving kernels; the train step's B=4, S=2048 and
@@ -48,7 +50,11 @@
 13. (ring attention, K6) holds the ring's block, merge and accumulating
    block-backward kernels against their plain versions at Llama-3-8B's
    attention widths (a 2-rank ring's second rank by hand, blocks of 2048)
-   and times them at blocks of 8192;
+   and times them at blocks of 8192; then runs the attention backward
+   (each backward pass is also held to its own plain version wherever the
+   backward is checked) twice on the same inputs and asserts the same bits:
+   causal at the Llama train shape, non-causal at BERT-large's, and a ring
+   block pair accumulating into f32 buffers;
 14. runs ring attention's own steps for 8 virtual ranks x 8192 tokens
    (65,536 causal) and 4 x 2048 (non-causal) in lockstep on the card,
    forward and backward, against the dense kernels at the whole length,
@@ -128,8 +134,8 @@ ATTENTION_TOL = (3e-2, 2.0 ** -7)
 XENT_LOSS_TOL = (1e-4, 1e-5)
 XENT_GRAD_TOL = (0.0, 2.0 ** -6)
 # Attention and RMSNorm backward, relative L2 over each output: f32 sums
-# in another order (dQ with atomics, in an order that changes from run to
-# run; dscale over 8192 rows) and, against autograd of the plain forward,
+# in another order (the tensor cores' accumulation over a pass's tiles;
+# dscale over 8192 rows) and, against autograd of the plain forward,
 # the kernel's bf16 rounding of P and dS before their products (autograd
 # keeps dS in f32): each element a step or two of 2^-8 away, 1e-2 is ~2.5.
 BWD_REL_L2_TOL = 1e-2
@@ -605,12 +611,27 @@ def kernel_phase(dev, gen) -> tuple:
     return out, attn_train_ms
 
 
+def check_bwd_passes(name, q, k, v, o, lse, do, got, causal) -> float:
+    """Each backward pass kernel against its plain version on the same
+    lse and D: the dK/dV pass's dk, dv and the dQ pass's dq (BWD_REL_L2_TOL,
+    relative L2 of each, rounded as the kernels store them)."""
+    delta = attention.delta_plain(o, do)
+    dk, dv = attention.attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal)
+    err = check_rel_l2(f"{name} dK/dV pass vs its plain version", got[1:],
+                       [dk.to(k.dtype), dv.to(v.dtype)], BWD_REL_L2_TOL)
+    del dk, dv
+    dq = attention.attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    return max(err, check_rel_l2(f"{name} dQ pass vs its plain version", got[:1],
+                                 [dq.to(q.dtype)], BWD_REL_L2_TOL))
+
+
 def check_attention_bwd(name, q, k, v, do) -> float:
     o, lse = attention.attention_kernel(q, k, v, with_lse=True)
     check_close(f"{name} lse", [lse], [attention.attention_lse_plain(q, k)], (1e-4, 1e-5))
     got = attention.attention_bwd_kernel(q, k, v, o, lse, do)
     err = check_rel_l2(f"{name} vs bwd_plain", got,
                        attention.attention_bwd_plain(q, k, v, o, lse, do), BWD_REL_L2_TOL)
+    err = max(err, check_bwd_passes(name, q, k, v, o, lse, do, got, True))
     check_rel_l2(f"{name} vs autograd", got, plain_vjp(attention.attention_plain, [q, k, v], [do]),
                  BWD_REL_L2_TOL)
     return err
@@ -1198,6 +1219,7 @@ def check_attention_nc(name, q, k, v, do) -> tuple:
     err_b = check_rel_l2(f"{name} bwd vs bwd_plain", got,
                          attention.attention_bwd_plain(q, k, v, o, lse, do, causal=False),
                          BWD_REL_L2_TOL)
+    err_b = max(err_b, check_bwd_passes(f"{name} bwd", q, k, v, o, lse, do, got, False))
     check_rel_l2(f"{name} bwd vs autograd", got,
                  plain_vjp(partial(attention.attention_plain, causal=False), [q, k, v], [do]),
                  BWD_REL_L2_TOL)
@@ -1541,7 +1563,17 @@ def check_ring_bwd(name, q, k, v, do, lse, delta, causal, bufs, o=None, times=1)
     if o is not None:
         check_close(f"{name} delta", [delta], [ring_kernels.delta_plain(o, do)], (1e-4, 1e-5))
     want = ring_kernels.block_bwd_plain(q, k, v, do, lse, delta, causal)
-    return check_rel_l2(name, bufs, [times * w for w in want], BWD_REL_L2_TOL)
+    err = check_rel_l2(name, bufs, [times * w for w in want], BWD_REL_L2_TOL)
+    del want
+    # each pass in its accumulating mode against its plain version
+    dq, dk, dv = (torch.zeros_like(b) for b in bufs)
+    ring_kernels.block_bwd_dkdv_op_plain(q, k, v, do, lse, delta, causal, dk, dv)
+    check_rel_l2(f"{name}: dK/dV pass vs its plain version", bufs[1:], [times * dk, times * dv],
+                 BWD_REL_L2_TOL)
+    del dk, dv
+    ring_kernels.block_bwd_dq_op_plain(q, k, v, do, lse, delta, causal, dq)
+    check_rel_l2(f"{name}: dQ pass vs its plain version", bufs[:1], [times * dq], BWD_REL_L2_TOL)
+    return err
 
 
 def check_ring_blocks(q, k1, v1, k0, v0, do) -> dict:
@@ -1585,6 +1617,79 @@ def check_ring_blocks(q, k1, v1, k0, v0, do) -> dict:
         ring_kernels.block_bwd_plain(q, k1, v1, do, lse, delta, True)[0]
         + ring_kernels.block_bwd_plain(q, k0, v0, do, lse, delta, False)[0]], BWD_REL_L2_TOL)
     return errs
+
+
+def determinism_phase(dev):
+    """The backward has no atomics: two runs on the same inputs must give
+    the same bits.  Causal at the Llama train shape (K1), non-causal at
+    BERT-large's (K7a), and a ring block pair (diagonal, then the block
+    behind) accumulating into f32 buffers (K6)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cfg, bcfg = llama.llama_3_8b(), bert.bert_large()
+    cases = (("K1 causal", TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True),
+             ("K7a non-causal", BERT_BATCH, BERT_SEQ, bcfg.n_heads, bcfg.n_heads, bcfg.head_dim,
+              False))
+    for name, B, S, H, Hkv, hd, causal in cases:
+        q, k, v, do = (bf16((B, S, h, hd), gen, dev) for h in (H, Hkv, Hkv, H))
+        o, lse = attention.attention_kernel(q, k, v, with_lse=True, causal=causal)
+        runs = [attention.attention_bwd_kernel(q, k, v, o, lse, do, causal) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"attention backward {name} (B={B} S={S} H={H}/{Hkv} hd={hd}): two runs differ")
+        print(f"attention backward {name} B={B} S={S} H={H}/{Hkv} hd={hd}: two runs bit-identical",
+              flush=True)
+        del q, k, v, do, o, lse, runs
+    Sb = RING_NC_BLOCK
+    q, k1, v1, do = ring_qkv(1, Sb, gen, dev, cfg)
+    k0, v0 = (bf16(k1.shape, gen, dev) for _ in range(2))
+    o_d, lse_d = ring_kernels.ring_block_kernel(q, k1, v1, Sb, Sb, True)
+    o_b, lse_b = ring_kernels.ring_block_kernel(q, k0, v0, Sb, 0, True)
+    o, lse = ring_kernels.ring_merge_kernel(o_d.float(), lse_d, o_b, lse_b, final=True)
+    runs = []
+    for _ in range(2):
+        delta = torch.empty_like(lse)
+        bufs = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in (q, k1, v1)]
+        ring_kernels.ring_block_bwd_kernel(q, k1, v1, do, lse, delta, True, *bufs, o=o)
+        ring_kernels.ring_block_bwd_kernel(q, k0, v0, do, lse, delta, False, *bufs)
+        runs.append(bufs + [delta])
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail("ring_block_bwd pair (ACCUM): two runs differ")
+    print(f"ring_block_bwd pair (diagonal then behind, accumulating, block {Sb}): two runs "
+          f"bit-identical", flush=True)
+
+
+def attention_build_report():
+    """What ptxas reported for the attention kernels (registers at entry,
+    spills) and each kernel's launch shape (dynamic shared memory, threads,
+    registers a consumer thread after setmaxnreg), at the main paths' head
+    dims."""
+    import re
+    log = build.compile_log("attention")
+    if not log:
+        print("attention ptxas report: the library was not rebuilt in this run", flush=True)
+        return
+    pat = re.compile(r"Compiling entry function '\S*?(attention_(?:fwd|bwd_dkdv|bwd_dq)_kernel)"
+                     r"(?:ILi(\d+)ELb([01])E(?:Lb([01])E)?)?\S*'.*?\n.*?\n\s*\d+ bytes stack "
+                     r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads\nptxas info\s*: "
+                     r"Used (\d+) registers")
+    names = {"attention_fwd_kernel": "forward", "attention_bwd_dkdv_kernel": "dK/dV pass",
+             "attention_bwd_dq_kernel": "dQ pass"}
+    info = {hd: attention.kernel_info(hd) for hd in (64, 128)}
+    for m in pat.finditer(log):
+        kern, hd, causal, accum, st, ld, regs = m.groups()
+        if kern not in names or int(hd) not in info:
+            continue
+        smem, threads, cregs = info[int(hd)][names[kern]]
+        print(f"ptxas {names[kern]} hd={hd} causal={causal}"
+              f"{'' if accum is None else f' accum={accum}'}: {regs} registers at entry, "
+              f"{cregs} a consumer thread after setmaxnreg, spill stores {st} B, loads {ld} B; "
+              f"{threads} threads, {smem} B dynamic shared memory", flush=True)
+    # wgmma serialised or fenced by the compiler (C75xx), by advisory code
+    codes = {}
+    for code in re.findall(r"\((C75\d\d)\)", log):
+        codes[code] = codes.get(code, 0) + 1
+    print(f"ptxas wgmma advisories: {codes or 'none'}", flush=True)
 
 
 def ring_kernel_phase(dev, gen) -> list:
@@ -1785,14 +1890,15 @@ def ring_phase(dev, card: str) -> dict:
     # one rank: the ring's output is K1's block output as it stands
     if not torch.equal(entry_got[0], entry_dense[0]):
         fail("ring_attention over 1 NCCL rank: output differs from K1's")
-    # dK and dV: the same tile loop's sums, added to 0 in f32, rounded once
-    # as K1 rounds them (one bf16 step allowed); dQ: scaled per tile and
-    # summed by f32 atomics in another order
+    # dK and dV: the same pass's sums, added to 0 in f32, rounded once
+    # as K1 rounds them (one bf16 step allowed); dQ: the same dQ pass, its
+    # scaled sum added to 0 in f32 and rounded once (bit-equality reported)
     e_dkv = check_close("ring_attention over 1 NCCL rank dk, dv", entry_got[2:], entry_dense[2:],
                         (0.0, 2.0 ** -7))
     same = [bool(torch.equal(g, w)) for g, w in zip(entry_got[2:], entry_dense[2:])]
     e_dq = check_rel_l2("ring_attention over 1 NCCL rank dq", entry_got[1:2], entry_dense[1:2],
                         BWD_REL_L2_TOL)
+    dq_same = bool(torch.equal(entry_got[1], entry_dense[1]))
     res = dict(launches=launches, fwd_ms=fwd_ms, bwd_ms=bwd_ms, peak_mem_gib=peak / 2 ** 30)
     print(f"ring (Llama-3-8B attention widths, {n} ranks x {Sb} tokens = {n * Sb} causal, "
           f"lockstep on one card): fwd_ms={fwd_ms:.2f} bwd_ms={bwd_ms:.2f} (dense K1, the same "
@@ -1806,8 +1912,8 @@ def ring_phase(dev, card: str) -> dict:
           f"bwd_ms={nc_dense_bwd_ms:.2f}) vs the plain ring: {nc_plain_errs}; vs dense K7a: "
           f"{nc_errs}", flush=True)
     print(f"ring_attention over a 1-rank NCCL group (1 x {Sb}): output equal to K1's bit for bit; "
-          f"dk, dv bit-equal: {same}, max abs err {e_dkv:.3e} (one bf16 step allowed); dq max "
-          f"abs err {e_dq:.3e} (rel L2 tol {BWD_REL_L2_TOL})", flush=True)
+          f"dk, dv bit-equal: {same}, max abs err {e_dkv:.3e} (one bf16 step allowed); dq "
+          f"bit-equal: {dq_same}, max abs err {e_dq:.3e} (rel L2 tol {BWD_REL_L2_TOL})", flush=True)
     return res
 
 
@@ -2098,6 +2204,7 @@ def main():
     t0 = time.monotonic()
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s", flush=True)
+    attention_build_report()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, attn_train_ms = kernel_phase(dev, gen)
@@ -2107,6 +2214,8 @@ def main():
     bert_rows, bert_per_call = bert_kernel_phase(dev, gen)
     free_memory()
     ring_rows = ring_kernel_phase(dev, gen)
+    free_memory()
+    determinism_phase(dev)
     free_memory()
     forward_phase(dev)
     free_memory()

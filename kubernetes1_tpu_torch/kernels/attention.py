@@ -29,7 +29,7 @@ _FWD_ARGS = [
 _BWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # q, k, v
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # o, dout, lse
-    ctypes.c_void_p, ctypes.c_void_p,                                    # delta, dq_acc
+    ctypes.c_void_p,                                                     # delta (scratch)
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,                   # dq, dk, dv
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Hkv, hd
     ctypes.c_float, ctypes.c_int,                                        # scale, causal
@@ -78,24 +78,64 @@ def attention_lse_plain(q: torch.Tensor, k: torch.Tensor, causal: bool = True) -
     return torch.logsumexp(_scores(q, k, causal), dim=-1).reshape(B, H, S)
 
 
-def attention_bwd_plain(q, k, v, o, lse, dout, causal: bool = True) -> Tuple[torch.Tensor, ...]:
-    """The backward the kernel computes, in f32, rounding where it does:
-    P = exp(scores - lse) rounded to q's dtype for dV = P^T dO;
-    D = rowsum(dO * O); dS = P * (dO V^T - D) rounded for dK = scale *
-    dS^T Q and dQ = scale * dS K.  GQA: dK, dV of a kv head sum over its
-    query heads.  Returns (dq, dk, dv) in q's dtype."""
+def delta_plain(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO * O) in f32, (B, H, S): the backward's first pass."""
+    return (dout.float() * o.float()).sum(-1).transpose(1, 2)
+
+
+def _probs(q, k, lse, causal: bool) -> torch.Tensor:
+    """P = exp(scores - lse) in f32, recomputed from the forward's lse,
+    (B, Hkv, G, S, S); masked entries are 0."""
+    B, S, H, _hd = q.shape
+    Hkv = k.shape[2]
+    return _scores(q, k, causal).sub_(lse.reshape(B, Hkv, H // Hkv, S, 1)).exp_()
+
+
+def _ds(p, q, v, dout, delta) -> torch.Tensor:
+    """dS = P * (dO V^T - D), rounded to q's dtype as the kernels round it
+    for their products, returned in f32."""
+    B, S, H, hd = q.shape
+    Hkv = v.shape[2]
+    d5 = dout.reshape(B, S, Hkv, H // Hkv, hd).float()
+    ds = torch.einsum("btkgh,bskh->bkgts", d5, v.float())
+    return ds.sub_(delta.reshape(B, Hkv, H // Hkv, S, 1)).mul_(p).to(q.dtype).float()
+
+
+def attention_bwd_dkdv_plain(q, k, v, dout, lse, delta, causal: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's dK/dV pass: with P from the lse and D = rowsum(dO *
+    O), dV = P^T dO (P rounded to q's dtype) and dK = scale * dS^T Q, each
+    summed over the query heads of its kv head.  f32 (dk, dv), like k."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
-    G, dt, scale = H // Hkv, q.dtype, 1.0 / math.sqrt(hd)
-    p = torch.exp(_scores(q, k, causal) - lse.reshape(B, Hkv, G, S, 1))
+    G, scale = H // Hkv, 1.0 / math.sqrt(hd)
+    p = _probs(q, k, lse, causal)
     d5 = dout.reshape(B, S, Hkv, G, hd).float()
-    delta = (d5 * o.reshape(B, S, Hkv, G, hd).float()).sum(-1)          # (B, S, Hkv, G)
-    dv = torch.einsum("bkgts,btkgh->bskh", p.to(dt).float(), d5)
-    dp = torch.einsum("btkgh,bskh->bkgts", d5, v.float())
-    ds = (p * (dp - delta.permute(0, 2, 3, 1)[..., None])).to(dt).float()
-    dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float()) * scale
+    dv = torch.einsum("bkgts,btkgh->bskh", p.to(q.dtype).float(), d5)
+    ds = _ds(p, q, v, dout, delta)
+    del p
     dk = torch.einsum("bkgts,btkgh->bskh", ds, q.reshape(B, S, Hkv, G, hd).float()) * scale
-    return dq.reshape(B, S, H, hd).to(dt), dk.to(dt), dv.to(dt)
+    return dk, dv
+
+
+def attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal: bool = True) -> torch.Tensor:
+    """The backward's dQ pass: dQ = scale * dS K with dS = P * (dO V^T - D)
+    rounded to q's dtype.  f32, like q."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    ds = _ds(_probs(q, k, lse, causal), q, v, dout, delta)
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float()) * (1.0 / math.sqrt(hd))
+    return dq.reshape(B, S, H, hd)
+
+
+def attention_bwd_plain(q, k, v, o, lse, dout, causal: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The backward the kernels compute: D = rowsum(dO * O), then the
+    dK/dV pass and the dQ pass, in f32, rounding where the kernels do.
+    Returns (dq, dk, dv) in q's dtype."""
+    delta = delta_plain(o, dout)
+    dk, dv = attention_bwd_dkdv_plain(q, k, v, dout, lse, delta, causal)
+    dq = attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check(q, k, v):
@@ -130,7 +170,8 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_bwd_kernel(q, k, v, o, lse, dout, causal: bool = True) -> Tuple[torch.Tensor, ...]:
     """One call of the backward entry point (three launches inside it:
-    D, the tile pass, the dQ rounding): (dq, dk, dv)."""
+    D, the dK/dV pass, the dQ pass; no atomics, so the result is the same
+    on every run): (dq, dk, dv)."""
     kernel = KERNEL_BWD if causal else KERNEL_BWD_NC
     kernel.load()
     build.check_cuda_tensors("attention backward", q, k, v, o, dout)
@@ -141,13 +182,27 @@ def attention_bwd_kernel(q, k, v, o, lse, dout, causal: bool = True) -> Tuple[to
         raise ValueError(f"attention backward: o, dout like q {tuple(q.shape)} and lse "
                          f"{(B, H, S)} required")
     delta = torch.empty((B, H, S), device=q.device, dtype=torch.float32)
-    dq_acc = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     kernel.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
-                      1.0 / math.sqrt(hd), int(causal))
+                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], hd,
+                  1.0 / math.sqrt(hd), int(causal))
     return dq, dk, dv
+
+
+def kernel_info(hd: int) -> dict:
+    """The launch shape of the forward and the two backward passes at head
+    dim ``hd`` (builds the library): {name: (dynamic shared memory bytes,
+    threads a block, registers a consumer thread after setmaxnreg)}."""
+    fn = build.load_library("attention").ktpu_attention_kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    out = {}
+    for which, name in enumerate(("forward", "dK/dV pass", "dQ pass")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        if fn(which, hd, *(ctypes.byref(x) for x in vals)):
+            raise ValueError(f"attention kernel_info: hd {hd} not in {HEAD_DIMS}")
+        out[name] = tuple(x.value for x in vals)
+    return out
 
 
 class _AttentionFn(torch.autograd.Function):

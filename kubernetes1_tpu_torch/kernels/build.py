@@ -32,6 +32,9 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# Per source: ptxas's report (registers, shared memory, spills of each
+# kernel) for the wgmma kernels, kept beside the library (``compile_log``).
+EXTRA_FLAGS: Dict[str, tuple] = {"attention": ("-Xptxas", "-v")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # process-wide: one load per library
@@ -54,8 +57,12 @@ def _find_nvcc() -> Optional[str]:
     return None
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -81,7 +88,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     try:
         for n in todo:
             tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR),
+            cmd = [nvcc, *_flags(n), "-I", str(CSRC_DIR),
                    "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
             procs.append((n, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
@@ -91,8 +98,13 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(f"--- {n}.cu (nvcc exit {proc.returncode})\n{out}")
             else:
-                if out.strip():
-                    print(f"[nvcc {n}.cu]\n{out}", flush=True)
+                # ptxas's per-kernel report goes to the log only; anything
+                # else the compiler said (warnings) is shown
+                said = [ln for ln in out.splitlines() if ln.strip() and not (
+                    ln.startswith("ptxas info") or ln.lstrip()[:1].isdigit())]
+                if said:
+                    print(f"[nvcc {n}.cu]\n" + "\n".join(said), flush=True)
+                _log_path(paths[n]).write_text(out)
                 os.replace(tmp, paths[n])
     finally:
         for _n, tmp, proc in procs:
@@ -103,6 +115,17 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     if failed:
         raise KernelUnavailableError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_suffix(".log")
+
+
+def compile_log(name: str) -> str:
+    """The compiler's output from the build of ``csrc/<name>.cu``'s current
+    library ("" when it printed nothing or the library is not built)."""
+    log = _log_path(_lib_path(name))
+    return log.read_text() if log.exists() else ""
 
 
 def load_library(name: str) -> ctypes.CDLL:

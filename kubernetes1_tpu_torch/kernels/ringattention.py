@@ -17,7 +17,7 @@ behind the queries (every key counts), or one wholly ahead, which the ring
 skips.  ``ring_block`` launches K1's forward (``csrc/attention.cu``,
 ``causal`` 1) for the first and K7a's (``causal`` 0) for the second, with
 the lse, through counters of its own; ``ring_merge`` is ``csrc/ring_merge.cu``;
-``ring_block_bwd`` is the accumulating mode of K1/K7a's backward tile loop
+``ring_block_bwd`` is the accumulating mode of K1/K7a's two backward passes
 (``ktpu_ring_block_bwd_bf16``).  The plain versions take any offsets and
 dtypes.
 """
@@ -109,40 +109,43 @@ def merge_op_plain(o_acc, lse_acc, o_blk, lse_blk, final: bool = False):
     return (o.to(o_blk.dtype) if final else o), lse
 
 
-def delta_plain(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """D = rowsum(dO * O) in f32, (B, H, S)."""
-    return (dout.float() * o.float()).sum(-1).transpose(1, 2)
+delta_plain = attention.delta_plain  # D = rowsum(dO * O) in f32, (B, H, S)
 
 
 def block_bwd_plain(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, ...]:
     """The gradient of one (q block, kv block) pair of equal length given
     the ring's FINAL lse and delta = rowsum(dO * O) of its final output,
-    as the kernel computes it (``attention.attention_bwd_plain``'s
-    roundings: P rounded to q's dtype for dV, dS rounded for dK and dQ).
-    ``causal``: the diagonal block (key <= query within it); else every
-    key.  Returns f32 partials (dq, dk, dv), dK and dV summed per kv head."""
-    B, S, H, hd = q.shape
-    Hkv = k.shape[2]
-    G, dt, scale = H // Hkv, q.dtype, 1.0 / math.sqrt(hd)
-    p = attention._scores(q, k, causal).sub_(lse.reshape(B, Hkv, G, S, 1)).exp_()
-    d5 = dout.reshape(B, S, Hkv, G, hd).float()
-    dv = torch.einsum("bkgts,btkgh->bskh", p.to(dt).float(), d5)
-    ds = torch.einsum("btkgh,bskh->bkgts", d5, v.float())
-    ds = ds.sub_(delta.reshape(B, Hkv, G, S, 1)).mul_(p).to(dt).float()
-    del p
-    dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float()) * scale
-    dk = torch.einsum("bkgts,btkgh->bskh", ds, q.reshape(B, S, Hkv, G, hd).float()) * scale
-    return dq.reshape(B, S, H, hd), dk, dv
+    as the kernels compute it: the two passes of the attention backward
+    (``attention.attention_bwd_dq_plain``, ``attention_bwd_dkdv_plain``;
+    P rounded to q's dtype for dV, dS rounded for dK and dQ).  ``causal``:
+    the diagonal block (key <= query within it); else every key.  Returns
+    f32 partials (dq, dk, dv), dK and dV summed per kv head."""
+    dq = attention.attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal)
+    return (dq, *attention.attention_bwd_dkdv_plain(q, k, v, dout, lse, delta, causal))
+
+
+def block_bwd_dkdv_op_plain(q, k, v, dout, lse, delta, causal, dk, dv):
+    """The dK/dV pass in the accumulating mode: add the block's f32 dk, dv
+    into the kv block's buffers in place."""
+    for acc, part in zip((dk, dv), attention.attention_bwd_dkdv_plain(q, k, v, dout, lse, delta,
+                                                                      causal)):
+        acc.add_(part)
+
+
+def block_bwd_dq_op_plain(q, k, v, dout, lse, delta, causal, dq):
+    """The dQ pass in the accumulating mode: add the block's f32 dq into
+    the q block's buffer in place."""
+    dq.add_(attention.attention_bwd_dq_plain(q, k, v, dout, lse, delta, causal))
 
 
 def block_bwd_op_plain(q, k, v, dout, lse, delta, causal, dq, dk, dv, o=None):
-    """``block_bwd_plain`` with ``ring_block_bwd``'s contract: fill
-    ``delta`` from ``o`` first when it is given; add the partials into
-    the f32 buffers dq, dk, dv in place."""
+    """``ring_block_bwd``'s contract on the plain versions: fill ``delta``
+    from ``o`` first when it is given; then both passes add their partials
+    into the f32 buffers dq, dk, dv in place."""
     if o is not None:
         delta.copy_(delta_plain(o, dout))
-    for acc, part in zip((dq, dk, dv), block_bwd_plain(q, k, v, dout, lse, delta, causal)):
-        acc.add_(part)
+    block_bwd_dkdv_op_plain(q, k, v, dout, lse, delta, causal, dk, dv)
+    block_bwd_dq_op_plain(q, k, v, dout, lse, delta, causal, dq)
 
 
 # ----------------------------------------------------------------- kernels
@@ -186,8 +189,9 @@ def ring_merge_kernel(o_acc: torch.Tensor, lse_acc: torch.Tensor, o_blk: torch.T
 
 
 def ring_block_bwd_kernel(q, k, v, dout, lse, delta, causal: bool, dq, dk, dv, o=None):
-    """One call of the accumulating backward entry (one launch; two when
-    ``o`` is given and delta is computed first)."""
+    """One call of the accumulating backward entry: the dK/dV pass and the
+    dQ pass (two launches; three when ``o`` is given and delta is computed
+    first), each gradient element added by the one block that owns it."""
     kernel = RING_BLOCK_BWD if causal else RING_BLOCK_BWD_NC
     kernel.load()
     build.check_cuda_tensors("ring_block_bwd", q, k, v, dout, *(() if o is None else (o,)))
