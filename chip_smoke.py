@@ -5,7 +5,8 @@
 
 1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc,
    and prints what ptxas reported for the attention kernels (registers,
-   spills) beside each one's shared memory and threads;
+   spills) beside each one's shared memory and threads, and for the batch
+   norm and GELU kernels (registers, spills, shared memory);
 2. holds each kernel, forward and backward, against its plain PyTorch
    version on the card, at the main paths' shapes (the decode server's
    B=8, S=1024 for the serving kernels; the train step's B=4, S=2048 and
@@ -25,9 +26,12 @@
    batch through make_train_state / make_train_step, and checks the losses
    and every kernel's forward and backward launches per step;
 7. (ResNet-50, K8) holds the batch-norm kernels (statistics, apply with and
-   without residual and ReLU, backward) against their plain versions at the
-   stem's (128*112*112, 64) and stage 4's (128*7*7, 2048) rows and odd
-   shapes, and the backward against autograd of the plain forward;
+   without residual and ReLU, its ReLU mask, the backward reading that
+   mask) against their plain versions at odd shapes and at four layers of
+   batch 128: the stem's (128*112*112, 64), stage 1's bn3 (128*56*56, 256),
+   stage 3's bn2 (128*14*14, 256) and stage 4's bn3 (128*7*7, 2048) rows,
+   where each is timed; and the backward against autograd of the plain
+   forward;
 8. holds ResNet-50 on the kernels against the plain versions at batch
    8 x 224^2: the loss; the logits and every gradient against an f32 run,
    as close as the plain versions come; and each of the 53 batch-norm
@@ -35,11 +39,14 @@
 9. trains ResNet-50 (full width and depth, random weights from a seed) at
    batch 128 x 224^2 through the bench payload resnet_bench.run, checks the
    losses and the K8 launches per step, and profiles one more step for the
-   batch-norm kernels' share of it;
+   batch-norm kernels' share of it, kernel by kernel, and for who launches
+   the step's largest elementwise add and strided copy;
 10. (BERT, K7a non-causal attention, K7b LayerNorm, K9 tanh-GELU, K5 over
    f32 logits) holds each of those kernels, forward and backward, against
    its plain version at BERT-large's shapes (B=32, S=512 and S=200; 16384
    rows of 1024, 4096 and 30522) and at odd small ones, and times them;
+   and counts K9's SASS instructions an element (cuobjdump) against a copy
+   of the same bytes;
 11. holds a BERT train step's loss and every gradient on the kernels
    against those on the plain versions, at BERT-large widths with 2 layers
    and batch 2 x 512;
@@ -54,7 +61,8 @@
    (each backward pass is also held to its own plain version wherever the
    backward is checked) twice on the same inputs and asserts the same bits:
    causal at the Llama train shape, non-causal at BERT-large's, and a ring
-   block pair accumulating into f32 buffers;
+   block pair accumulating into f32 buffers; so too K8's statistics and
+   backward (stem, stage 4) and K9's backward (BERT's d_ff);
 14. runs ring attention's own steps for 8 virtual ranks x 8192 tokens
    (65,536 causal) and 4 x 2048 (non-causal) in lockstep on the card,
    forward and backward, against the dense kernels at the whole length,
@@ -84,6 +92,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -966,13 +975,14 @@ def bn_inputs(M, C, gen, dev, residual):
 
 def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
     """The statistics, apply and backward kernels against their plain
-    versions, and the backward against autograd of the plain forward;
-    returns the three max abs errors."""
+    versions, the apply's ReLU mask against the bits of its own y > 0, and
+    the backward against autograd of the plain forward; returns the three
+    max abs errors."""
     got = batchnorm.bn_stats_kernel(x, scale, bias)
     w, b, stats = batchnorm.bn_stats_plain(x, scale, bias)
     err_s = check_close(f"{name} bn_stats", got, (w, b, stats), BN_STATS_TOL)
-    y = batchnorm.bn_apply_kernel(x, w, b, r, relu)  # the same w and b into both
-    y_plain = batchnorm.bn_apply_plain(x, w, b, r, relu)
+    y, _mask = batchnorm.bn_apply_kernel(x, w, b, r, relu)  # the same w and b into both
+    y_plain, _ = batchnorm.bn_apply_plain(x, w, b, r, relu)
     torch.cuda.synchronize()
     mag = (x.float() * w.float()).abs() + b.float().abs()
     if r is not None:
@@ -982,10 +992,14 @@ def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
         fail(f"{name} bn_apply: max abs err {err.max().item():.3e} beyond "
              f"{BN_APPLY_RTOL} * (|x*w| + |b| + |r|)")
     kw, kb, kstats = got
-    ky = batchnorm.bn_apply_kernel(x, kw, kb, r, relu)
+    ky, kmask = batchnorm.bn_apply_kernel(x, kw, kb, r, relu)
+    if relu and not torch.equal(kmask, batchnorm.relu_mask_plain(ky)):
+        fail(f"{name} bn_apply: the ReLU mask is not the bits of its own y > 0")
+    if not relu and kmask is not None:
+        fail(f"{name} bn_apply: a mask without a ReLU")
     res = r is not None
-    gk = batchnorm.bn_bwd_kernel(x, ky, dy, kw, scale, kstats, relu, res)
-    gp = batchnorm.bn_bwd_plain(x, ky, dy, kw, scale, kstats, relu, res)
+    gk = batchnorm.bn_bwd_kernel(x, kmask, dy, kw, scale, kstats, res)
+    gp = batchnorm.bn_bwd_plain(x, kmask, dy, kw, scale, kstats, res)
     order = [0, 2, 3] + ([1] if res else [])  # dx, dscale, dbias, dr
     err_b = check_rel_l2(f"{name} bn_bwd vs bwd_plain", [gk[i] for i in order],
                          [gp[i] for i in order], BWD_REL_L2_TOL)
@@ -1007,10 +1021,19 @@ def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
     return err_s, err.max().item(), err_b
 
 
+# ResNet-50's batch-norm layers that K8 is timed at, batch 128 x 224^2:
+# (name, side of the feature map, C, residual); every one has a ReLU.  The
+# stem is the largest (M = 1,605,632 rows), stage 1's bn3 the largest with
+# a residual, stage 3's bn2 one whose x, dy and mask fit in the 50 MB L2,
+# stage 4's bn3 the widest.
+BN_TIMED = (("stem", 112, 64, False), ("stage1 bn3", 56, 256, True),
+            ("stage3 bn2", 14, 256, False), ("stage4 bn3", 7, 2048, True))
+
+
 def bn_kernel_phase(dev, gen) -> list:
-    """K8 against its plain version at odd shapes and at ResNet-50's
-    largest (the stem: ReLU) and widest (stage 4's bn3: residual and ReLU)
-    rows at batch 128; the rows are timed at the stem's shape."""
+    """K8 against its plain version at odd shapes and at the BN_TIMED
+    layers, where each is also timed; the stem's rows go into the kernels'
+    line."""
     for M, C in ((1, 64), (37, 24), (1000, 8), (3, 2048), (517, 136)):
         for relu, res in ((False, False), (True, False), (True, True)):
             x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
@@ -1025,14 +1048,13 @@ def bn_kernel_phase(dev, gen) -> list:
         fail("bn: C = 12 (not a multiple of 8) was not refused")
 
     out = []
-    for where, side, C in (("stem", 112, 64), ("stage4", 7, 2048)):
-        res = where == "stage4"
+    for where, side, C, res in BN_TIMED:
         M, n = RESNET_BATCH * side * side, RESNET_BATCH * side * side * C
         x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
         dy = bf16((M, C), gen, dev)
         errs = check_bn(f"bn {where} {M, C}", x, sc, bi, r, True, dy)
         w, b, stats = batchnorm.bn_stats_kernel(x, sc, bi)
-        y = batchnorm.bn_apply_kernel(x, w, b, r, True)
+        _y, mask = batchnorm.bn_apply_kernel(x, w, b, r, True)
         x4, dy4 = (t.view(RESNET_BATCH, side, side, C).permute(0, 3, 1, 2) for t in (x, dy))
         shape = f"M={M} C={C} ({where}, ReLU{' + residual' if res else ''})"
         resnet_rows = [
@@ -1043,15 +1065,18 @@ def bn_kernel_phase(dev, gen) -> list:
                 # stats and apply in one library call: the pair's yardstick
                 time_ms(lambda: F.batch_norm(x4, None, None, sc, bi, training=True)),
                 jax_file="resnet.py"),
+            # reads x (and r), writes y and the mask's 1/8 byte an element
             row("bn_apply", "batchnorm.cu", "105,110-115", shape, errs[1],
                 time_ms(lambda: batchnorm.bn_apply_kernel(x, w, b, r, True)),
                 time_ms(lambda: batchnorm.bn_apply_plain(x, w, b, r, True), 5, 1),
-                bound_ms(2 * n * (3 if res else 2) + 4 * C, (4 if res else 3) * n, PEAK_F32),
+                bound_ms(2 * n * (3 if res else 2) + n / 8 + 4 * C, (4 if res else 3) * n,
+                         PEAK_F32),
                 None, jax_file="resnet.py"),
+            # reads x, dy and the mask, writes dx (and dr)
             row("bn_bwd", "batchnorm.cu", "83-97", shape, errs[2],
-                time_ms(lambda: batchnorm.bn_bwd_kernel(x, y, dy, w, sc, stats, True, res)),
-                time_ms(lambda: batchnorm.bn_bwd_plain(x, y, dy, w, sc, stats, True, res), 5, 1),
-                bound_ms(2 * n * (5 if res else 4) + 2 * C + 32 * C, 10 * n, PEAK_F32),
+                time_ms(lambda: batchnorm.bn_bwd_kernel(x, mask, dy, w, sc, stats, res)),
+                time_ms(lambda: batchnorm.bn_bwd_plain(x, mask, dy, w, sc, stats, res), 5, 1),
+                bound_ms(2 * n * (4 if res else 3) + n / 8 + 2 * C + 32 * C, 10 * n, PEAK_F32),
                 library_bwd_ms(lambda a, s, c: F.batch_norm(a, None, None, s, c, training=True),
                                [x4, sc, bi], [dy4]), jax_file="resnet.py"),
         ]
@@ -1059,7 +1084,7 @@ def bn_kernel_phase(dev, gen) -> list:
             print_row(rw)
         if where == "stem":
             out = resnet_rows
-        del x, dy, y, x4, dy4, r
+        del x, dy, mask, x4, dy4, r
     return out
 
 
@@ -1133,16 +1158,49 @@ def resnet_check_phase(dev):
         errs = check_bn(f"resnet layer {i} {tuple(x.shape)}", x, s, b, r, relu, rec["dy"])
         worst = [max(a, e) for a, e in zip(worst, errs)]
     print(f"resnet-50: each of the {len(layers)} batch-norm layers' kernels against the plain "
-          f"versions on that layer's own inputs: max abs err stats {worst[0]:.3e} apply "
+          f"versions on that layer's own inputs (the backward reading the apply's ReLU mask, "
+          f"each mask the bits of its own y > 0): max abs err stats {worst[0]:.3e} apply "
           f"{worst[1]:.3e} bwd {worst[2]:.3e}", flush=True)
 
 
-BN_KERNEL_NAMES = ("bn_partial_kernel", "bn_finalize_kernel", "bn_apply_kernel", "bn_dx_kernel")
+BN_KERNEL_NAMES = ("bn_stats_kernel", "bn_apply_kernel", "bn_bwd_kernel")
+# The two largest kernels outside K8 in the ResNet step's profile, an
+# elementwise add and a strided copy; the profile names who launches them.
+CALLER_KERNELS = {"add": "CUDAFunctor_add", "strided copy": "elementwise_kernel<128, 4"}
+
+
+def kernel_callers(prof, pattern: str, top: int = 4) -> list:
+    """Who launched the device kernels whose name holds ``pattern``: per
+    (autograd node or Python frame of the port, aten ops from the outermost
+    with its input shapes), the device ms and launches, largest first."""
+    found: dict = {}
+    for ev in prof.events():
+        for k in getattr(ev, "kernels", []):
+            if pattern not in k.name:
+                continue
+            ops, node, frame, e = [], None, None, ev
+            while e is not None:
+                if e.name.startswith("aten::"):
+                    ops.append((e.name, e.input_shapes))
+                if node is None and e.name.startswith("autograd::engine::evaluate_function"):
+                    node = e.name.split(": ", 1)[-1]
+                if frame is None:  # a Python frame of the port: in a stack, or an event
+                    frame = next((f for f in list(e.stack or []) + [e.name]
+                                  if "kubernetes1_tpu_torch" in f), None)
+                e = e.cpu_parent
+            outer = f"{ops[-1][0]}{list(ops[-1][1] or [])}" if ops else ev.name
+            key = (node or frame or "forward",
+                   " > ".join([outer] + [o[0] for o in ops[-2::-1]]))
+            ms, count = found.get(key, (0.0, 0))
+            found[key] = (ms + k.duration / 1e3, count + 1)
+    rows = sorted(found.items(), key=lambda kv: -kv[1][0])[:top]
+    return [(caller, ops, round(ms, 4), count) for (caller, ops), (ms, count) in rows]
 
 
 def resnet_step_profile() -> dict:
     """One ResNet-50 train step at batch 128 x 224^2 under torch.profiler:
-    device time by kernel, the batch-norm kernels' part of it."""
+    device time by kernel, the batch-norm kernels' part of it by kernel,
+    and the callers of CALLER_KERNELS."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = resnet.ResNetConfig()
@@ -1152,17 +1210,20 @@ def resnet_step_profile() -> dict:
                                             torch.device("cuda"))
     for _ in range(2):
         float(step(images, labels))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True,
+                 with_stack=True) as prof:
         float(step(images, labels))
     kern: dict = {}
     for ev in prof.key_averages():
         if benchguard.is_device_op(ev):
             kern[ev.key] = kern.get(ev.key, 0.0) + benchguard.device_time_us(ev)
     total = sum(kern.values())
-    bn = sum(v for k, v in kern.items() if any(b in k for b in BN_KERNEL_NAMES))
+    bn_split = {b: sum(v for k, v in kern.items() if b in k) / 1e3 for b in BN_KERNEL_NAMES}
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
-    return dict(device_ms=total / 1e3, bn_ms=bn / 1e3,
-                top=[(k[:80], round(v / 1e3, 4)) for k, v in top])
+    return dict(device_ms=total / 1e3, bn_ms=sum(bn_split.values()),
+                bn_split={k: round(v, 4) for k, v in bn_split.items()},
+                top=[(k[:80], round(v / 1e3, 4)) for k, v in top],
+                callers={name: kernel_callers(prof, pat) for name, pat in CALLER_KERNELS.items()})
 
 
 def resnet_phase(card: str) -> dict:
@@ -1201,6 +1262,10 @@ def resnet_phase(card: str) -> dict:
           f"{shares} launches={ {k: v for k, v in launches.items() if v} } on [{card}]",
           flush=True)
     print(f"resnet-50 step, top kernels by device ms: {prof['top']}", flush=True)
+    print(f"resnet-50 step, batch norm by kernel (device ms): {prof['bn_split']}", flush=True)
+    for name, rows in prof["callers"].items():
+        print(f"resnet-50 step, {name} kernels by caller (caller, aten ops, device ms, "
+              f"launches): {rows}", flush=True)
     return out
 
 # ----------------------------------------------- BERT (K7a, K7b, K9, K5-f32)
@@ -1352,6 +1417,7 @@ def bert_kernel_phase(dev, gen) -> tuple:
             print_row(r)
         if cols == cfg.d_ff:
             out += rows
+            gelu_issue_report(x, dy, rows)
         else:
             per_call["gelu_head"], per_call["gelu_head_bwd"] = rows[0]["ms"], rows[1]["ms"]
         del x, dy
@@ -1623,7 +1689,8 @@ def determinism_phase(dev):
     """The backward has no atomics: two runs on the same inputs must give
     the same bits.  Causal at the Llama train shape (K1), non-causal at
     BERT-large's (K7a), and a ring block pair (diagonal, then the block
-    behind) accumulating into f32 buffers (K6)."""
+    behind) accumulating into f32 buffers (K6); K8's statistics and
+    backward at the stem and stage 4; K9's backward at BERT's d_ff."""
     gen = torch.Generator(device=dev).manual_seed(7)
     cfg, bcfg = llama.llama_3_8b(), bert.bert_large()
     cases = (("K1 causal", TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True),
@@ -1657,6 +1724,29 @@ def determinism_phase(dev):
         fail("ring_block_bwd pair (ACCUM): two runs differ")
     print(f"ring_block_bwd pair (diagonal then behind, accumulating, block {Sb}): two runs "
           f"bit-identical", flush=True)
+    del q, k1, v1, k0, v0, do, o_d, lse_d, o_b, lse_b, o, lse, runs
+    # K8: the statistics and the backward sum across blocks in a fixed order
+    # (a ticket picks which block adds the partials, not their order)
+    for where, side, C, res in (BN_TIMED[0], BN_TIMED[-1]):
+        M = RESNET_BATCH * side * side
+        x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
+        dy = bf16((M, C), gen, dev)
+        stats_runs = [batchnorm.bn_stats_kernel(x, sc, bi) for _ in range(2)]
+        w, _b, stats = stats_runs[0]
+        _y, mask = batchnorm.bn_apply_kernel(x, w, _b, r, True)
+        bwd_runs = [batchnorm.bn_bwd_kernel(x, mask, dy, w, sc, stats, res) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*stats_runs)):
+            fail(f"bn_stats {where} (M={M} C={C}): two runs differ")
+        if not all(torch.equal(a, b) for a, b in zip(*bwd_runs) if a is not None):
+            fail(f"bn_bwd {where} (M={M} C={C}): two runs differ")
+        print(f"bn_stats and bn_bwd {where} M={M} C={C}: two runs bit-identical", flush=True)
+        del x, dy, r, mask, stats_runs, bwd_runs
+    x = bf16((BERT_BATCH * BERT_SEQ, bcfg.d_ff), gen, dev, 2.0)
+    dy = bf16(x.shape, gen, dev)
+    if not torch.equal(gelu.gelu_bwd_kernel(x, dy), gelu.gelu_bwd_kernel(x, dy)):
+        fail("gelu_bwd: two runs differ")
+    print(f"gelu_bwd {tuple(x.shape)}: two runs bit-identical", flush=True)
 
 
 def attention_build_report():
@@ -1664,7 +1754,6 @@ def attention_build_report():
     spills) and each kernel's launch shape (dynamic shared memory, threads,
     registers a consumer thread after setmaxnreg), at the main paths' head
     dims."""
-    import re
     log = build.compile_log("attention")
     if not log:
         print("attention ptxas report: the library was not rebuilt in this run", flush=True)
@@ -1690,6 +1779,93 @@ def attention_build_report():
     for code in re.findall(r"\((C75\d\d)\)", log):
         codes[code] = codes.get(code, 0) + 1
     print(f"ptxas wgmma advisories: {codes or 'none'}", flush=True)
+
+
+def ptxas_report(source: str):
+    """What ptxas reported for each kernel of csrc/<source>.cu: registers,
+    spills, shared memory."""
+    log = build.compile_log(source)
+    if not log:
+        print(f"{source} ptxas report: the library was not rebuilt in this run", flush=True)
+        return
+    pat = re.compile(r"Compiling entry function '(\S+)'.*?\n.*?\n\s*\d+ bytes stack frame, "
+                     r"(\d+) bytes spill stores, (\d+) bytes spill loads\nptxas info\s*: "
+                     r"Used (\d+) registers(.*)")
+    for m in pat.finditer(log):
+        mangled, st, ld, regs, rest = m.groups()
+        smem = re.search(r"(\d+) bytes smem", rest)
+        print(f"ptxas {source} {readable_kernel(mangled)}: {regs} registers, spill stores {st} B, "
+              f"loads {ld} B, {smem.group(1) if smem else 0} B static shared memory", flush=True)
+
+
+def readable_kernel(mangled: str) -> str:
+    """A kernel's name (lower case, ending in _kernel) from its mangled
+    one, with its template argument."""
+    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z]+)*_kernel)(ILb[01]E|IiE|IxE)?", mangled)
+    if m is None:
+        return mangled
+    arg = {"ILb0E": "<false>", "ILb1E": "<true>", "IiE": "<int>", "IxE": "<long long>"}
+    return m.group(1) + arg.get(m.group(2) or "", "")
+
+
+def sass_counts(source: str) -> dict:
+    """SASS instructions of each kernel of csrc/<source>.cu's library
+    (cuobjdump -sass), by kind: all of them, MUFU (the special-function
+    unit: tanhf's exponential and reciprocal), FP32 arithmetic, global
+    loads and stores.  {} where the toolkit has no cuobjdump."""
+    tool = build.toolkit_binary("cuobjdump")
+    if tool is None:
+        return {}
+    sass = subprocess.run([tool, "-sass", str(build.build_all([source])[source])],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    fp32 = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK"}
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(readable_kernel(m.group(1)), dict.fromkeys(
+                ("all", "mufu", "fp32", "ldg", "stg"), 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur is None or m is None or m.group(1) == "NOP":
+            continue
+        op = m.group(1)
+        cur["all"] += 1
+        kind = ("mufu" if op == "MUFU" else "fp32" if op in fp32 else
+                "ldg" if op == "LDG" else "stg" if op == "STG" else None)
+        if kind:
+            cur[kind] += 1
+    return counts
+
+
+def gelu_issue_report(x, dy, rows):
+    """Whether K9 waits on issue or on bytes at this shape: its SASS per
+    element (a thread runs the kernel once, storing one 16-byte vector of 8
+    elements per STG) against what 132 SMs issue at 4 warp-instructions a
+    cycle at the card's top SM clock; and, for the bytes, a torch copy (the
+    forward's 4 bytes an element) and add (the backward's 6) on the same
+    tensors, timed here."""
+    n = x.numel()
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    counts = sass_counts("gelu")
+    out = torch.empty_like(x)
+    floors = {"gelu_fwd_kernel<int>": time_ms(lambda: out.copy_(x)),
+              "gelu_bwd_kernel<int>": time_ms(lambda: torch.add(x, dy, out=out))}
+    for (kern, floor), r in zip(floors.items(), rows):
+        c = counts.get(kern)
+        if c is None:
+            print(f"gelu {kern}: no SASS (cuobjdump not found or kernel missing)", flush=True)
+            continue
+        elems = 8 * c["stg"]  # a thread's elements
+        per_elem = c["all"] / elems
+        issue_ms = n / 32 * per_elem / (4 * 132 * mhz * 1e6) * 1e3
+        print(f"gelu {kern} at n={n}: SASS {c} -> {per_elem:.1f} instructions and "
+              f"{c['mufu'] / elems:.2f} MUFU an element; issue at 4 warp-instructions a cycle "
+              f"on 132 SMs at {mhz:.0f} MHz: {issue_ms:.4f} ms; bytes: bound "
+              f"{r['bound_ms']:.4f} ms, a torch {'copy' if 'fwd' in kern else 'add'} of the "
+              f"same bytes {floor:.4f} ms; kernel {r['ms']:.4f} ms", flush=True)
 
 
 def ring_kernel_phase(dev, gen) -> list:
@@ -2205,6 +2381,8 @@ def main():
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s", flush=True)
     attention_build_report()
+    for source in ("batchnorm", "gelu"):
+        ptxas_report(source)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, attn_train_ms = kernel_phase(dev, gen)

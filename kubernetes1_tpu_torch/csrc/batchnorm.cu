@@ -13,20 +13,41 @@
 // 2-byte values, far below the ~295 flops per byte at which the card
 // stops waiting on memory.
 //
-// Design.  The reductions (Σx and Σx² for the statistics; Σdy' and
-// Σdy'·x for the backward) run over M, which goes from 1.6 M (the stem at
-// batch 128) down to 6272, while C goes from 64 up to 2048, so the grid
-// splits both: a block is (tx, ty) threads, tx groups of 8 channels (one
-// 16-byte load each) by ty row lanes, tx * ty <= 256; grid.x covers C and
-// grid.y = P blocks walk the rows.  Each thread keeps f32 sums for its 8
-// channels; the block adds its row lanes in lane order in shared memory
-// and writes one (2, C) f32 partial.  A second kernel adds the P partials
-// of each channel in a fixed order (8 lanes, each over every 8th partial
-// in block order, then the 8 lanes in order) and does the per-channel
-// epilogue.  No atomics: the result depends only on the shape.  This is
-// JAX's E[x²] − E[x]² formula, not Welford, as the contract asks.
-// The apply and the backward's dx are grid-stride elementwise passes over
-// 8 elements a thread, computing in f32 and rounding once to bf16.
+// Design.  M goes from 1.6 M rows (the stem at batch 128) down to 6272,
+// while C goes from 64 up to 2048, so every grid splits both: a block is
+// (tx, ty) threads, tx groups of 8 channels (one 16-byte load each,
+// neighbouring threads on neighbouring addresses) by ty row lanes,
+// tx * ty <= 512; grid.x covers C and the grid.y = P blocks of a column
+// walk its rows.  A thread keeps one group of 8 channels for the whole
+// launch, so their w, b and coefficients sit in registers and no pass
+// computes a channel index per vector.  The reductions' grids hold the
+// blocks that are resident at once (the occupancy API, asked once); the
+// apply's is one short block per 2 * ty rows.
+//
+// Reductions (Σx and Σx² for the statistics; Σdy' and Σdy'·x for the
+// backward), one launch each: a thread sums its rows with 2-4 rows' loads
+// in flight; the block adds its row lanes in lane order and writes a
+// (2, width) f32 partial; the last of a column's P blocks to finish (a
+// ticket counter, the only atomic, which that block resets for the next
+// call) adds the column's P partials in a fixed order with all its threads
+// and does the per-channel epilogue.  No atomic touches a sum: the result
+// depends only on the shape and the grid, and two runs give the same bits.
+// This is JAX's E[x²] − E[x]² formula, not Welford, as the contract asks.
+// The backward goes on in the same launch: its grid is persistent, every
+// block resident (a cooperative launch), the column's other blocks wait
+// for the last one's per-channel coefficients, then each block runs dx
+// over its own rows, the rows it summed last first, so that where x, dy
+// and the mask fit in the 50 MB L2 the second read comes from there.
+// (Against two launches, sums with the chain rule and then dx, this
+// measured faster on an H100 at ResNet-50's stem, stage 1 and stage 4
+// batch norms, slower at stage 3.)
+//
+// Where the layer has a ReLU, the apply also writes a (M, C/8) byte mask
+// of y > 0, taken on the rounded bf16 y (bit k of byte (row, g) is channel
+// 8g + k): the backward's only use of y, read as 1/8 byte an element
+// where y is 2, twice.  The backward reads x, dy and the mask for its sums
+// (4.125 bytes an element), then again in the dx pass, which writes dx
+// (and dr): 10.25 bytes an element at the stem, the least being 6.125.
 //
 // Backward, with dy' = dy masked by y > 0 where the layer has a ReLU
 // (JAX's relu sends no gradient at 0), per channel (r = rsqrt(var + eps),
@@ -43,12 +64,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLanes = 8;       // partial-sum lanes per channel in the finalize
-constexpr int kFinalC = kThreads / kLanes;  // channels per finalize block
+constexpr int kThreads = 512;  // threads a block; tx * ty <= kThreads
+constexpr int kMaxTx = 16;     // groups of 8 channels a block spans (128 channels)
+constexpr int kBlocksPerSm = 2;
+constexpr int kApplyRows = 2;  // rows a thread of the apply loads up front
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ uint4 ld16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
   const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -58,64 +83,116 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* in) {
+__device__ __forceinline__ uint4 pack8(const float* in) {
   uint4 raw;
   __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) v[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
+  return raw;
 }
 
-// One (2, C) f32 partial per block row.  kBwd = false: Σx, Σx².
-// kBwd = true: Σdy', Σdy'·x, with dy' = dy masked by y > 0 when relu.
+// Bit k set where bf16 value k of the 8 is > 0 (not +0, -0 or negative).
+__device__ __forceinline__ unsigned positive_bits(const uint4& raw) {
+  const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    bits |= (static_cast<short>(w[i] & 0xffffu) > 0 ? 1u : 0u) << (2 * i);
+    bits |= (static_cast<short>(w[i] >> 16) > 0 ? 1u : 0u) << (2 * i + 1);
+  }
+  return bits;
+}
+
+__device__ __forceinline__ void load_coef(const float* p, float* out) {
+  const float4 lo = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  out[0] = lo.x, out[1] = lo.y, out[2] = lo.z, out[3] = lo.w;
+  out[4] = hi.x, out[5] = hi.y, out[6] = hi.z, out[7] = hi.w;
+}
+
+// One row's contribution to a thread's 8 sums.  kBwd = false: Σx, Σx².
+// kBwd = true: Σdy', Σdy'·x, with dy' = dy where bit k of mk is set.
 template <bool kBwd>
-__global__ void __launch_bounds__(kThreads)
-bn_partial_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-                  const __nv_bfloat16* __restrict__ y, int relu, float* __restrict__ partial,
-                  long long M, int C) {
-  __shared__ float s1[kThreads * 8], s2[kThreads * 8];
-  const int tx = blockDim.x, ty = blockDim.y;
-  const int cg = blockIdx.x * tx + threadIdx.x;  // this thread's group of 8 channels
-  float a[8], b[8];
+__device__ __forceinline__ void accumulate8(const uint4& xr, const uint4& dr, unsigned mk,
+                                            float* a, float* b) {
+  float xv[8];
+  unpack8(xr, xv);
+  if (!kBwd) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) a[i] = b[i] = 0.f;
-  if (cg * 8 < C) {
-    const long long step = static_cast<long long>(gridDim.y) * ty;
-    for (long long r = static_cast<long long>(blockIdx.y) * ty + threadIdx.y; r < M; r += step) {
-      const long long off = r * C + cg * 8;
-      float xv[8];
-      load8(x + off, xv);
-      if (!kBwd) {
+    for (int k = 0; k < 8; ++k) {
+      a[k] += xv[k];
+      b[k] += xv[k] * xv[k];
+    }
+  } else {
+    float dv[8];
+    unpack8(dr, dv);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          a[i] += xv[i];
-          b[i] += xv[i] * xv[i];
-        }
-      } else {
-        float dv[8], yv[8];
-        load8(dy + off, dv);
-        if (relu) {
-          load8(y + off, yv);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) dv[i] = yv[i] > 0.f ? dv[i] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          a[i] += dv[i];
-          b[i] += dv[i] * xv[i];
-        }
-      }
+    for (int k = 0; k < 8; ++k) {
+      const float d = (mk >> k) & 1u ? dv[k] : 0.f;
+      a[k] += d;
+      b[k] += d * xv[k];
     }
   }
-  const int width = tx * 8;  // channels this block covers
+}
+
+// A thread's sums over its rows r0, r0 + step, ... < M of the 8 channels
+// from column col, kUnroll rows' loads issued before their adds.  The
+// mask is read only where it is not null (a layer with a ReLU).
+template <bool kBwd>
+__device__ __forceinline__ void thread_sums(const __nv_bfloat16* __restrict__ x,
+                                            const __nv_bfloat16* __restrict__ dy,
+                                            const uint8_t* __restrict__ mask, long long M, int C,
+                                            int col, long long r0, long long step, float* a,
+                                            float* b) {
+  constexpr int kUnroll = kBwd ? 2 : 4;
+  const int G = C / 8;
+  long long r = r0;
+  for (; r + (kUnroll - 1) * step < M; r += kUnroll * step) {
+    uint4 xr[kUnroll], dr[kUnroll] = {};
+    unsigned mk[kUnroll] = {};
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long row = r + u * step;
+      xr[u] = ld16(x + row * C + col);
+      if (kBwd) {
+        dr[u] = ld16(dy + row * C + col);
+        mk[u] = mask != nullptr ? mask[row * G + col / 8] : 0xffu;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) accumulate8<kBwd>(xr[u], dr[u], mk[u], a, b);
+  }
+  for (; r < M; r += step) {
+    uint4 dr = make_uint4(0, 0, 0, 0);
+    unsigned mk = 0xffu;
+    if (kBwd) {
+      dr = ld16(dy + r * C + col);
+      if (mask != nullptr) mk = mask[r * G + col / 8];
+    }
+    accumulate8<kBwd>(ld16(x + r * C + col), dr, mk, a, b);
+  }
+}
+
+// The block adds its row lanes in lane order and writes partial row
+// blockIdx.y of (P, 2, C); then thread 0 takes the column's ticket.
+// Returns, in every thread, whether this block is the last of the
+// column's P blocks to get there: that block sees every partial of the
+// column.  count: the column's ticket.  smem: 2 * kThreads * 8 floats.
+__device__ __forceinline__ bool block_partial(const float* a, const float* b, float* smem,
+                                              float* __restrict__ partial,
+                                              unsigned* __restrict__ count, int C) {
+  __shared__ bool last;
+  const int tx = blockDim.x, ty = blockDim.y, width = tx * 8;
+  const int tid = threadIdx.y * tx + threadIdx.x;
+  float* s1 = smem;
+  float* s2 = smem + ty * width;
   const int base = threadIdx.y * width + threadIdx.x * 8;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    s1[base + i] = a[i];
-    s2[base + i] = b[i];
+  for (int k = 0; k < 8; ++k) {
+    s1[base + k] = a[k];
+    s2[base + k] = b[k];
   }
   __syncthreads();
-  const int tid = threadIdx.y * tx + threadIdx.x;
   for (int k = tid; k < 2 * width; k += tx * ty) {
     const int q = k / width, col = k - q * width;
     const int c = blockIdx.x * width + col;
@@ -125,41 +202,75 @@ bn_partial_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     for (int j = 0; j < ty; ++j) acc += s[j * width + col];
     partial[(static_cast<long long>(blockIdx.y) * 2 + q) * C + c] = acc;
   }
+  __threadfence();  // the partial is visible before the ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(count, 1u) == gridDim.y - 1;
+  __syncthreads();
+  return last;
 }
 
-// Adds the P partials of each channel in a fixed order, then the epilogue.
-// A block is kFinalC channels by kLanes lanes.  kBwd = false writes w, b
-// (bf16) and stats = (mean, rstd, inv, gate) f32 (4, C).  kBwd = true
-// writes dscale, dbias (f32) and coef = (d_mean / M, 2·d_mean2 / M) (2, C).
-template <bool kBwd>
-__global__ void __launch_bounds__(kThreads)
-bn_finalize_kernel(const float* __restrict__ partial, int P, long long M, int C, float eps,
-                   const float* __restrict__ scale, const float* __restrict__ bias,
-                   float* __restrict__ stats, __nv_bfloat16* __restrict__ w,
-                   __nv_bfloat16* __restrict__ b, float* __restrict__ dscale,
-                   float* __restrict__ dbias, float* __restrict__ coef) {
-  __shared__ float t1[kLanes][kFinalC], t2[kLanes][kFinalC];
-  const int cl = threadIdx.x % kFinalC, lane = threadIdx.x / kFinalC;
-  const int c = blockIdx.x * kFinalC + cl;
-  float a = 0.f, q = 0.f;
-  if (c < C) {
-    for (int p = lane; p < P; p += kLanes) {
-      a += partial[(static_cast<long long>(p) * 2) * C + c];
-      q += partial[(static_cast<long long>(p) * 2 + 1) * C + c];
-    }
-  }
-  t1[lane][cl] = a;
-  t2[lane][cl] = q;
-  __syncthreads();
-  if (lane != 0 || c >= C) return;
-  float s = 0.f, s2 = 0.f;
+// In the column's last block: channel c's two sums over the P partials in
+// a fixed order (lanes l = 0..L-1, lane l over partials l, l + L, ...,
+// then the lanes in order).  Threads tid < width get the totals of channel
+// blockIdx.x * width + tid in s and s2; returns whether that is a channel.
+__device__ __forceinline__ bool column_totals(const float* __restrict__ partial, float* smem,
+                                              int C, float& s, float& s2) {
+  __threadfence();
+  const int tx = blockDim.x, width = tx * 8, n = tx * blockDim.y, outs = 2 * width;
+  const int tid = threadIdx.y * tx + threadIdx.x;
+  const int lanes = n / outs, P = gridDim.y;
+  const int o = tid % outs, lane = tid / outs;
+  const int q = o / width, c = blockIdx.x * width + (o - q * width);
+  float acc = 0.f;
+  if (lane < lanes && c < C) {
+    constexpr int kInFlight = 8;  // loads issued before their adds
+    const float* p = partial + static_cast<long long>(q) * C + c;
+    const long long stride = 2LL * C;  // from one partial row to the next
+    int j = lane;
+    for (; j + (kInFlight - 1) * lanes < P; j += kInFlight * lanes) {
+      float v[kInFlight];
 #pragma unroll
-  for (int j = 0; j < kLanes; ++j) {
-    s += t1[j][cl];
-    s2 += t2[j][cl];
+      for (int u = 0; u < kInFlight; ++u) v[u] = __ldcg(p + (j + u * lanes) * stride);
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) acc += v[u];
+    }
+    for (; j < P; j += lanes) acc += __ldcg(p + j * stride);
   }
-  const float m = static_cast<float>(M);
-  if (!kBwd) {
+  __syncthreads();  // smem held the block's lanes until here
+  if (lane < lanes) smem[lane * outs + o] = acc;
+  __syncthreads();
+  s = 0.f;
+  s2 = 0.f;
+  if (tid >= width) return false;
+  for (int l = 0; l < lanes; ++l) {
+    s += smem[l * outs + tid];
+    s2 += smem[l * outs + width + tid];
+  }
+  return blockIdx.x * width + tid < C;
+}
+
+// Statistics in one launch: w, b (bf16) and stats = (mean, rstd, inv,
+// gate) f32 (4, C).  sync: the columns' ticket counters (2 words each).
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                const float* __restrict__ bias, __nv_bfloat16* __restrict__ w,
+                __nv_bfloat16* __restrict__ b, float* __restrict__ stats,
+                float* __restrict__ partial, unsigned* __restrict__ sync, long long M, int C,
+                float eps) {
+  __shared__ float smem[2 * kThreads * 8];
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  float a[8], q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = q[k] = 0.f;
+  if (col < C)
+    thread_sums<false>(x, nullptr, nullptr, M, C, col,
+                       static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y,
+                       static_cast<long long>(gridDim.y) * blockDim.y, a, q);
+  if (!block_partial(a, q, smem, partial, sync + 2 * blockIdx.x, C)) return;
+  float s, s2;
+  if (column_totals(partial, smem, C, s, s2)) {
+    const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
+    const float m = static_cast<float>(M);
     const float mean = s / m, mean2 = s2 / m;
     // no fused multiply-add here: fma(-mean, mean, mean2) would keep the
     // square's rounding error, so a single row (mean2 = fl(x²)) would not
@@ -173,157 +284,254 @@ bn_finalize_kernel(const float* __restrict__ partial, int P, long long M, int C,
     stats[C + c] = rstd;
     stats[2 * C + c] = inv;
     stats[3 * C + c] = d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
-  } else {
-    const float mean = stats[c], rstd = stats[C + c], inv = stats[2 * C + c];
-    const float gate = stats[3 * C + c];
-    const float d_b = s, d_w = s2;
-    // unfused, as d above: a single row gives d_inv = 0 exactly
-    const float d_inv = __fsub_rn(d_w, __fmul_rn(d_b, mean));
-    const float d_v = -0.5f * d_inv * scale[c] * rstd * rstd * rstd * gate;
-    dbias[c] = d_b;
-    dscale[c] = d_inv * rstd;
-    coef[c] = (-d_b * inv - 2.f * mean * d_v) / m;
-    coef[C + c] = 2.f * d_v / m;
+  }
+  if (threadIdx.x == 0 && threadIdx.y == 0) sync[2 * blockIdx.x] = 0;  // the next call's ticket
+}
+
+// dx = dy'·w + c0 + c1·x, and dr = dy' where dr is not null, over one row.
+__device__ __forceinline__ void dx_row(const uint4& xr, const uint4& dr, unsigned mk,
+                                       const float* wv, const float* c0, const float* c1,
+                                       __nv_bfloat16* pdx, __nv_bfloat16* pdr) {
+  float xv[8], dv[8], out[8];
+  unpack8(xr, xv);
+  unpack8(dr, dv);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    dv[k] = (mk >> k) & 1u ? dv[k] : 0.f;
+    out[k] = dv[k] * wv[k] + c0[k] + c1[k] * xv[k];
+  }
+  *reinterpret_cast<uint4*>(pdx) = pack8(out);
+  if (pdr != nullptr) *reinterpret_cast<uint4*>(pdr) = pack8(dv);
+}
+
+// The dx pass over a thread's rows r0, r0 + step, ... < M, two rows' loads
+// in flight, from the last row: the rows this thread summed last are read
+// again first, while L2 may still hold them.
+__device__ __forceinline__ void dx_rows(const __nv_bfloat16* __restrict__ x,
+                                        const uint8_t* __restrict__ mask,
+                                        const __nv_bfloat16* __restrict__ dy, const float* wv,
+                                        const float* c0, const float* c1,
+                                        __nv_bfloat16* __restrict__ dx,
+                                        __nv_bfloat16* __restrict__ dr, long long M, int C,
+                                        int col, long long r0, long long step) {
+  if (r0 >= M) return;
+  const int G = C / 8;
+  auto mask_at = [&](long long row) { return mask != nullptr ? mask[row * G + col / 8] : 0xffu; };
+  long long r = r0 + (M - 1 - r0) / step * step;
+  for (; r - step >= 0; r -= 2 * step) {
+    const long long o0 = r * C + col, o1 = (r - step) * C + col;
+    const uint4 x0 = ld16(x + o0), x1 = ld16(x + o1), d0 = ld16(dy + o0), d1 = ld16(dy + o1);
+    const unsigned m0 = mask_at(r), m1 = mask_at(r - step);
+    dx_row(x0, d0, m0, wv, c0, c1, dx + o0, dr != nullptr ? dr + o0 : nullptr);
+    dx_row(x1, d1, m1, wv, c0, c1, dx + o1, dr != nullptr ? dr + o1 : nullptr);
+  }
+  if (r >= 0) {
+    const long long o = r * C + col;
+    dx_row(ld16(x + o), ld16(dy + o), mask_at(r), wv, c0, c1, dx + o,
+           dr != nullptr ? dr + o : nullptr);
   }
 }
 
-// y = relu?(x * w + b [+ r]), in f32, rounded once.
+// Backward in one launch, a persistent grid with every block resident (a
+// cooperative launch): the sums of dy' and dy'·x; in the column's last
+// block the per-channel chain rule: dscale, dbias (f32) and coef =
+// (d_mean / M, 2·d_mean2 / M) (2, C); the column's other blocks wait for
+// that block's coef (sync word 2c+1, a generation count that it moves),
+// and every block does dx over its own rows, last first.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
+              const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
+              const float* __restrict__ scale, const float* __restrict__ stats,
+              __nv_bfloat16* __restrict__ dx, __nv_bfloat16* __restrict__ dr,
+              float* __restrict__ dscale, float* __restrict__ dbias, float* __restrict__ partial,
+              float* __restrict__ coef, unsigned* __restrict__ sync, long long M, int C) {
+  __shared__ float smem[2 * kThreads * 8];
+  const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+  volatile unsigned* gen = sync + 2 * blockIdx.x + 1;
+  unsigned seen = 0;
+  if (lead) seen = *gen;  // read before this block's ticket
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  const long long r0 = static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y;
+  const long long step = static_cast<long long>(gridDim.y) * blockDim.y;
+  float a[8], q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = q[k] = 0.f;
+  if (col < C) thread_sums<true>(x, dy, mask, M, C, col, r0, step, a, q);
+  if (block_partial(a, q, smem, partial, sync + 2 * blockIdx.x, C)) {
+    float d_b, d_w;
+    if (column_totals(partial, smem, C, d_b, d_w)) {
+      const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
+      const float m = static_cast<float>(M);
+      const float mean = stats[c], rstd = stats[C + c], inv = stats[2 * C + c];
+      const float gate = stats[3 * C + c];
+      // unfused, as d in the statistics: a single row gives d_inv = 0 exactly
+      const float d_inv = __fsub_rn(d_w, __fmul_rn(d_b, mean));
+      const float d_v = -0.5f * d_inv * scale[c] * rstd * rstd * rstd * gate;
+      dbias[c] = d_b;
+      dscale[c] = d_inv * rstd;
+      coef[c] = (-d_b * inv - 2.f * mean * d_v) / m;
+      coef[C + c] = 2.f * d_v / m;
+    }
+    __threadfence();  // coef is visible before the generation moves
+    __syncthreads();
+    if (lead) {
+      sync[2 * blockIdx.x] = 0;  // the next call's ticket
+      atomicAdd(sync + 2 * blockIdx.x + 1, 1u);
+    }
+  } else {
+    if (lead) {
+      while (*gen == seen) __nanosleep(100);
+      __threadfence();
+    }
+    __syncthreads();
+  }
+  if (col >= C) return;
+  float wv[8], c0[8], c1[8];
+  unpack8(ld16(w + col), wv);
+  load_coef(coef + col, c0);
+  load_coef(coef + C + col, c1);
+  dx_rows(x, mask, dy, wv, c0, c1, dx, dr, M, C, col, r0, step);
+}
+
+// y = relu?(x * w + b [+ r]), in f32, rounded once; where mask is not
+// null (a ReLU) also the byte mask of y > 0 on the rounded y.  A thread
+// loads kApplyRows rows (of x and r) before computing them and is done: a
+// grid of many short blocks, which streams faster here than resident
+// blocks walking the rows.
 __global__ void __launch_bounds__(kThreads)
 bn_apply_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                 const __nv_bfloat16* __restrict__ b, const __nv_bfloat16* __restrict__ r,
-                __nv_bfloat16* __restrict__ y, long long n8, int C, int relu) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n8;
-       i += stride) {
-    const long long off = i * 8;
-    const int c = static_cast<int>(off % C);
-    float xv[8], wv[8], bv[8], out[8];
-    load8(x + off, xv);
-    load8(w + c, wv);
-    load8(b + c, bv);
+                __nv_bfloat16* __restrict__ y, uint8_t* __restrict__ mask, long long M, int C) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (col >= C) return;
+  const int G = C / 8;
+  const long long row0 =
+      static_cast<long long>(blockIdx.y) * blockDim.y * kApplyRows + threadIdx.y;
+  uint4 xs[kApplyRows], rs[kApplyRows];
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int u = 0; u < kApplyRows; ++u) {
+    const long long row = row0 + u * blockDim.y;
+    if (row < M) {
+      xs[u] = ld16(x + row * C + col);
+      rs[u] = r != nullptr ? ld16(r + row * C + col) : zero;
+    }
+  }
+  float wv[8], bv[8];
+  unpack8(ld16(w + col), wv);
+  unpack8(ld16(b + col), bv);
+#pragma unroll
+  for (int u = 0; u < kApplyRows; ++u) {
+    const long long row = row0 + u * blockDim.y;
+    if (row >= M) break;
+    float xv[8], out[8];
+    unpack8(xs[u], xv);
 #pragma unroll
     for (int k = 0; k < 8; ++k) out[k] = fmaf(xv[k], wv[k], bv[k]);
     if (r != nullptr) {
       float rv[8];
-      load8(r + off, rv);
+      unpack8(rs[u], rv);
 #pragma unroll
       for (int k = 0; k < 8; ++k) out[k] += rv[k];
     }
-    if (relu) {
+    if (mask != nullptr) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) out[k] = fmaxf(out[k], 0.f);
     }
-    store8(y + off, out);
+    const uint4 packed = pack8(out);
+    *reinterpret_cast<uint4*>(y + row * C + col) = packed;
+    if (mask != nullptr) mask[row * G + col / 8] = static_cast<uint8_t>(positive_bits(packed));
   }
 }
 
-// dx = dy' * w + coef0 + coef1 * x; dr = dy' where r is not null.
-__global__ void __launch_bounds__(kThreads)
-bn_dx_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-             const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
-             const float* __restrict__ coef, __nv_bfloat16* __restrict__ dx,
-             __nv_bfloat16* __restrict__ dr, long long n8, int C, int relu) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n8;
-       i += stride) {
-    const long long off = i * 8;
-    const int c = static_cast<int>(off % C);
-    float xv[8], dv[8], wv[8], out[8];
-    load8(x + off, xv);
-    load8(dy + off, dv);
-    load8(w + c, wv);
-    if (relu) {
-      float yv[8];
-      load8(y + off, yv);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dv[k] = yv[k] > 0.f ? dv[k] : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) out[k] = dv[k] * wv[k] + coef[c + k] + coef[C + c + k] * xv[k];
-    store8(dx + off, out);
-    if (dr != nullptr) store8(dr + off, dv);
-  }
-}
-
-// The partial passes' block: tx groups of 8 channels by ty row lanes.
-dim3 partial_block(int C) {
-  const int tx = C / 8 < 32 ? C / 8 : 32;
+// Every grid's block: tx groups of 8 channels by ty row lanes.
+dim3 block_for(int C) {
+  const int tx = C / 8 < kMaxTx ? C / 8 : kMaxTx;
   return dim3(tx, kThreads / tx);
 }
 
-int elementwise_blocks(long long n8) {
-  const long long want = (n8 + kThreads - 1) / kThreads;
-  return static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+int columns(int C, const dim3& block) { return (C / 8 + block.x - 1) / block.x; }
+
+template <typename Kernel>
+int resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return per_sm * sms;
 }
 
 bool bad_shape(long long M, int C) { return M <= 0 || C <= 0 || C % 8 != 0; }
 
 }  // namespace
 
-// x: (M, C) bf16; scale, bias: (C,) f32; w, b: (C,) bf16 out; stats: (4, C)
-// f32 out (mean, rstd, inv, gate); partial: (P, 2, C) f32 scratch.  C % 8
-// == 0; 1 <= P.  Two launches: the partial sums, then the finalize.
-extern "C" int ktpu_bn_stats_bf16(const void* x, const void* scale, const void* bias, void* w,
-                                  void* b, void* stats, void* partial, long long M, int C,
-                                  int P, float eps, void* stream) {
-  if (bad_shape(M, C) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block = partial_block(C);
-  const dim3 grid((C / 8 + block.x - 1) / block.x, P);
-  bn_partial_kernel<false><<<grid, block, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, 0, static_cast<float*>(partial),
-      M, C);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bn_finalize_kernel<false><<<(C + kFinalC - 1) / kFinalC, kThreads, 0, st>>>(
-      static_cast<const float*>(partial), P, M, C, eps, static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<float*>(stats),
-      static_cast<__nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(b), nullptr, nullptr,
-      nullptr);
+// The blocks of a reduction grid that are resident at once on this card:
+// the wrapper sizes P (and the partial scratch) from it, P * columns <= it.
+extern "C" int ktpu_bn_resident_blocks(int* out) {
+  const int s = resident_blocks(bn_stats_kernel), b = resident_blocks(bn_bwd_kernel);
+  *out = s < b ? s : b;
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, y: (M, C) bf16; w, b: (C,) bf16; r: (M, C) bf16 or null; C % 8 == 0.
+// x: (M, C) bf16; scale, bias: (C,) f32; w, b: (C,) bf16 out; stats: (4, C)
+// f32 out (mean, rstd, inv, gate); partial: (P, 2, C) f32 scratch; sync: 2
+// zeroed uint32 a column of 128 channels, left zeroed.  C % 8 == 0;
+// 1 <= P.  One launch.
+extern "C" int ktpu_bn_stats_bf16(const void* x, const void* scale, const void* bias, void* w,
+                                  void* b, void* stats, void* partial, void* sync, long long M,
+                                  int C, int P, float eps, void* stream) {
+  if (bad_shape(M, C) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block = block_for(C);
+  bn_stats_kernel<<<dim3(columns(C, block), P), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(b), static_cast<float*>(stats), static_cast<float*>(partial),
+      static_cast<unsigned*>(sync), M, C, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, y: (M, C) bf16; w, b: (C,) bf16; r: (M, C) bf16 or null; mask: (M,
+// C/8) uint8 out, or null for no ReLU; C % 8 == 0.
 extern "C" int ktpu_bn_apply_bf16(const void* x, const void* w, const void* b, const void* r,
-                                  void* y, long long M, int C, int relu, void* stream) {
+                                  void* y, void* mask, long long M, int C, void* stream) {
   if (bad_shape(M, C)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n8 = M * C / 8;
-  bn_apply_kernel<<<elementwise_blocks(n8), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 block = block_for(C);
+  const long long rows = static_cast<long long>(block.y) * kApplyRows;
+  const dim3 grid(columns(C, block), static_cast<unsigned>((M + rows - 1) / rows));
+  bn_apply_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(b), static_cast<const __nv_bfloat16*>(r),
-      static_cast<__nv_bfloat16*>(y), n8, C, relu);
+      static_cast<__nv_bfloat16*>(y), static_cast<uint8_t*>(mask), M, C);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, dy, dx: (M, C) bf16; y: (M, C) bf16, read only when relu; dr: (M, C)
-// bf16 or null; w: (C,) bf16; scale: (C,) f32; stats: (4, C) f32 from
-// ktpu_bn_stats_bf16; dscale, dbias: (C,) f32 out; partial: (P, 2, C) and
-// coef: (2, C) f32 scratch.  Three launches: the partial sums, the
-// per-channel chain rule, the elementwise dx.
-extern "C" int ktpu_bn_bwd_bf16(const void* x, const void* y, const void* dy, const void* w,
+// x, dy, dx: (M, C) bf16; mask: (M, C/8) uint8 from ktpu_bn_apply_bf16, or
+// null for no ReLU; dr: (M, C) bf16 or null; w: (C,) bf16; scale: (C,) f32;
+// stats: (4, C) f32 from ktpu_bn_stats_bf16; dscale, dbias: (C,) f32 out;
+// partial: (P, 2, C) and coef: (2, C) f32 scratch; sync as for the
+// statistics.  One cooperative launch: P * columns <= the resident blocks
+// (ktpu_bn_resident_blocks), or it returns an error and runs nothing.
+extern "C" int ktpu_bn_bwd_bf16(const void* x, const void* mask, const void* dy, const void* w,
                                 const void* scale, const void* stats, void* dx, void* dr,
-                                void* dscale, void* dbias, void* partial, void* coef,
-                                long long M, int C, int P, int relu, void* stream) {
+                                void* dscale, void* dbias, void* partial, void* coef, void* sync,
+                                long long M, int C, int P, void* stream) {
   if (bad_shape(M, C) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 block = partial_block(C);
-  const dim3 grid((C / 8 + block.x - 1) / block.x, P);
-  bn_partial_kernel<true><<<grid, block, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-      static_cast<const __nv_bfloat16*>(y), relu, static_cast<float*>(partial), M, C);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  bn_finalize_kernel<true><<<(C + kFinalC - 1) / kFinalC, kThreads, 0, st>>>(
-      static_cast<const float*>(partial), P, M, C, 0.f, static_cast<const float*>(scale),
-      nullptr, const_cast<float*>(static_cast<const float*>(stats)), nullptr, nullptr,
-      static_cast<float*>(dscale), static_cast<float*>(dbias), static_cast<float*>(coef));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long n8 = M * C / 8;
-  bn_dx_kernel<<<elementwise_blocks(n8), kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(coef), static_cast<__nv_bfloat16*>(dx),
-      static_cast<__nv_bfloat16*>(dr), n8, C, relu);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 block = block_for(C), grid(columns(C, block), P);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* mp = static_cast<const uint8_t*>(mask);
+  const __nv_bfloat16* dyp = static_cast<const __nv_bfloat16*>(dy);
+  const __nv_bfloat16* wp = static_cast<const __nv_bfloat16*>(w);
+  const float* sp = static_cast<const float*>(scale);
+  const float* stp = static_cast<const float*>(stats);
+  __nv_bfloat16* dxp = static_cast<__nv_bfloat16*>(dx);
+  __nv_bfloat16* drp = static_cast<__nv_bfloat16*>(dr);
+  float* dsp = static_cast<float*>(dscale);
+  float* dbp = static_cast<float*>(dbias);
+  float* pp = static_cast<float*>(partial);
+  float* cp = static_cast<float*>(coef);
+  unsigned* syp = static_cast<unsigned*>(sync);
+  void* args[] = {&xp, &mp, &dyp, &wp, &sp, &stp, &dxp, &drp, &dsp, &dbp, &pp, &cp, &syp, &M, &C};
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&bn_bwd_kernel),
+                                                      grid, block, args, 0,
+                                                      static_cast<cudaStream_t>(stream)));
 }

@@ -10,13 +10,17 @@ are the f32 (C,) parameters.  ``stats`` is the (4, C) f32 tensor of
 (mean, rsqrt(var + eps), inv, gate) that the backward reads, where
 inv = rsqrt(var + eps)·scale and gate is the VJP of JAX's
 ``maximum(mean2 − mean², 0)``: 1 above 0, ½ at a tie, 0 where clamped.
+Where the layer has a ReLU, the apply also gives the (M, C/8) uint8 mask
+of y > 0 (bit k of byte (row, g) is channel 8g + k), which the backward
+reads in place of y.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,7 +31,7 @@ EPS = 1e-5  # resnet.py's _bn
 KERNEL_STATS = build.Kernel("batchnorm", "ktpu_bn_stats_bf16", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, scale, bias
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w, b, stats
-    ctypes.c_void_p,                                    # partial
+    ctypes.c_void_p, ctypes.c_void_p,                   # partial, sync
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,      # M, C, P
     ctypes.c_float,                                     # eps
     ctypes.c_void_p,                                    # stream
@@ -35,24 +39,25 @@ KERNEL_STATS = build.Kernel("batchnorm", "ktpu_bn_stats_bf16", [
 KERNEL_APPLY = build.Kernel("batchnorm", "ktpu_bn_apply_bf16", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, w, b
     ctypes.c_void_p, ctypes.c_void_p,                   # r (or null), y
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,      # M, C, relu
+    ctypes.c_void_p,                                    # mask (or null: no ReLU)
+    ctypes.c_longlong, ctypes.c_int,                    # M, C
     ctypes.c_void_p,                                    # stream
 ])
 KERNEL_BWD = build.Kernel("batchnorm", "ktpu_bn_bwd_bf16", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, y (or null), dy
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, mask (or null), dy
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w, scale, stats
     ctypes.c_void_p, ctypes.c_void_p,                   # dx, dr (or null)
     ctypes.c_void_p, ctypes.c_void_p,                   # dscale, dbias
-    ctypes.c_void_p, ctypes.c_void_p,                   # partial, coef
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # partial, coef, sync
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,      # M, C, P
-    ctypes.c_int,                                       # relu
     ctypes.c_void_p,                                    # stream
 ])
-# The reductions' grid: blocks of 256 threads, tx groups of 8 channels by
-# 256 // tx row lanes (as csrc/batchnorm.cu's partial_block), and about 8
-# blocks on each of an H100's 132 SMs in all.
-THREADS = 256
-TARGET_BLOCKS = 8 * 132
+# The reductions' block, as csrc/batchnorm.cu's block_for: tx groups of 8
+# channels (at most MAX_TX) by THREADS // tx row lanes.
+THREADS = 512
+MAX_TX = 16
+
+_BITS = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8)
 
 
 def bn_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -71,26 +76,45 @@ def bn_stats_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return inv.to(x.dtype), (bias - mean * inv).to(x.dtype), stats
 
 
+def relu_mask_plain(y: torch.Tensor) -> torch.Tensor:
+    """The (M, C/8) uint8 mask of y > 0: bit k of byte (row, g) is channel
+    8g + k (a 0 of either sign is not > 0)."""
+    M, C = y.shape
+    bits = (y.detach() > 0).view(M, C // 8, 8).to(torch.uint8) * _BITS.to(y.device)
+    return bits.sum(dim=2, dtype=torch.uint8)
+
+
+def relu_unmask_plain(mask: torch.Tensor) -> torch.Tensor:
+    """The (M, C) bool y > 0 that ``relu_mask_plain`` packed."""
+    M, G = mask.shape
+    return ((mask.unsqueeze(2) & _BITS.to(mask.device)) != 0).view(M, G * 8)
+
+
 def bn_apply_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   r: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
-    """relu?(x * w + b [+ r]) in x's dtype, each op rounding (the JAX
-    order: the residual adds to the normalised value, then the ReLU)."""
+                   r: Optional[torch.Tensor] = None,
+                   relu: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y, mask): relu?(x * w + b [+ r]) in x's dtype, each op rounding
+    (the JAX order: the residual adds to the normalised value, then the
+    ReLU), and with a ReLU the mask of y > 0 (else None)."""
     y = x * w + b
     if r is not None:
         y = r + y
-    return torch.relu(y) if relu else y
+    if not relu:
+        return y, None
+    y = torch.relu(y)
+    return y, relu_mask_plain(y)
 
 
-def bn_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor], dy: torch.Tensor, w: torch.Tensor,
-                 scale: torch.Tensor, stats: torch.Tensor, relu: bool = False,
+def bn_bwd_plain(x: torch.Tensor, mask: Optional[torch.Tensor], dy: torch.Tensor,
+                 w: torch.Tensor, scale: torch.Tensor, stats: torch.Tensor,
                  residual: bool = False):
     """The backward the kernels compute, in f32, rounding once at the end:
-    (dx, dr or None, dscale, dbias).  ``y`` (the forward's output) is read
-    only for the ReLU's mask y > 0."""
+    (dx, dr or None, dscale, dbias).  ``mask`` (the apply's, or None where
+    the layer has no ReLU) gates dy to y > 0."""
     M = x.shape[0]
     xf, dyf = x.float(), dy.float()
-    if relu:
-        dyf = torch.where(y > 0, dyf, 0.0)
+    if mask is not None:
+        dyf = torch.where(relu_unmask_plain(mask), dyf, 0.0)
     mean, rstd, inv, gate = stats
     d_b = dyf.sum(dim=0)
     d_w = (dyf * xf).sum(dim=0)
@@ -105,16 +129,17 @@ def bn_bwd_plain(x: torch.Tensor, y: Optional[torch.Tensor], dy: torch.Tensor, w
 def batchnorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
     w, b, _stats = bn_stats_plain(x, scale, bias)
-    return bn_apply_plain(x, w, b, residual, relu)
+    return bn_apply_plain(x, w, b, residual, relu)[0]
 
 
-def num_partials(M: int, C: int) -> int:
+def num_partials(M: int, C: int, resident: int) -> int:
     """P, the blocks along M of the reductions' grid (one (2, C) f32
-    partial each)."""
-    tx = min(C // 8, 32)
+    partial each): as many as the rows need, while all of the grid's
+    blocks fit among the ``resident`` ones."""
+    tx = min(C // 8, MAX_TX)
     ty = THREADS // tx
     gx = math.ceil(C // 8 / tx)
-    return max(1, min(math.ceil(M / ty), math.ceil(TARGET_BLOCKS / gx)))
+    return max(1, min(math.ceil(M / ty), resident // gx))
 
 
 def _check(op, x, *per_channel):
@@ -127,65 +152,112 @@ def _check(op, x, *per_channel):
                              f"got {tuple(t.shape)}")
 
 
+class _Grid:
+    """Per device: the reductions' resident blocks (asked of the library
+    once) and, per stream, the zeroed ticket words that the kernels leave
+    zeroed for the next call (a buffer per stream, so that calls on two
+    streams never share a count)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._resident: Dict[int, int] = {}
+        self._sync: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def resident(self, device: torch.device) -> int:
+        with self._lock:
+            if device.index not in self._resident:
+                out = ctypes.c_int(0)
+                fn = build.load_library("batchnorm").ktpu_bn_resident_blocks
+                fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+                err = fn(ctypes.byref(out))
+                if err != 0 or out.value <= 0:
+                    raise build.KernelLaunchError(
+                        f"ktpu_bn_resident_blocks: CUDA error {err}, {out.value} blocks")
+                self._resident[device.index] = out.value
+            return self._resident[device.index]
+
+    def sync(self, device: torch.device, C: int) -> torch.Tensor:
+        words = 2 * math.ceil(C // 8 / MAX_TX)
+        key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+        with self._lock:
+            buf = self._sync.get(key)
+            if buf is None or buf.numel() < words:
+                buf = self._sync[key] = torch.zeros(max(words, 64), dtype=torch.int32,
+                                                    device=device)
+            return buf
+
+
+_GRID = _Grid()
+
+
 def bn_stats_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One call of the statistics entry point (the partial sums, then the
-    per-channel fold): (w, b, stats)."""
+    """One launch of the statistics kernel (the partial sums, and in each
+    column's last block the per-channel fold): (w, b, stats)."""
     KERNEL_STATS.load()
     build.check_cuda_tensors("bn_stats", x)
     build.check_cuda_tensors("bn_stats", scale, bias, dtype=torch.float32)
     _check("bn_stats", x, scale, bias)
     M, C = x.shape
-    P = num_partials(M, C)
+    P = num_partials(M, C, _GRID.resident(x.device))
     w = torch.empty(C, device=x.device, dtype=x.dtype)
     b = torch.empty(C, device=x.device, dtype=x.dtype)
     stats = torch.empty((4, C), device=x.device, dtype=torch.float32)
     partial = torch.empty((P, 2, C), device=x.device, dtype=torch.float32)
     KERNEL_STATS.launch(x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
-                        b.data_ptr(), stats.data_ptr(), partial.data_ptr(), M, C, P, eps)
+                        b.data_ptr(), stats.data_ptr(), partial.data_ptr(),
+                        _GRID.sync(x.device, C).data_ptr(), M, C, P, eps)
     return w, b, stats
 
 
 def bn_apply_kernel(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    r: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
-    """One launch of the apply kernel: relu?(x * w + b [+ r]) computed in
-    f32 and rounded once."""
+                    r: Optional[torch.Tensor] = None,
+                    relu: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the apply kernel: (y, mask), y = relu?(x * w + b [+ r])
+    computed in f32 and rounded once, and with a ReLU the (M, C/8) uint8
+    mask of y > 0 (else None)."""
     KERNEL_APPLY.load()
     build.check_cuda_tensors("bn_apply", x, w, b, *([] if r is None else [r]))
     _check("bn_apply", x, w, b)
     if r is not None and r.shape != x.shape:
         raise ValueError(f"bn_apply: residual {tuple(r.shape)} != x {tuple(x.shape)}")
+    M, C = x.shape
     y = torch.empty_like(x)
+    mask = torch.empty((M, C // 8), device=x.device, dtype=torch.uint8) if relu else None
     KERNEL_APPLY.launch(x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        None if r is None else r.data_ptr(), y.data_ptr(), x.shape[0],
-                        x.shape[1], int(relu))
-    return y
+                        None if r is None else r.data_ptr(), y.data_ptr(),
+                        None if mask is None else mask.data_ptr(), M, C)
+    return y, mask
 
 
-def bn_bwd_kernel(x: torch.Tensor, y: Optional[torch.Tensor], dy: torch.Tensor,
+def bn_bwd_kernel(x: torch.Tensor, mask: Optional[torch.Tensor], dy: torch.Tensor,
                   w: torch.Tensor, scale: torch.Tensor, stats: torch.Tensor,
-                  relu: bool = False, residual: bool = False):
-    """One call of the backward entry point (the partial sums of dy' and
-    dy'·x, the per-channel chain rule, the elementwise dx):
-    (dx, dr or None, dscale, dbias)."""
+                  residual: bool = False):
+    """One launch of the backward kernel (the sums of dy' and dy'·x, the
+    per-channel chain rule in each column's last block, then dx over each
+    block's own rows): (dx, dr or None, dscale, dbias)."""
     KERNEL_BWD.load()
-    build.check_cuda_tensors("bn_bwd", x, dy, w, *([y] if relu else []))
+    build.check_cuda_tensors("bn_bwd", x, dy, w)
     build.check_cuda_tensors("bn_bwd", scale, stats, dtype=torch.float32)
     _check("bn_bwd", x, w, scale)
     M, C = x.shape
-    if dy.shape != x.shape or (relu and y.shape != x.shape) or stats.shape != (4, C):
-        raise ValueError(f"bn_bwd: dy {tuple(dy.shape)}, y and stats (4, {C}) must match "
-                         f"x {tuple(x.shape)}")
-    P = num_partials(M, C)
+    if mask is not None:
+        build.check_cuda_tensors("bn_bwd", mask, dtype=torch.uint8)
+    if (dy.shape != x.shape or stats.shape != (4, C) or (mask is not None and (
+            mask.shape != (M, C // 8) or mask.device != x.device))):
+        raise ValueError(f"bn_bwd: dy {tuple(dy.shape)}, mask (M, C/8) and stats (4, {C}) "
+                         f"must match x {tuple(x.shape)} on its device")
+    P = num_partials(M, C, _GRID.resident(x.device))
     dx = torch.empty_like(x)
     dr = torch.empty_like(dy) if residual else None
     dscale, dbias = torch.empty_like(scale), torch.empty_like(scale)
     partial = torch.empty((P, 2, C), device=x.device, dtype=torch.float32)
     coef = torch.empty((2, C), device=x.device, dtype=torch.float32)
-    KERNEL_BWD.launch(x.device, x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
-                      w.data_ptr(), scale.data_ptr(), stats.data_ptr(), dx.data_ptr(),
-                      None if dr is None else dr.data_ptr(), dscale.data_ptr(),
-                      dbias.data_ptr(), partial.data_ptr(), coef.data_ptr(), M, C, P, int(relu))
+    KERNEL_BWD.launch(x.device, x.data_ptr(), None if mask is None else mask.data_ptr(),
+                      dy.data_ptr(), w.data_ptr(), scale.data_ptr(), stats.data_ptr(),
+                      dx.data_ptr(), None if dr is None else dr.data_ptr(), dscale.data_ptr(),
+                      dbias.data_ptr(), partial.data_ptr(), coef.data_ptr(),
+                      _GRID.sync(x.device, C).data_ptr(), M, C, P)
     return dx, dr, dscale, dbias
 
 
@@ -193,17 +265,17 @@ class _BatchNormFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, r, relu):
         w, b, stats = bn_stats_kernel(x, scale, bias)
-        y = bn_apply_kernel(x, w, b, r, relu)
-        # the output is kept only for the ReLU's mask
-        ctx.save_for_backward(x, y if relu else None, w, scale, stats)
-        ctx.relu, ctx.residual = relu, r is not None
+        y, mask = bn_apply_kernel(x, w, b, r, relu)
+        # the backward reads the ReLU's mask, never y
+        ctx.save_for_backward(x, mask, w, scale, stats)
+        ctx.residual = r is not None
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, y, w, scale, stats = ctx.saved_tensors
-        dx, dr, dscale, dbias = bn_bwd_kernel(x, y, dy.contiguous(), w, scale, stats,
-                                              ctx.relu, ctx.residual)
+        x, mask, w, scale, stats = ctx.saved_tensors
+        dx, dr, dscale, dbias = bn_bwd_kernel(x, mask, dy.contiguous(), w, scale, stats,
+                                              ctx.residual)
         return dx, dscale, dbias, dr, None
 
 
@@ -229,4 +301,4 @@ def batchnorm_on_kernels(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _BatchNormFn.apply(x, scale, bias, residual, relu)
     w, b, _stats = bn_stats_kernel(x, scale, bias)
-    return bn_apply_kernel(x, w, b, residual, relu)
+    return bn_apply_kernel(x, w, b, residual, relu)[0]

@@ -33,8 +33,9 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # Per source: ptxas's report (registers, shared memory, spills of each
-# kernel) for the wgmma kernels, kept beside the library (``compile_log``).
-EXTRA_FLAGS: Dict[str, tuple] = {"attention": ("-Xptxas", "-v")}
+# kernel), kept beside the library (``compile_log``).
+EXTRA_FLAGS: Dict[str, tuple] = {name: ("-Xptxas", "-v")
+                                 for name in ("attention", "batchnorm", "gelu")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # process-wide: one load per library
@@ -55,6 +56,13 @@ def _find_nvcc() -> Optional[str]:
         if cand and Path(cand).is_file():
             return str(cand)
     return None
+
+
+def toolkit_binary(name: str) -> Optional[str]:
+    """A CUDA toolkit program beside nvcc (``cuobjdump``), or None."""
+    nvcc = _find_nvcc()
+    path = Path(nvcc).parent / name if nvcc else None
+    return str(path) if path and path.is_file() else None
 
 
 def _flags(name: str) -> tuple:

@@ -257,8 +257,8 @@ def test_backward_kernel_raises_on_cuda_tensor_without_its_library(no_kernel_lib
             *_fakes((16,), (16,), dtype=f32)),
         "batchnorm_apply": lambda: batchnorm.bn_apply_kernel(*_fakes((16, 64), (64,), (64,))),
         "batchnorm": lambda: batchnorm.bn_bwd_kernel(
-            *_fakes((16, 64), (16, 64), (16, 64), (64,)), *_fakes((64,), (4, 64), dtype=f32),
-            relu=True),
+            _FakeCudaTensor(16, 64), _FakeCudaTensor(16, 8, dtype=torch.uint8),
+            *_fakes((16, 64), (64,)), *_fakes((64,), (4, 64), dtype=f32)),
         "attention_noncausal": lambda: attention.attention_bwd_kernel(
             *_fakes(qs, qs, qs, qs), *_fakes((2, 4, 8), dtype=f32), *_fakes(qs), causal=False),
         "layernorm": lambda: layernorm.layernorm_bwd_kernel(

@@ -139,9 +139,9 @@ def test_batchnorm_forward_and_vjp_match_jax(bn_kernels_as_plain, case, variant)
     tx, ts, tb, tr_, tdy = (_t(a) for a in (x, scale, bias, r, dy))
     rr = tr_ if residual else None
     w, b, stats = tbn.bn_stats_plain(tx, ts, tb)
-    y = tbn.bn_apply_plain(tx, w, b, rr, relu)
+    y, mask = tbn.bn_apply_plain(tx, w, b, rr, relu)
     assert _rel_err(y, jy) <= 1e-5
-    dx, dr, dscale, dbias = tbn.bn_bwd_plain(tx, y, tdy, w, ts, stats, relu, residual)
+    dx, dr, dscale, dbias = tbn.bn_bwd_plain(tx, mask, tdy, w, ts, stats, residual)
     for got, want in ((dx, jdx), (dscale, jds), (dbias, jdb)):
         assert _rel_err(got, want) <= 1e-5
     assert (dr is None) if not residual else _rel_err(dr, jdr) <= 1e-5
@@ -170,8 +170,8 @@ def test_batchnorm_bf16_plain_rounds_w_and_b_to_bf16():
     inv = torch.rsqrt(xf.var(0, unbiased=False) + tbn.EPS) * scale
     assert w.dtype == b.dtype == torch.bfloat16 and stats.dtype == torch.float32
     assert torch.allclose(w.float(), inv, rtol=2 ** -8)
-    y = tbn.bn_apply_plain(x, w, b, relu=True)
-    dx, dr, ds, db = tbn.bn_bwd_plain(x, y, torch.ones_like(x), w, scale, stats, relu=True)
+    y, mask = tbn.bn_apply_plain(x, w, b, relu=True)
+    dx, dr, ds, db = tbn.bn_bwd_plain(x, mask, torch.ones_like(x), w, scale, stats)
     assert y.dtype == dx.dtype == torch.bfloat16 and ds.dtype == db.dtype == torch.float32
     assert dr is None and (y >= 0).all()
 
@@ -179,9 +179,10 @@ def test_batchnorm_bf16_plain_rounds_w_and_b_to_bf16():
 def test_batchnorm_kernel_path_refuses_channels_not_a_multiple_of_8():
     with pytest.raises(ValueError, match="C % 8"):
         tbn._check("bn_stats", torch.zeros(4, 12))
-    assert tbn.num_partials(1, 8) == 1
-    assert tbn.num_partials(128 * 112 * 112, 64) == tbn.TARGET_BLOCKS
-    assert tbn.num_partials(128 * 7 * 7, 2048) == tbn.TARGET_BLOCKS // 8
+    resident = 2 * 132  # two blocks of 512 on each of an H100's SMs
+    assert tbn.num_partials(1, 8, resident) == 1
+    assert tbn.num_partials(128 * 112 * 112, 64, resident) == resident
+    assert tbn.num_partials(128 * 7 * 7, 2048, resident) == resident // 16
 
 
 # ------------------------------------------------------ conv and max pool
