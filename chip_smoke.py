@@ -6,7 +6,8 @@
 1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc,
    and prints what ptxas reported for the attention kernels (registers,
    spills) beside each one's shared memory and threads, and for the batch
-   norm and GELU kernels (registers, spills, shared memory);
+   norm, GELU, LayerNorm and optimizer kernels (registers, spills, shared
+   memory);
 2. holds each kernel, forward and backward, against its plain PyTorch
    version on the card, at the main paths' shapes (the decode server's
    B=8, S=1024 for the serving kernels; the train step's B=4, S=2048 and
@@ -44,9 +45,10 @@
 10. (BERT, K7a non-causal attention, K7b LayerNorm, K9 tanh-GELU, K5 over
    f32 logits) holds each of those kernels, forward and backward, against
    its plain version at BERT-large's shapes (B=32, S=512 and S=200; 16384
-   rows of 1024, 4096 and 30522) and at odd small ones, and times them;
-   and counts K9's SASS instructions an element (cuobjdump) against a copy
-   of the same bytes;
+   rows of 1024, 4096 and 30522) and at odd small ones (the LayerNorm
+   backward also at each of its width classes: 16389 x 768, 37 x 1032,
+   4096 x 2048), and times them; and counts K9's SASS instructions an
+   element (cuobjdump) against a copy of the same bytes;
 11. holds a BERT train step's loss and every gradient on the kernels
    against those on the plain versions, at BERT-large widths with 2 layers
    and batch 2 x 512;
@@ -62,7 +64,8 @@
    backward is checked) twice on the same inputs and asserts the same bits:
    causal at the Llama train shape, non-causal at BERT-large's, and a ring
    block pair accumulating into f32 buffers; so too K8's statistics and
-   backward (stem, stage 4) and K9's backward (BERT's d_ff);
+   backward (stem, stage 4), K9's backward (BERT's d_ff) and K7b's backward
+   (16384 x 1024 and 4096 x 2048: dscale and dbias too);
 14. runs ring attention's own steps for 8 virtual ranks x 8192 tokens
    (65,536 causal) and 4 x 2048 (non-causal) in lockstep on the card,
    forward and backward, against the dense kernels at the whole length,
@@ -74,10 +77,16 @@
    weights at full width, plus two leaves whose sizes are not multiples of
    4, and times each against its bound and against torch.optim's fused
    AdamW and SGD (SGD at ResNet-50's 25.6 M weights, its main path);
+   Adafactor also with p read every step, for the bytes its carried sum
+   of p^2 saves, with its five passes' device times, and over 5 steps with p.add_(0) before each (which makes
+   it read p) against 5 without, bit for bit, with p.mul_(0.5) before the
+   third step in both and in the plain version, which they must match;
 16. runs the Llama bench payload llama_bench on the card: main() at the
    1b-tpu preset (22 layers, 4 x 2048, Adafactor, 10 steps), a batch sweep
    over 4, 6, 8 and 3-step AdamW and SGD runs, checking the losses, the
-   JAX payload's result keys and every kernel's launches per step.
+   JAX payload's result keys and every kernel's launches per step, and
+   prints the profiled step's device time and, over 3 more steps, the
+   device time a step by part (K10b, attention, cuBLAS, the rest).
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.
 
@@ -222,6 +231,10 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd")
 # away (at most 2^-7 relative); outputs near 0 (bias cancelling) get an
 # absolute floor for that f32 noise.  Backward: BWD_REL_L2_TOL.
 LN_TOL = (1e-5, 2.0 ** -7)
+# The backward kernel's other width classes, each against the plain
+# version: 3 chunks of 256 columns (BERT-base's 768, rows not a multiple
+# of a block's), the shared-memory path just above 1024 and at 2048.
+LN_WIDTH_CLASSES = ((16389, 768), (37, 1032), (4096, 2048))
 # GELU forward and backward, kernel vs plain: both compute the same f32
 # expression with the same tanhf and no FMA contraction, then round once,
 # so they must be equal bit for bit (0 bf16 steps).  Backward vs autograd
@@ -274,6 +287,9 @@ RING_NC_RANKS, RING_NC_BLOCK = 4, 2048
 # of the terms (~1e-7 at |g| ~ 1).
 OPTIM_TOL = (1e-6, 1e-5)
 OPTIM_STEPS = 3
+# K10b's carried sum of p^2: steps of the bit check, and the step before
+# which p is edited (p.mul_(0.5)) in every run of it
+CARRY_STEPS, CARRY_EDIT_STEP = 5, 2
 OPTIM_LR = 3e-4          # llama_bench.py's default learning rate
 BENCH_PRESET, BENCH_BATCH, BENCH_SEQ, BENCH_STEPS = "1b-tpu", 4, 2048, 10  # its defaults
 BENCH_WARMUP = 2         # llama_bench.run's default
@@ -919,12 +935,12 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
     return res
 
 
-def torch_adamw_ms(leaves, weight_decay: float) -> float:
+def torch_adamw_ms(leaves, weight_decay: float, fused: bool = False) -> float:
     """torch.optim.AdamW in its default (foreach) form, the port's optimizer
-    before K10, timed on the same weights and gradients as a yardstick
-    (its first step, which makes its state, untimed)."""
+    before K10, or fused, timed on the same weights and gradients as a
+    yardstick (its first step, which makes its state, untimed)."""
     lib = torch.optim.AdamW(leaves, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, fused=fused or None)
     lib.step()
     ms = optimizer_step_ms(lib)
     del lib
@@ -1329,7 +1345,7 @@ def bert_kernel_phase(dev, gen) -> tuple:
                         (2, 64, 16, 64)):
         q, k, v, do = (bf16((B, S, H, hd), gen, dev) for _ in range(4))
         check_attention_nc(f"attention_noncausal {(B, S, H, hd)}", q, k, v, do)
-    for rows, d in ((37, 64), (5, 1000), (1, 8), (300, 4096), (513, 1024)):
+    for rows, d in ((37, 64), (5, 1000), (1, 8), (300, 4096), (513, 1024)) + LN_WIDTH_CLASSES:
         x, sc, bi = ln_inputs(rows, d, gen, dev)
         check_layernorm(f"layernorm {rows, d}", x, sc, bi, bf16((rows, d), gen, dev))
     for rows, n in ((37, 24), (3, 40), (5, 1000)):
@@ -1526,6 +1542,7 @@ def bert_phase(card: str, per_call: dict) -> dict:
     step_ms = float(np.mean(times[1:])) * 1e3
     per_call = {**per_call, "adamw": optimizer_step_ms(opt)}
     lib_adamw_ms = torch_adamw_ms(bert.param_leaves(params), 0.01)
+    fused_adamw_ms = torch_adamw_ms(bert.param_leaves(params), 0.01, fused=True)
     tokens_per_step = BERT_BATCH * BERT_SEQ
     L, B, S, H, hd = cfg.n_layers, BERT_BATCH, BERT_SEQ, cfg.n_heads, cfg.head_dim
     pairs = B * H * hd * S * S  # the attention kernels' (query, key) pairs times hd
@@ -1552,7 +1569,8 @@ def bert_phase(card: str, per_call: dict) -> dict:
                model_tflops_per_s=model_flops / step_ms / 1e9,
                mfu=model_flops / step_ms * 1e3 / PEAK_BF16_TENSOR,
                kernel_ms_per_step=kern_ms, device_ms=device_ms,
-               optimizer_ms=per_call["adamw"], torch_adamw_ms=lib_adamw_ms)
+               optimizer_ms=per_call["adamw"], torch_adamw_ms=lib_adamw_ms,
+               fused_adamw_ms=fused_adamw_ms)
     busy = (f"device_ms={device_ms:.2f} ({100 * device_ms / step_ms:.1f} % busy)" if device_ms
             else f"device time not measured ({prof.get('error')})")
     print(f"bert (BERT-large, {L} layers, {n_params / 1e6:.2f} M params, batch {B}x{S}, remat, "
@@ -1565,7 +1583,7 @@ def bert_phase(card: str, per_call: dict) -> dict:
           f"peak_mem_gib={res['peak_mem_gib']:.2f} kernels_ms_per_step={kern_ms:.2f} "
           f"({100 * kern_ms / step_ms:.1f} %) optimizer_ms={per_call['adamw']:.2f} (K10 AdamW, "
           f"bound {bound_ms(28 * n_params, 16 * n_params, PEAK_F32)[0]:.2f} ms; torch.optim.AdamW "
-          f"foreach {lib_adamw_ms:.2f}) {busy} "
+          f"foreach {lib_adamw_ms:.2f}, fused {fused_adamw_ms:.2f}) {busy} "
           f"launches_per_step={ {k: v // BERT_STEPS for k, v in launches.items() if v} } "
           f"on [{card}]", flush=True)
     print(f"bert step, top kernels by device time: {prof.get('top_ops')}", flush=True)
@@ -1747,6 +1765,16 @@ def determinism_phase(dev):
     if not torch.equal(gelu.gelu_bwd_kernel(x, dy), gelu.gelu_bwd_kernel(x, dy)):
         fail("gelu_bwd: two runs differ")
     print(f"gelu_bwd {tuple(x.shape)}: two runs bit-identical", flush=True)
+    # K7b: dscale and dbias sum over the blocks' partials in a fixed order
+    for rows, d in ((BERT_BATCH * BERT_SEQ, bcfg.d_model), LN_WIDTH_CLASSES[-1]):
+        x, sc, _bi = ln_inputs(rows, d, gen, dev)
+        dy = bf16(x.shape, gen, dev)
+        runs = [layernorm.layernorm_bwd_kernel(x, sc, dy) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"layernorm_bwd ({rows}, {d}): two runs differ")
+        print(f"layernorm_bwd ({rows}, {d}): dx, dscale and dbias of two runs bit-identical",
+              flush=True)
 
 
 def attention_build_report():
@@ -2168,6 +2196,106 @@ def optim_bound(name: str, table) -> tuple:
     return bound_ms(nbytes, flops, PEAK_F32)
 
 
+def adafactor_moved_bytes(table) -> int:
+    """The bytes one K10b call moves by its own count, its sum of p^2
+    carried from the last call: a factored leaf has g read by A, B and C
+    and p read and written by C (20 bytes a parameter), its tile sums
+    written by A and read by FA, its v_row and v_col read and written by
+    FA and read by B and C; an unfactored leaf has g and v read and v
+    written by B, p, g and v read and p written by C (28 bytes)."""
+    total = 0
+    for leaf in table.leaves:
+        n = leaf.p.numel()
+        if leaf.mode == optim_kernels.FLAT:
+            total += 28 * n
+            continue
+        R, C = leaf.p.shape
+        tile_sums = -(-R // optim_kernels.ROWS) * C + -(-C // optim_kernels.COLS) * R
+        total += 20 * n + 8 * tile_sums + 16 * (R + C)
+    return total
+
+
+ADAFACTOR_PASSES = ("adafactor_a_kernel", "adafactor_fa_kernel", "adafactor_b_kernel",
+                    "adafactor_fb_kernel", "adafactor_c_kernel")
+
+
+def adafactor_passes_ms(opt, calls: int = 3) -> dict:
+    """K10b's five launches under torch.profiler: each pass's device ms a
+    call (A, FA, B, FB, C), p's sum of squares carried (one call first
+    reads p, after whatever wrote it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run_kernel("adafactor", opt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run_kernel("adafactor", opt)
+        torch.cuda.synchronize()
+    us, n = dict.fromkeys(ADAFACTOR_PASSES, 0.0), dict.fromkeys(ADAFACTOR_PASSES, 0)
+    for ev in prof.key_averages():
+        for name in ADAFACTOR_PASSES:
+            if name in ev.key and benchguard.is_device_op(ev):
+                us[name] += benchguard.device_time_us(ev)
+                n[name] += ev.count
+    # a mean over the launches the trace holds (it may miss the window's first)
+    return {name: round(us[name] / max(n[name], 1) / 1e3, 4) for name in ADAFACTOR_PASSES}
+
+
+def adafactor_read_p_ms(opt) -> float:
+    """K10b's time when it reads p, as at a first update: the table
+    forgets the parameters' versions before each call."""
+    def call():
+        opt.table.forget_params()
+        run_kernel("adafactor", opt)
+    return time_ms(call, 10, 2)
+
+
+def adafactor_carry_check(groups, gen) -> float:
+    """K10b's carried sum of p^2 against reading p: CARRY_STEPS updates of
+    copies of the same weights with the same gradients, one run with
+    p.add_(0) before each step (so every A reads p), one without (A reads
+    p only where the table says so: the first step and after the edit);
+    p.mul_(0.5) before step CARRY_EDIT_STEP in both and in the plain
+    version.  The two kernel runs must agree bit for bit, and with the
+    plain version to OPTIM_TOL.  Returns the max abs error against it."""
+    opts = {k: make_opt("adafactor", clone_groups(groups)) for k in ("read", "carry", "plain")}
+    leaves = {k: [p for g in o.param_groups for p in g["params"]] for k, o in opts.items()}
+    reads = []
+    for step in range(CARRY_STEPS):
+        grads = [torch.randn(p.shape, generator=gen, device=p.device) for p in leaves["read"]]
+        with torch.no_grad():
+            for k, ps in leaves.items():
+                for p, g in zip(ps, grads):
+                    if step == CARRY_EDIT_STEP:
+                        p.mul_(0.5)
+                    if k == "read":
+                        p.add_(0)
+                    p.grad = g
+        reads.append(tuple(opts[k].table.must_read_params() for k in ("read", "carry")))
+        opts["read"].step()
+        opts["carry"].step()
+        opts["plain"].table.set_grads(grads)
+        run_plain("adafactor", opts["plain"])
+    want = [(True, step in (0, CARRY_EDIT_STEP)) for step in range(CARRY_STEPS)]
+    if reads != want:
+        fail(f"adafactor carry: the table asked for p at {reads}, want {want}")
+    pairs = list(zip(leaves["read"], leaves["carry"]))
+    pairs += [(opts["read"].state[a][key], opts["carry"].state[b][key])
+              for a, b in zip(leaves["read"], leaves["carry"]) for key in opts["read"].state[a]]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in pairs):
+        fail(f"adafactor carry: {CARRY_STEPS} steps carrying sum(p^2) differ from {CARRY_STEPS} "
+             f"steps reading p")
+    err = check_close("adafactor after p.mul_(0.5), kernel vs plain", leaves["carry"],
+                      leaves["plain"], OPTIM_TOL)
+    print(f"adafactor: {CARRY_STEPS} steps with p.add_(0) before each (A reads p) and {CARRY_STEPS} "
+          f"without (A reads p at steps {[i for i, (_r, c) in enumerate(reads) if c]}) give the same "
+          f"bits, p and state; with p.mul_(0.5) before step {CARRY_EDIT_STEP}, max abs err vs plain "
+          f"{err:.3e}", flush=True)
+    del opts, leaves, grads, pairs
+    return err
+
+
 def check_optimizer(name: str, groups, gen) -> tuple:
     """OPTIM_STEPS updates of the kernel (through opt.step()) and of the
     plain version on copies of the same weights, with the same random
@@ -2233,6 +2361,19 @@ def optim_kernel_phase(dev, gen) -> list:
         bound = optim_bound(name, opt.table)
         r = row(name, "optim.cu", replaces, shape, max(errs.values()), kernel_ms, plain_ms,
                 bound, library_ms, jax_file=jax_file)
+        if name == "adafactor":
+            moved = adafactor_moved_bytes(opt.table)
+            r.update(tb_per_s=moved / kernel_ms / 1e9, passes_ms=adafactor_passes_ms(opt),
+                     read_p_ms=adafactor_read_p_ms(opt))
+            print(f"adafactor: {moved / n:.3f} bytes a parameter moved (20 a factored one, 28 an "
+                  f"unfactored one; the bound counts 12 and 20), {r['tb_per_s']:.3f} TB/s; "
+                  f"floor {moved / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES / 1e12} TB/s; "
+                  f"reading p every call {r['read_p_ms']:.4f} ms; by pass (device ms a call, "
+                  f"profiler) {r['passes_ms']}", flush=True)
+            del opt
+            free_memory()
+            r["max_abs_err"] = max(r["max_abs_err"], adafactor_carry_check(groups, gen))
+            opt = None
         rows.append(r)
         print_row(r)
         print(f"{name}: max abs err after {OPTIM_STEPS} steps vs plain by tensor {errs}; "
@@ -2247,15 +2388,18 @@ def optim_kernel_phase(dev, gen) -> list:
 # ------------------------------------------------ the Llama bench payload
 
 
-def recording_train_step(losses: list):
+def recording_train_step(losses: list, last=None):
     """llama.make_train_step, with each step's loss kept (a device tensor:
-    no read-back inside the timed loop)."""
+    no read-back inside the timed loop), and, where ``last`` is a dict, the
+    last step made and its tokens in it."""
     make = llama.make_train_step
 
     def wrapped(*args, **kwargs):
         step = make(*args, **kwargs)
 
         def recorded(tokens):
+            if last is not None:
+                last.update(step=step, tokens=tokens)
             loss = step(tokens)
             losses.append(loss)
             return loss
@@ -2265,12 +2409,39 @@ def recording_train_step(losses: list):
     return make, wrapped
 
 
-def bench_run(card: str, optimizer: str, steps_run: int, call) -> tuple:
+BENCH_PARTS = (("adafactor", ("adafactor_",)), ("attention", ("attention_",)),
+               ("gemm", ("nvjet", "gemm", "cutlass")))
+
+
+def bench_step_parts(last: dict, steps: int = 3) -> dict:
+    """The last llama_bench step (its params, optimizer and batch) run
+    `steps` more times under torch.profiler: device ms a step by part (K10b's
+    five passes, the attention kernels, cuBLAS's matrix products, the
+    rest) and in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            last["step"](last["tokens"])
+        torch.cuda.synchronize()
+    parts = dict.fromkeys([name for name, _ in BENCH_PARTS] + ["other"], 0.0)
+    for ev in prof.key_averages():
+        if not benchguard.is_device_op(ev):
+            continue
+        part = next((name for name, keys in BENCH_PARTS if any(k in ev.key for k in keys)),
+                    "other")
+        parts[part] += benchguard.device_time_us(ev) / 1e3 / steps
+    parts["total"] = sum(parts.values())
+    return {k: round(v, 3) for k, v in parts.items()}
+
+
+def bench_run(card: str, optimizer: str, steps_run: int, call, last=None) -> tuple:
     """One llama_bench call with the launch counters from 0: the losses of
     every step, the result, and the launches, checked against steps_run
-    steps of the named optimizer."""
+    steps of the named optimizer.  ``last`` gets the last step made."""
     losses: list = []
-    make, llama.make_train_step = recording_train_step(losses)
+    make, llama.make_train_step = recording_train_step(losses, last)
     for kern in KERNELS.values():
         kern.launches = 0
     try:
@@ -2310,18 +2481,24 @@ def llama_bench_phase(card: str) -> dict:
     argv = ["--preset", BENCH_PRESET, "--batch", str(BENCH_BATCH), "--seq", str(BENCH_SEQ),
             "--steps", str(BENCH_STEPS), "--out", out]
     torch.cuda.reset_peak_memory_stats()
+    last: dict = {}
     res, losses, launches = bench_run(
         card, "adafactor", BENCH_WARMUP + BENCH_STEPS + 1,  # the profiled step too
-        lambda: (llama_bench.main(argv), json.load(open(out)))[1])
+        lambda: (llama_bench.main(argv), json.load(open(out)))[1], last)
     peak = torch.cuda.max_memory_allocated()
+    parts = bench_step_parts(last)
+    last.clear()
     check_bench_result(res, "adafactor", BENCH_BATCH, BENCH_STEPS)
     print("llama_bench result: " + json.dumps(res), flush=True)
+    device_us = (res["profile"] or {}).get("device_time_us")
     print(f"llama_bench (1b-tpu, 22 layers, {BENCH_BATCH}x{BENCH_SEQ}, Adafactor): losses="
           f"{[round(x, 4) for x in losses]} step_ms={res['step_time_ms']} "
+          f"device_ms={device_us / 1e3 if device_us else 'not measured'} "
           f"tokens_per_s={res['tokens_per_sec']} mfu={res['mfu']} hfu={res['hfu']} "
           f"peak_mem_gib={peak / 2 ** 30:.2f} launches_per_step="
           f"{ {k: v // (BENCH_WARMUP + BENCH_STEPS + 1) for k, v in launches.items() if v} } "
           f"on [{card}]", flush=True)
+    print(f"llama_bench step, device ms by part (3 more steps, profiler): {parts}", flush=True)
     free_memory()
     n_probe = len(BENCH_SWEEP) * (1 + BENCH_PROBE_STEPS) + BENCH_WARMUP + BENCH_SWEEP_STEPS
     sweep, _sweep_losses, sweep_launches = bench_run(
@@ -2381,7 +2558,7 @@ def main():
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s", flush=True)
     attention_build_report()
-    for source in ("batchnorm", "gelu"):
+    for source in ("batchnorm", "gelu", "layernorm", "optim"):
         ptxas_report(source)
 
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -129,6 +129,13 @@
 
 namespace {
 
+using ktpu::mbar_arrive;
+using ktpu::mbar_expect_tx;
+using ktpu::mbar_init;
+using ktpu::mbar_init_fence;
+using ktpu::mbar_wait;
+using ktpu::smem_addr;
+
 using bf16 = __nv_bfloat16;
 
 constexpr int kStages = 2;                        // depth of every TMA ring
@@ -167,45 +174,10 @@ struct Tile {
   __host__ __device__ static constexpr uint32_t bytes() { return R * HD * 2; }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // The dynamic shared memory's first 1024-byte boundary: a 128B-swizzled
 // tile's atoms (8 rows of 128 bytes) must start on one.
 __device__ __forceinline__ uint32_t smem_base(const void* raw) {
   return (smem_addr(raw) + 1023u) & ~1023u;
-}
-
-// ---------------------------------------------------------------- mbarrier
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One arrival that also announces `bytes` of TMA traffic to come.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
 }
 
 // --------------------------------------------------------------------- TMA

@@ -177,11 +177,11 @@ __device__ __forceinline__ void thread_sums(const __nv_bfloat16* __restrict__ x,
 // blockIdx.y of (P, 2, C); then thread 0 takes the column's ticket.
 // Returns, in every thread, whether this block is the last of the
 // column's P blocks to get there: that block sees every partial of the
-// column.  count: the column's ticket.  smem: 2 * kThreads * 8 floats.
+// column.  sync: the column's barrier words (ktpu::barrier_arrive).
+// smem: 2 * kThreads * 8 floats.
 __device__ __forceinline__ bool block_partial(const float* a, const float* b, float* smem,
                                               float* __restrict__ partial,
-                                              unsigned* __restrict__ count, int C) {
-  __shared__ bool last;
+                                              unsigned* __restrict__ sync, int C) {
   const int tx = blockDim.x, ty = blockDim.y, width = tx * 8;
   const int tid = threadIdx.y * tx + threadIdx.x;
   float* s1 = smem;
@@ -202,50 +202,27 @@ __device__ __forceinline__ bool block_partial(const float* a, const float* b, fl
     for (int j = 0; j < ty; ++j) acc += s[j * width + col];
     partial[(static_cast<long long>(blockIdx.y) * 2 + q) * C + c] = acc;
   }
-  __threadfence();  // the partial is visible before the ticket
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(count, 1u) == gridDim.y - 1;
-  __syncthreads();
-  return last;
+  return ktpu::barrier_arrive(sync, gridDim.y);
 }
 
-// In the column's last block: channel c's two sums over the P partials in
-// a fixed order (lanes l = 0..L-1, lane l over partials l, l + L, ...,
-// then the lanes in order).  Threads tid < width get the totals of channel
-// blockIdx.x * width + tid in s and s2; returns whether that is a channel.
+// In the column's last block: channel c's two sums over the P partials
+// (ktpu::column_lanes' fixed order).  Threads tid < width get the totals
+// of channel blockIdx.x * width + tid in s and s2; returns whether that is
+// a channel.
 __device__ __forceinline__ bool column_totals(const float* __restrict__ partial, float* smem,
                                               int C, float& s, float& s2) {
-  __threadfence();
-  const int tx = blockDim.x, width = tx * 8, n = tx * blockDim.y, outs = 2 * width;
-  const int tid = threadIdx.y * tx + threadIdx.x;
-  const int lanes = n / outs, P = gridDim.y;
-  const int o = tid % outs, lane = tid / outs;
-  const int q = o / width, c = blockIdx.x * width + (o - q * width);
-  float acc = 0.f;
-  if (lane < lanes && c < C) {
-    constexpr int kInFlight = 8;  // loads issued before their adds
-    const float* p = partial + static_cast<long long>(q) * C + c;
-    const long long stride = 2LL * C;  // from one partial row to the next
-    int j = lane;
-    for (; j + (kInFlight - 1) * lanes < P; j += kInFlight * lanes) {
-      float v[kInFlight];
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) v[u] = __ldcg(p + (j + u * lanes) * stride);
-#pragma unroll
-      for (int u = 0; u < kInFlight; ++u) acc += v[u];
-    }
-    for (; j < P; j += lanes) acc += __ldcg(p + j * stride);
-  }
-  __syncthreads();  // smem held the block's lanes until here
-  if (lane < lanes) smem[lane * outs + o] = acc;
+  const int width = blockDim.x * 8, outs = 2 * width;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  // output o: sum q = o / width of channel blockIdx.x * width + o % width
+  auto col = [&](int o) -> long long {
+    const int q = o / width, c = blockIdx.x * width + (o - q * width);
+    return c < C ? static_cast<long long>(q) * C + c : -1;
+  };
+  const int lanes = ktpu::column_lanes(partial, 2LL * C, gridDim.y, outs, col, smem);
   __syncthreads();
-  s = 0.f;
-  s2 = 0.f;
   if (tid >= width) return false;
-  for (int l = 0; l < lanes; ++l) {
-    s += smem[l * outs + tid];
-    s2 += smem[l * outs + width + tid];
-  }
+  s = ktpu::column_total(smem, outs, lanes, tid);
+  s2 = ktpu::column_total(smem, outs, lanes, width + tid);
   return blockIdx.x * width + tid < C;
 }
 
@@ -285,7 +262,8 @@ bn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ s
     stats[2 * C + c] = inv;
     stats[3 * C + c] = d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
   }
-  if (threadIdx.x == 0 && threadIdx.y == 0) sync[2 * blockIdx.x] = 0;  // the next call's ticket
+  // the next call's ticket; no block waits on this column's generation
+  if (ktpu::lead_thread()) sync[2 * blockIdx.x] = 0;
 }
 
 // dx = dy'·w + c0 + c1·x, and dr = dy' where dr is not null, over one row.
@@ -346,10 +324,9 @@ bn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ m
               float* __restrict__ dscale, float* __restrict__ dbias, float* __restrict__ partial,
               float* __restrict__ coef, unsigned* __restrict__ sync, long long M, int C) {
   __shared__ float smem[2 * kThreads * 8];
-  const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-  volatile unsigned* gen = sync + 2 * blockIdx.x + 1;
-  unsigned seen = 0;
-  if (lead) seen = *gen;  // read before this block's ticket
+  unsigned* const column_sync = sync + 2 * blockIdx.x;
+  // read before this block's ticket
+  const unsigned seen = ktpu::lead_thread() ? ktpu::barrier_generation(column_sync) : 0;
   const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
   const long long r0 = static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y;
   const long long step = static_cast<long long>(gridDim.y) * blockDim.y;
@@ -357,7 +334,7 @@ bn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ m
 #pragma unroll
   for (int k = 0; k < 8; ++k) a[k] = q[k] = 0.f;
   if (col < C) thread_sums<true>(x, dy, mask, M, C, col, r0, step, a, q);
-  if (block_partial(a, q, smem, partial, sync + 2 * blockIdx.x, C)) {
+  if (block_partial(a, q, smem, partial, column_sync, C)) {
     float d_b, d_w;
     if (column_totals(partial, smem, C, d_b, d_w)) {
       const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
@@ -372,18 +349,9 @@ bn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ m
       coef[c] = (-d_b * inv - 2.f * mean * d_v) / m;
       coef[C + c] = 2.f * d_v / m;
     }
-    __threadfence();  // coef is visible before the generation moves
-    __syncthreads();
-    if (lead) {
-      sync[2 * blockIdx.x] = 0;  // the next call's ticket
-      atomicAdd(sync + 2 * blockIdx.x + 1, 1u);
-    }
+    ktpu::barrier_release(column_sync);  // coef is visible before the generation moves
   } else {
-    if (lead) {
-      while (*gen == seen) __nanosleep(100);
-      __threadfence();
-    }
-    __syncthreads();
+    ktpu::barrier_wait(column_sync, seen);
   }
   if (col >= C) return;
   float wv[8], c0[8], c1[8];

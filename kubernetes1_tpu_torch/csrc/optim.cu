@@ -40,8 +40,9 @@
 // Adafactor needs the row and column means of g^2 and two sums over each
 // whole JAX leaf group before it can update, so it is five launches:
 //   A   a factored leaf in tiles of kRows x kCols: per-tile column sums
-//       and per-tile row sums of g2 (each tile writes its own slots) and
-//       the block's sum of p^2;  an unfactored leaf: its sum of p^2;
+//       and per-tile row sums of g2 (each tile writes its own slots);
+//       where the caller asks (read_p), also each block's sum of p^2,
+//       which for an unfactored leaf is all A does;
 //   FA  per factored leaf, the row and column sums of the tiles added in
 //       tile order, the new v_row and v_col (in place) and per-block sums
 //       of the new v_row (for its mean);
@@ -49,10 +50,27 @@
 //       block's sum of u^2;
 //   FB  per group, the sums of p^2 and u^2 over its blocks in block order:
 //       the clip divisor and the parameter scale;  the count + 1;
-//   C   u again from g and the new statistics, then p.
+//   C   u again from g and the new statistics, then p; and each block's
+//       sum of the new p^2, for the next step's FB.
 // Every reduction is a fixed tree over per-block f32 partials: no atomics,
-// so the result depends only on the shapes, as in K8.  g is read three
-// times and p twice: 24 bytes a factored parameter against the bound's 12.
+// so the result depends only on the shapes, as in K8.
+//
+// What bounds it: bytes.  optax's chain needs three passes over g (the
+// statistics need every g^2 of a stacked leaf, u needs the statistics,
+// the clip needs sum(u^2) over the stacked leaf before any p is written),
+// and a stacked leaf (up to ~1 GB) does not stay in the 50 MB of L2.  So
+// the floor of this algorithm is 20 bytes a factored parameter (g three
+// times, p read once and written once) against the bound's 12.  It gets
+// there by carrying sum(p^2) across steps: C adds the p it writes in the
+// same per-thread order and block tree that A uses when it reads p, so
+// the next step's A reads only g, and the sums have the same bits either
+// way.  The caller asks A to read p at the first update and whenever p
+// was written by anything but C (kernels/optim.py, LeafTable).  The tile
+// loops load 4-8 rows before they use any, so 8 16-byte loads a thread
+// are in flight, and C walks its tiles last first, where B has just left
+// g in L2.
+//
+// (AdamW and SGD read and write each value once: at their bounds' bytes.)
 
 #include <type_traits>
 
@@ -293,11 +311,34 @@ __device__ __forceinline__ float factored_u(float g, float frow, float fcol, boo
   return row_first ? (g * frow) * fcol : (g * fcol) * frow;
 }
 
-// A: tile sums of g2 (factored) and the block's sum of p^2.
+// Loads U rows of a tile, from row r, into v[u] (zeros past the tile's
+// last row or past the row's end), all before any is used.
+template <int U>
+__device__ __forceinline__ void load_rows4(const float* base, const Tile& T, long long r,
+                                           float (&v)[U][4]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (r + u < T.r1 && T.c < T.C) {
+      load_row4(base + (r + u) * T.C, T.c, T.C, T.vec, v[u]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[u][k] = 0.f;
+    }
+  }
+}
+
+// sum(p^2) of one thread, element by element in the order of the tile
+// loops (rows, then this thread's 4 columns) or of for_chunk: A (reading
+// p) and C (writing it) add the same values in the same order.
+__device__ __forceinline__ float add_square(float acc, float p) { return __fmaf_rn(p, p, acc); }
+
+// A: tile sums of g2 (factored) and, with kReadP, the block's sum of p^2.
+template <bool kReadP>
 __global__ void __launch_bounds__(kThreads)
 adafactor_a_kernel(const Leaf* __restrict__ leaves, const float* const* __restrict__ grads,
                    int n_leaves, float* __restrict__ fpart, float* __restrict__ ppart,
                    float eps) {
+  constexpr int U = kReadP ? 4 : 8;  // rows loaded at once: 8 loads a thread in flight
   __shared__ float red[kThreads / 32][kRows];
   __shared__ float scratch[32];
   const long long b = blockIdx.x;
@@ -305,37 +346,42 @@ adafactor_a_kernel(const Leaf* __restrict__ leaves, const float* const* __restri
   const Leaf L = leaves[li];
   float pp = 0.f;
   if (L.mode == kFlat) {
+    if (!kReadP) return;  // C of the last step left this block's sum of p^2
     const long long start = (b - L.block0) * kChunk;
     for_chunk(start, min(start + kChunk, L.n), [&](long long i, auto width) {
-    constexpr int k = decltype(width)::value;
+      constexpr int k = decltype(width)::value;
       float pv[4];
       load_k<k>(L.p, i, pv);
 #pragma unroll
-      for (int e = 0; e < k; ++e) pp += pv[e] * pv[e];
+      for (int e = 0; e < k; ++e) pp = add_square(pp, pv[e]);
     });
   } else {
     const float* g = grads[li];
     const Tile T = tile_of(L, b);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     float col[4] = {0.f, 0.f, 0.f, 0.f};
-    for (long long r = T.r0; r < T.r1; ++r) {
-      float rs = 0.f;
-      if (T.c < T.C) {
-        float gv[4], pv[4];
-        load_row4(g + r * T.C, T.c, T.C, T.vec, gv);
-        load_row4(L.p + r * T.C, T.c, T.C, T.vec, pv);
+    for (long long r = T.r0; r < T.r1; r += U) {
+      float gv[U][4], pv[U][4];
+      load_rows4<U>(g, T, r, gv);
+      if (kReadP) load_rows4<U>(L.p, T, r, pv);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (T.c + k < T.C) {
-            const float s = gv[k] * gv[k] + eps;
-            col[k] += s;
-            rs += s;
-            pp += pv[k] * pv[k];
+      for (int u = 0; u < U; ++u) {
+        if (r + u >= T.r1) break;  // the same for the whole block
+        float rs = 0.f;
+        if (T.c < T.C) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (T.c + k < T.C) {
+              const float s = gv[u][k] * gv[u][k] + eps;
+              col[k] += s;
+              rs += s;
+              if (kReadP) pp = add_square(pp, pv[u][k]);
+            }
           }
         }
+        rs = warp_sum(rs);
+        if (lane == 0) red[warp][r + u - T.r0] = rs;
       }
-      rs = warp_sum(rs);
-      if (lane == 0) red[warp][r - T.r0] = rs;
     }
     __syncthreads();
     float* colpart = fpart + L.part;                                // (bands, C)
@@ -348,6 +394,7 @@ adafactor_a_kernel(const Leaf* __restrict__ leaves, const float* const* __restri
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       if (T.c + k < T.C) colpart[T.band * T.C + T.c + k] = col[k];
+    if (!kReadP) return;
   }
   pp = ktpu::block_sum(pp, scratch);
   if (threadIdx.x == 0) ppart[b] = pp;
@@ -355,11 +402,15 @@ adafactor_a_kernel(const Leaf* __restrict__ leaves, const float* const* __restri
 
 // FA: per factored leaf, kFin of its R + C statistics a block (rows first,
 // then columns): the means of g2, the new v_row and v_col in place, and
-// the block's sum of the new v_row.
+// the block's sum of the new v_row.  A thread's kFin / kThreads statistics
+// each add up to one tile sum per column chunk (a row) or per row band (a
+// column: ~1000 of them down a 32000-row embedding), in order; the loads
+// of all of them go out kSumLoads at a time before their adds.
 __global__ void __launch_bounds__(kThreads)
 adafactor_fa_kernel(const Leaf* __restrict__ leaves, int n_leaves,
                     const float* __restrict__ fpart, float* __restrict__ vpart,
                     const int* __restrict__ count, float decay_exp) {
+  constexpr int J = kFin / kThreads, kSumLoads = 8;
   __shared__ float scratch[32];
   const long long b = blockIdx.x;
   const Leaf L = leaves[find_leaf(leaves, n_leaves, b, true)];
@@ -369,30 +420,45 @@ adafactor_fa_kernel(const Leaf* __restrict__ leaves, int n_leaves,
   const float* rowpart = colpart + bands * C;
   const float decay = decay_at(count, decay_exp);
   const bool cols_d0 = L.mode == kFactoredCols;
-  float vrow_sum = 0.f;
-  for (int j = 0; j < kFin / kThreads; ++j) {
+  // statistic j: row k < R (its mean over the columns) or column k - R
+  const float* src[J];
+  long long stride[J], n[J], idx[J];
+  bool row[J];
+  float sum[J];
+  long long most = 0;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
     const long long k = (b - L.fblock0) * kFin + j * kThreads + threadIdx.x;
-    if (k >= R + C) break;
-    float mean;
-    float* v;
-    bool is_vrow;
-    long long idx;
-    if (k < R) {  // row k: its mean over the columns
-      float s = 0.f;
-      for (long long cc = 0; cc < chunks; ++cc) s += rowpart[cc * R + k];
-      mean = s / static_cast<float>(C);
-      idx = k;
-      is_vrow = cols_d0;  // over d0 = the columns: v_row
-    } else {      // column k - R: its mean over the rows
-      idx = k - R;
-      float s = 0.f;
-      for (long long band = 0; band < bands; ++band) s += colpart[band * C + idx];
-      mean = s / static_cast<float>(R);
-      is_vrow = !cols_d0;
-    }
-    v = is_vrow ? L.s0 : L.s1;
-    const float nv = decay * v[idx] + (1.f - decay) * mean;
-    v[idx] = nv;
+    sum[j] = 0.f;
+    row[j] = k < R;
+    n[j] = k >= R + C ? 0 : (row[j] ? chunks : bands);
+    idx[j] = row[j] ? k : k - R;
+    src[j] = row[j] ? rowpart + k : colpart + idx[j];
+    stride[j] = row[j] ? R : C;
+    most = n[j] > most ? n[j] : most;
+  }
+  for (long long i0 = 0; i0 < most; i0 += kSumLoads) {
+    float t[J][kSumLoads];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int u = 0; u < kSumLoads; ++u)
+        t[j][u] = i0 + u < n[j] ? src[j][(i0 + u) * stride[j]] : 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int u = 0; u < kSumLoads; ++u)
+        if (i0 + u < n[j]) sum[j] += t[j][u];
+  }
+  float vrow_sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (n[j] == 0) break;
+    const float mean = sum[j] / static_cast<float>(row[j] ? C : R);
+    const bool is_vrow = row[j] == cols_d0;  // a row's mean is over the columns
+    float* v = is_vrow ? L.s0 : L.s1;
+    const float nv = decay * v[idx[j]] + (1.f - decay) * mean;
+    v[idx[j]] = nv;
     if (is_vrow) vrow_sum += nv;
   }
   vrow_sum = ktpu::block_sum(vrow_sum, scratch);
@@ -432,13 +498,18 @@ adafactor_b_kernel(const Leaf* __restrict__ leaves, const float* const* __restri
     const Tile T = tile_of(L, b);
     const Factors F = tile_factors(L, T, vrow_mean(leaves, li, n_leaves, n_fblocks, vpart), fr);
     if (T.c < T.C) {
-      for (long long r = T.r0; r < T.r1; ++r) {
-        float gv[4];
-        load_row4(g + r * T.C, T.c, T.C, T.vec, gv);
+      constexpr int U = 8;
+      for (long long r = T.r0; r < T.r1; r += U) {
+        float gv[U][4];
+        load_rows4<U>(g, T, r, gv);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float u = factored_u(gv[k], fr[r - T.r0], F.fc[k], F.row_first);
-          uu += T.c + k < T.C ? u * u : 0.f;
+        for (int u = 0; u < U; ++u) {
+          if (r + u >= T.r1) break;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float v = factored_u(gv[u][k], fr[r + u - T.r0], F.fc[k], F.row_first);
+            uu += T.c + k < T.C ? v * v : 0.f;
+          }
         }
       }
     }
@@ -473,21 +544,25 @@ adafactor_fb_kernel(const long long* __restrict__ groups, const float* __restric
   }
 }
 
-// C: u again, then p = p + -(((u / clip_div) * lr) * p_scale).
+// C: u again, then p = p + -(((u / clip_div) * lr) * p_scale), and the
+// block's sum of the new p^2 (A's order).  Blocks walk the tiles last
+// first: B read the last ones last, so they may still be in L2.
 __global__ void __launch_bounds__(kThreads)
 adafactor_c_kernel(const Leaf* __restrict__ leaves, const float* const* __restrict__ grads,
                    int n_leaves, long long n_fblocks, const float* __restrict__ vpart,
-                   const float* __restrict__ gstat, float lr) {
+                   const float* __restrict__ gstat, float* __restrict__ ppart, float lr) {
   __shared__ float fr[kRows];
-  const long long b = blockIdx.x;
+  __shared__ float scratch[32];
+  const long long b = gridDim.x - 1LL - blockIdx.x;
   const int li = find_leaf(leaves, n_leaves, b, false);
   const Leaf L = leaves[li];
   const float* g = grads[li];
   const float div = gstat[2 * L.group], scale = gstat[2 * L.group + 1];
+  float pp = 0.f;
   if (L.mode == kFlat) {
     const long long start = (b - L.block0) * kChunk;
     for_chunk(start, min(start + kChunk, L.n), [&](long long i, auto width) {
-    constexpr int k = decltype(width)::value;
+      constexpr int k = decltype(width)::value;
       float pv[4], gv[4], vv[4];
       load_k<k>(L.p, i, pv);
       load_k<k>(g, i, gv);
@@ -496,6 +571,7 @@ adafactor_c_kernel(const Leaf* __restrict__ leaves, const float* const* __restri
       for (int e = 0; e < k; ++e) {
         const float u = gv[e] * rsqrt_f(vv[e]);
         pv[e] = pv[e] + -(((u / div) * lr) * scale);
+        pp = add_square(pp, pv[e]);
       }
       store_k<k>(L.p, i, pv);
     });
@@ -503,19 +579,27 @@ adafactor_c_kernel(const Leaf* __restrict__ leaves, const float* const* __restri
     const Tile T = tile_of(L, b);
     const Factors F = tile_factors(L, T, vrow_mean(leaves, li, n_leaves, n_fblocks, vpart), fr);
     if (T.c < T.C) {
-      for (long long r = T.r0; r < T.r1; ++r) {
-        float gv[4], pv[4];
-        load_row4(g + r * T.C, T.c, T.C, T.vec, gv);
-        load_row4(L.p + r * T.C, T.c, T.C, T.vec, pv);
+      constexpr int U = 4;
+      for (long long r = T.r0; r < T.r1; r += U) {
+        float gv[U][4], pv[U][4];
+        load_rows4<U>(g, T, r, gv);
+        load_rows4<U>(L.p, T, r, pv);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float u = factored_u(gv[k], fr[r - T.r0], F.fc[k], F.row_first);
-          pv[k] = pv[k] + -(((u / div) * lr) * scale);
+        for (int u = 0; u < U; ++u) {
+          if (r + u >= T.r1) break;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float v = factored_u(gv[u][k], fr[r + u - T.r0], F.fc[k], F.row_first);
+            pv[u][k] = pv[u][k] + -(((v / div) * lr) * scale);
+            if (T.c + k < T.C) pp = add_square(pp, pv[u][k]);
+          }
+          store_row4(L.p + (r + u) * T.C, T.c, T.C, T.vec, pv[u]);
         }
-        store_row4(L.p + r * T.C, T.c, T.C, T.vec, pv);
       }
     }
   }
+  pp = ktpu::block_sum(pp, scratch);
+  if (threadIdx.x == 0) ppart[b] = pp;
 }
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
@@ -558,11 +642,14 @@ extern "C" int ktpu_sgdm_f32(const void* leaves, const void* grads, int n_leaves
 // (first block, end block, elements).  Scratch, f32: fpart (each factored
 // leaf's ceil(R / kRows) * C + ceil(C / kCols) * R tile sums, at its
 // `part`), vpart (n_fblocks), ppart and upart (nblocks), gstat
-// (2 n_groups).  Five launches.
+// (2 n_groups).  ppart is also state: each block's sum of p^2, which C
+// leaves for the next call; read_p != 0 has A sum p^2 from p instead
+// (required at the first call, and after anything else wrote p).  Five
+// launches.
 extern "C" int ktpu_adafactor_f32(const void* leaves, const void* grads, int n_leaves,
                                   long long nblocks, long long n_fblocks, const void* groups,
                                   int n_groups, void* fpart, void* vpart, void* ppart,
-                                  void* upart, void* gstat, void* count, float lr,
+                                  void* upart, void* gstat, void* count, int read_p, float lr,
                                   float decay_exp, float eps, float clip, float min_scale,
                                   void* stream) {
   if (n_leaves <= 0 || nblocks <= 0 || n_groups <= 0 || n_fblocks < 0)
@@ -571,8 +658,9 @@ extern "C" int ktpu_adafactor_f32(const void* leaves, const void* grads, int n_l
   const Leaf* lv = static_cast<const Leaf*>(leaves);
   const float* const* gp = static_cast<const float* const*>(grads);
   const unsigned grid = static_cast<unsigned>(nblocks);
-  adafactor_a_kernel<<<grid, kThreads, 0, st>>>(lv, gp, n_leaves, static_cast<float*>(fpart),
-                                                static_cast<float*>(ppart), eps);
+  auto a_kernel = read_p ? adafactor_a_kernel<true> : adafactor_a_kernel<false>;
+  a_kernel<<<grid, kThreads, 0, st>>>(lv, gp, n_leaves, static_cast<float*>(fpart),
+                                      static_cast<float*>(ppart), eps);
   int e = last_error();
   if (e) return e;
   if (n_fblocks > 0) {
@@ -593,6 +681,7 @@ extern "C" int ktpu_adafactor_f32(const void* leaves, const void* grads, int n_l
   if ((e = last_error())) return e;
   adafactor_c_kernel<<<grid, kThreads, 0, st>>>(lv, gp, n_leaves, n_fblocks,
                                                 static_cast<const float*>(vpart),
-                                                static_cast<const float*>(gstat), lr);
+                                                static_cast<const float*>(gstat),
+                                                static_cast<float*>(ppart), lr);
   return last_error();
 }

@@ -154,14 +154,11 @@ def _check(op, x, *per_channel):
 
 class _Grid:
     """Per device: the reductions' resident blocks (asked of the library
-    once) and, per stream, the zeroed ticket words that the kernels leave
-    zeroed for the next call (a buffer per stream, so that calls on two
-    streams never share a count)."""
+    once) and the columns' ticket words (``build.ticket_words``)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._resident: Dict[int, int] = {}
-        self._sync: Dict[Tuple[int, int], torch.Tensor] = {}
 
     def resident(self, device: torch.device) -> int:
         with self._lock:
@@ -177,14 +174,7 @@ class _Grid:
             return self._resident[device.index]
 
     def sync(self, device: torch.device, C: int) -> torch.Tensor:
-        words = 2 * math.ceil(C // 8 / MAX_TX)
-        key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-        with self._lock:
-            buf = self._sync.get(key)
-            if buf is None or buf.numel() < words:
-                buf = self._sync[key] = torch.zeros(max(words, 64), dtype=torch.int32,
-                                                    device=device)
-            return buf
+        return build.ticket_words(device, 2 * math.ceil(C // 8 / MAX_TX))
 
 
 _GRID = _Grid()

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Per source: ptxas's report (registers, shared memory, spills of each
 # kernel), kept beside the library (``compile_log``).
 EXTRA_FLAGS: Dict[str, tuple] = {name: ("-Xptxas", "-v")
-                                 for name in ("attention", "batchnorm", "gelu")}
+                                 for name in ("attention", "batchnorm", "gelu", "layernorm",
+                                              "optim")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # process-wide: one load per library
@@ -207,3 +208,23 @@ def check_cuda_tensors(op: str, *tensors: torch.Tensor, dtype: torch.dtype = tor
             raise ValueError(f"{op}: kernel takes contiguous tensors")
         if t.data_ptr() % 16:
             raise ValueError(f"{op}: kernel takes 16-byte aligned tensors")
+
+
+_tickets: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
+
+
+def ticket_words(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 words, made zero, for the current stream of
+    ``device``: the counters of the one-launch reductions, a ticket or
+    arrival count at each even word and a generation after it (K8's
+    columns in ``csrc/batchnorm.cu``; ``grid_barrier`` in
+    ``csrc/layernorm.cu``).  Every kernel sets a count it took back to 0
+    for the next call on the stream, and only compares a generation with
+    what it read at its start; a buffer per stream, so that calls on two
+    streams never share a count."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _lock:
+        buf = _tickets.get(key)
+        if buf is None or buf.numel() < n:
+            buf = _tickets[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        return buf

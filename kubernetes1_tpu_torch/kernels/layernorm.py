@@ -12,7 +12,7 @@ rounded bf16 sum, as JAX's bf16 add rounds it.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,16 +27,34 @@ KERNEL = build.Kernel("layernorm", "ktpu_layernorm_fwd_bf16", [
 KERNEL_BWD = build.Kernel("layernorm", "ktpu_layernorm_bwd_bf16", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, scale, dy
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dx, dscale, dbias
-    ctypes.c_void_p,                                    # partial
+    ctypes.c_void_p, ctypes.c_void_p,                   # partial, sync
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,      # rows, d, P
     ctypes.c_float,                                     # eps
     ctypes.c_void_p,                                    # stream
 ])
 EPS = 1e-6  # bert.py's layernorm default
-# Blocks of the backward's row pass (4 rows in flight each), each writing
-# one (2, d) f32 partial of dscale and dbias: four per SM of an H100
-# (132 SMs).
-BWD_BLOCKS = 528
+
+_grids: Dict[Tuple[Optional[int], int], Tuple[int, int]] = {}
+
+
+def bwd_blocks(device: torch.device, rows: int, d: int) -> int:
+    """The backward's blocks at (rows, d) on ``device``, each one (2, d)
+    f32 partial of dscale and dbias: as many as the SMs hold at once (the
+    launch is cooperative, and the library counts them once per width),
+    but no more than one per consumer warp's row of a stage."""
+    key = (device.index, d)
+    if key not in _grids:
+        fn = build.load_library("layernorm").ktpu_layernorm_bwd_grid
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        resident, warps = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(d, ctypes.byref(resident), ctypes.byref(warps))
+        if err != 0 or resident.value <= 0 or warps.value <= 0:
+            raise build.KernelLaunchError(f"ktpu_layernorm_bwd_grid({d}): CUDA error {err}, "
+                                          f"{resident.value} blocks of {warps.value} warps")
+        _grids[key] = (resident.value, warps.value)
+    resident, warps = _grids[key]
+    return min(resident, -(-rows // warps))
 
 
 def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -78,10 +96,10 @@ def _check(x, scale, bias):
 def layernorm_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      eps: float = EPS) -> torch.Tensor:
     """One launch of the forward kernel: bf16 x, f32 scale and bias."""
-    KERNEL.load()
+    _check(x, scale, bias)
     build.check_cuda_tensors("layernorm", x)
     build.check_cuda_tensors("layernorm", scale, bias, dtype=torch.float32)
-    _check(x, scale, bias)
+    KERNEL.load()
     y = torch.empty_like(x)
     d = x.shape[-1]
     KERNEL.launch(x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
@@ -91,22 +109,23 @@ def layernorm_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def layernorm_bwd_kernel(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                          eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One call of the backward entry point (the row pass, then the column
-    sums of its per-block partials): (dx, dscale, dbias)."""
-    KERNEL_BWD.load()
-    build.check_cuda_tensors("layernorm backward", x, dy)
-    build.check_cuda_tensors("layernorm backward", scale, dtype=torch.float32)
+    """One launch of the backward kernel (the rows, then the column sums of
+    its per-block partials): (dx, dscale, dbias).  Raises for a CPU
+    tensor: it never runs the plain version."""
     _check(x, scale, scale)
     if dy.shape != x.shape:
         raise ValueError(f"layernorm backward: dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    build.check_cuda_tensors("layernorm backward", x, dy)
+    build.check_cuda_tensors("layernorm backward", scale, dtype=torch.float32)
+    KERNEL_BWD.load()
     d = x.shape[-1]
     rows = x.numel() // d
-    blocks = min(rows, BWD_BLOCKS)
+    P = bwd_blocks(x.device, rows, d)
     dx, dscale, dbias = torch.empty_like(x), torch.empty_like(scale), torch.empty_like(scale)
-    partial = torch.empty((blocks, 2, d), device=x.device, dtype=torch.float32)
+    partial = torch.empty((P, 2, d), device=x.device, dtype=torch.float32)
     KERNEL_BWD.launch(x.device, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                      dscale.data_ptr(), dbias.data_ptr(), partial.data_ptr(), rows, d, blocks,
-                      eps)
+                      dscale.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
+                      build.ticket_words(x.device, 2).data_ptr(), rows, d, P, eps)
     return dx, dscale, dbias
 
 

@@ -17,6 +17,14 @@ the table, the step count (a 0-dim int32 tensor, optax's ``count``,
 incremented by the update) and the hyperparameters, and updates the
 parameters and states in place; the plain version is optax's formula in
 f32, op by op.
+
+The device table keeps the addresses it was built with, so every update
+first checks that each parameter and state still lives there and
+raises, naming the leaf, when one moved (``p.data = ...``).  Every
+kernel update moves the parameters' version counters, as torch's own
+in-place writes do.  Adafactor's kernel carries each block's sum of p²
+from one update to the next (``csrc/optim.cu``); the table tells it
+when it must read p instead, from those counters.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ KERNEL_ADAFACTOR = build.Kernel("optim", "ktpu_adafactor_f32", [
     _P, _P, _I, _LL, _LL,   # leaves, grads, n_leaves, nblocks, n_fblocks
     _P, _I,                 # groups, n_groups
     _P, _P, _P, _P, _P,     # fpart, vpart, ppart, upart, gstat
-    _P,                     # count
+    _P, _I,                 # count, read_p
     _F, _F, _F, _F, _F,     # lr, decay_rate, eps, clipping threshold, min_scale
     _P,                     # stream
 ])
@@ -96,12 +104,13 @@ class Leaf:
     Adafactor (v,) or, factored, (v_row, v_col), with its group (the JAX
     leaf it belongs to) and its mode (FACTORED_COLS / FACTORED_ROWS: the
     parameter is a (rows, cols) matrix whose v_row averages over the
-    columns / the rows)."""
+    columns / the rows).  ``name`` says which it is in error messages."""
 
     p: torch.Tensor
     states: Tuple[torch.Tensor, ...]
     group: int = 0
     mode: int = FLAT
+    name: str = ""
 
 
 def _blocks(leaf: Leaf) -> Tuple[int, int, int]:
@@ -166,8 +175,53 @@ class LeafTable:
                 raise ValueError(f"LeafTable: factored leaf {i} must be a matrix with "
                                  f"(v_row, v_col), got {tuple(leaf.p.shape)}")
         self.grads: List[Optional[torch.Tensor]] = [None] * len(self.leaves)
+        self._ptrs = self._addresses()
+        self._versions: Optional[List[int]] = None
         if self.device.type == "cuda":
             self._build_device_table(adafactor)
+
+    def label(self, i: int) -> str:
+        name = self.leaves[i].name
+        return f"leaf {i}" + (f" ({name})" if name else "")
+
+    def _addresses(self) -> List[Tuple[int, ...]]:
+        return [(leaf.p.data_ptr(), *(s.data_ptr() for s in leaf.states))
+                for leaf in self.leaves]
+
+    def check_addresses(self):
+        """Raise, naming the leaf, when a parameter or state tensor no
+        longer lives where the table was built (``p.data = other``): the
+        kernels would write through the old address."""
+        for i, (now, then) in enumerate(zip(self._addresses(), self._ptrs)):
+            if now != then:
+                raise ValueError(f"optimizer table: {self.label(i)} moved to new storage "
+                                 f"since the optimizer was built; build a new optimizer")
+
+    def must_read_params(self) -> bool:
+        """Whether an update has to read the parameters: at the first
+        update, after ``forget_params``, and when anything wrote one since
+        ``mark_params``.  Every torch in-place write moves a tensor's
+        version counter (``copy_``, ``mul_``, a write through a view, which
+        shares it), and so does every table kernel's update, through
+        ``mark_params``.  A write that moves no counter goes unseen: one
+        through ``p.data`` (a counter of its own), or a raw-pointer write
+        by code outside this module that does not call
+        ``torch.autograd.graph.increment_version``."""
+        return self._versions is None or any(
+            leaf.p._version != v for leaf, v in zip(self.leaves, self._versions))
+
+    def forget_params(self):
+        """Have the next update read the parameters, as the first does."""
+        self._versions = None
+
+    def mark_params(self):
+        """After an update that wrote every parameter through raw pointers:
+        move each parameter's version counter, as a torch in-place write
+        would, so that autograd's check of saved tensors and any other
+        table over the same parameters see the write; then record the new
+        versions."""
+        torch.autograd.graph.increment_version([leaf.p for leaf in self.leaves])
+        self._versions = [leaf.p._version for leaf in self.leaves]
 
     def members(self) -> List[List[int]]:
         """The leaf indices of each group, in order."""
@@ -241,9 +295,11 @@ def _check_count(count: torch.Tensor, table: LeafTable):
                          f"{tuple(count.shape)} on {count.device}")
 
 
-def _have_grads(table: LeafTable):
+def _ready(table: LeafTable):
+    """Raise before an update that has no gradients or whose leaves moved."""
     if any(g is None for g in table.grads):
         raise ValueError("update before set_grads")
+    table.check_addresses()
 
 
 # --------------------------------------------------------------- K10 AdamW
@@ -254,7 +310,7 @@ def adamw_plain(table: LeafTable, count: torch.Tensor, lr: float, b1: float = 0.
                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4):
     """optax.adamw: scale_by_adam, add_decayed_weights, scale(-lr),
     apply_updates; every leaf decayed.  Leaf states (m, v)."""
-    _have_grads(table)
+    _ready(table)
     t = (count + 1).float()
     bc1, bc2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
     for leaf, g in zip(table.leaves, table.grads):
@@ -271,11 +327,12 @@ def adamw_kernel(table: LeafTable, count: torch.Tensor, lr: float, b1: float = 0
     """One call of the AdamW entry point over every leaf (the update, then
     the count)."""
     KERNEL_ADAMW.load()
-    _have_grads(table)
+    _ready(table)
     _check_count(count, table)
     KERNEL_ADAMW.launch(table.device, table.table.data_ptr(), table.grad_ptrs.data_ptr(),
                         len(table.leaves), table.nblocks, count.data_ptr(), lr, b1, b2,
                         1 - b1, 1 - b2, eps, weight_decay)
+    table.mark_params()
 
 
 def adamw(table: LeafTable, count: torch.Tensor, lr: float, b1: float = 0.9, b2: float = 0.999,
@@ -294,7 +351,7 @@ def adamw(table: LeafTable, count: torch.Tensor, lr: float, b1: float = 0.9, b2:
 def sgdm_plain(table: LeafTable, lr: float, momentum: float = 0.9):
     """optax.sgd(lr, momentum): trace t = g + momentum t, scale(-lr),
     apply_updates.  Leaf states (trace,)."""
-    _have_grads(table)
+    _ready(table)
     for leaf, g in zip(table.leaves, table.grads):
         (trace,) = leaf.states
         trace.copy_(g + momentum * trace)
@@ -304,9 +361,10 @@ def sgdm_plain(table: LeafTable, lr: float, momentum: float = 0.9):
 def sgdm_kernel(table: LeafTable, lr: float, momentum: float = 0.9):
     """One launch of the SGD-momentum kernel over every leaf."""
     KERNEL_SGDM.load()
-    _have_grads(table)
+    _ready(table)
     KERNEL_SGDM.launch(table.device, table.table.data_ptr(), table.grad_ptrs.data_ptr(),
                        len(table.leaves), table.nblocks, lr, momentum)
+    table.mark_params()
 
 
 def sgdm(table: LeafTable, lr: float, momentum: float = 0.9):
@@ -328,7 +386,7 @@ def adafactor_plain(table: LeafTable, count: torch.Tensor, lr: float):
     a leading axis (a group of one tensor is that tensor), and optax's
     formula runs on the stacked array, as the JAX step runs it; the
     results are written back leaf by leaf."""
-    _have_grads(table)
+    _ready(table)
     t = (count + 1).float()
     decay = 1.0 - t ** -DECAY_RATE
     for idx in table.members():
@@ -376,16 +434,19 @@ def adafactor_plain(table: LeafTable, count: torch.Tensor, lr: float):
 
 def adafactor_kernel(table: LeafTable, count: torch.Tensor, lr: float):
     """One call of the Adafactor entry point over every leaf: its five
-    launches (tile sums, statistics, update sums, group scales, update)."""
+    launches (tile sums, statistics, update sums, group scales, update).
+    The sums of p² come from the last update unless the table says that
+    p must be read."""
     KERNEL_ADAFACTOR.load()
-    _have_grads(table)
+    _ready(table)
     _check_count(count, table)
     KERNEL_ADAFACTOR.launch(
         table.device, table.table.data_ptr(), table.grad_ptrs.data_ptr(), len(table.leaves),
         table.nblocks, table.n_fblocks, table.groups.data_ptr(), table.n_groups,
         table.fpart.data_ptr(), table.vpart.data_ptr(), table.ppart.data_ptr(),
-        table.upart.data_ptr(), table.gstat.data_ptr(), count.data_ptr(), lr, DECAY_RATE, EPS,
-        CLIPPING_THRESHOLD, MIN_SCALE)
+        table.upart.data_ptr(), table.gstat.data_ptr(), count.data_ptr(),
+        int(table.must_read_params()), lr, DECAY_RATE, EPS, CLIPPING_THRESHOLD, MIN_SCALE)
+    table.mark_params()
 
 
 def adafactor(table: LeafTable, count: torch.Tensor, lr: float):

@@ -10,6 +10,11 @@ addresses after ``zero_grad(set_to_none=True)``) and runs the update:
 the kernel on the card, the plain version (optax's formula) on the CPU.
 AdamW's and Adafactor's step count is a 0-dim int32 tensor on the
 parameters' device (``count``, optax's), advanced by the update itself.
+
+The table holds the state tensors it was built with.  ``step()`` raises,
+naming the leaf, when ``self.state`` no longer holds them (a
+``load_state_dict`` of copies puts new tensors there) or a parameter's
+storage moved (``p.data = ...``): build a new optimizer after either.
 """
 
 from __future__ import annotations
@@ -44,12 +49,22 @@ class _TableOptimizer(torch.optim.Optimizer):
     def _update(self, hyper: dict):
         raise NotImplementedError
 
+    def _check_state(self):
+        for i, (p, leaf) in enumerate(zip(self._leaves(), self.table.leaves)):
+            held = tuple(self.state.get(p, {}).values())
+            if len(held) != len(leaf.states) or any(a is not b
+                                                    for a, b in zip(held, leaf.states)):
+                raise ValueError(f"{type(self).__name__}: the state of {self.table.label(i)} "
+                                 f"is no longer the tensors its table was built with "
+                                 f"(load_state_dict?); build a new optimizer")
+
     @torch.no_grad()
     def step(self, closure=None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        self._check_state()
         self.table.set_grads([p.grad for p in self._leaves()])
         self._update(self.param_groups[0])
         return loss
@@ -72,8 +87,9 @@ class AdamW(_TableOptimizer):
             self.state[p] = {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.table = _optim.LeafTable([
-            _optim.Leaf(p, (self.state[p]["exp_avg"], self.state[p]["exp_avg_sq"]))
-            for p in leaves])
+            _optim.Leaf(p, (self.state[p]["exp_avg"], self.state[p]["exp_avg_sq"]),
+                        name=f"parameter {i}")
+            for i, p in enumerate(leaves)])
 
     def _update(self, hyper: dict):
         _optim.adamw(self.table, self.count, hyper["lr"], *hyper["betas"], hyper["eps"],
@@ -91,8 +107,9 @@ class SGD(_TableOptimizer):
         leaves, _dev = self._check_params()
         for p in leaves:
             self.state[p] = {"momentum_buffer": torch.zeros_like(p)}
-        self.table = _optim.LeafTable([_optim.Leaf(p, (self.state[p]["momentum_buffer"],))
-                                       for p in leaves])
+        self.table = _optim.LeafTable([_optim.Leaf(p, (self.state[p]["momentum_buffer"],),
+                                                   name=f"parameter {i}")
+                                       for i, p in enumerate(leaves)])
 
     def _update(self, hyper: dict):
         _optim.sgdm(self.table, hyper["lr"], hyper["momentum"])
@@ -132,17 +149,18 @@ class Adafactor(_TableOptimizer):
                     raise ValueError(f"Adafactor: group {group['name']!r} {shape} x "
                                      f"{len(tensors)} would factor over its layer axis, or is "
                                      f"not a stack of matrices")
-            for p in tensors:
+            for k, p in enumerate(tensors):
+                name = f"{group['name']}[{k}]"
                 if dims is None:
                     self.state[p] = {"v": torch.zeros_like(p)}
-                    table.append(_optim.Leaf(p, (self.state[p]["v"],), gi))
+                    table.append(_optim.Leaf(p, (self.state[p]["v"],), gi, name=name))
                     continue
                 # v_row drops d0 (averages over it), v_col drops d1
                 self.state[p] = {"v_row": p.new_zeros(shape[d1]),
                                  "v_col": p.new_zeros(shape[d0])}
                 mode = _optim.FACTORED_COLS if d0 == 1 else _optim.FACTORED_ROWS
                 table.append(_optim.Leaf(p, (self.state[p]["v_row"], self.state[p]["v_col"]),
-                                         gi, mode))
+                                         gi, mode, name))
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.table = _optim.LeafTable(table, adafactor=True)
 
