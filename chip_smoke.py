@@ -6,15 +6,19 @@
 1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc,
    and prints what ptxas reported for the attention kernels (registers,
    spills) beside each one's shared memory and threads, and for the batch
-   norm, GELU, LayerNorm and optimizer kernels (registers, spills, shared
-   memory);
+   norm, GELU, LayerNorm, optimizer and RMSNorm kernels (registers, spills,
+   shared memory);
 2. holds each kernel, forward and backward, against its plain PyTorch
    version on the card, at the main paths' shapes (the decode server's
    B=8, S=1024 for the serving kernels; the train step's B=4, S=2048 and
    8192 x 14336 / 8192 x 128256 rows for the rest) and at a few odd small
    ones; a backward also against autograd of the plain forward, with the
-   same upstream gradient.  It times the kernel, the plain version and (as
-   a yardstick only) the one PyTorch call that computes the same function;
+   same upstream gradient; the RMSNorm backward also at each of its width
+   classes and at llama_bench's 8192 x 2048, which is timed on a line of
+   its own, as are 2048 and 16384 rows at d = 4096 (its fixed cost a
+   launch and its streaming rate from the three).  It times the kernel,
+   the plain version and (as a yardstick only) the one PyTorch call that
+   computes the same function;
 3. holds the forward built on the kernels against the forward built on the
    plain versions, at Llama-3-8B widths with 2 layers;
 4. holds a train step's loss and every gradient on the kernels against
@@ -25,7 +29,8 @@
 6. trains Llama-3-8B widths cut to 4 layers (1.92 B parameters, f32 master
    weights and AdamW, ~31 GB of state) for 5 steps on one fixed (4, 2049)
    batch through make_train_state / make_train_step, and checks the losses
-   and every kernel's forward and backward launches per step;
+   and every kernel's forward and backward launches per step; then profiles
+   3 more steps for the device time a step by part (as in 16);
 7. (ResNet-50, K8) holds the batch-norm kernels (statistics, apply with and
    without residual and ReLU, its ReLU mask, the backward reading that
    mask) against their plain versions at odd shapes and at four layers of
@@ -64,8 +69,9 @@
    backward is checked) twice on the same inputs and asserts the same bits:
    causal at the Llama train shape, non-causal at BERT-large's, and a ring
    block pair accumulating into f32 buffers; so too K8's statistics and
-   backward (stem, stage 4), K9's backward (BERT's d_ff) and K7b's backward
-   (16384 x 1024 and 4096 x 2048: dscale and dbias too);
+   backward (stem, stage 4), K9's backward (BERT's d_ff), K7b's backward
+   (16384 x 1024 and 4096 x 2048: dscale and dbias too) and K2's backward
+   (8192 x 4096 and 8192 x 2048: dscale too);
 14. runs ring attention's own steps for 8 virtual ranks x 8192 tokens
    (65,536 causal) and 4 x 2048 (non-causal) in lockstep on the card,
    forward and backward, against the dense kernels at the whole length,
@@ -86,7 +92,7 @@
    over 4, 6, 8 and 3-step AdamW and SGD runs, checking the losses, the
    JAX payload's result keys and every kernel's launches per step, and
    prints the profiled step's device time and, over 3 more steps, the
-   device time a step by part (K10b, attention, cuBLAS, the rest).
+   device time a step by part (K10b, attention, cuBLAS, K2, the rest).
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.
 
@@ -157,6 +163,14 @@ XENT_GRAD_TOL = (0.0, 2.0 ** -6)
 # the kernel's bf16 rounding of P and dS before their products (autograd
 # keeps dS in f32): each element a step or two of 2^-8 away, 1e-2 is ~2.5.
 BWD_REL_L2_TOL = 1e-2
+# The K2 backward's width classes (csrc/rmsnorm.cu), each against its plain
+# version and autograd at BWD_REL_L2_TOL: one warp a row (d = 8; d = 1024
+# with rows no multiple of a stage's 16), a group of 5 warps (4104: three
+# groups, 15 consumer warps), 16 warps (16384) and the wide kernel above
+# it; llama_bench's width, 8192 x 2048, is checked and timed apart.
+RMS_WIDTH_CLASSES = ((37, 8), (16389, 1024), (37, 4104), (513, 16384), (300, 16392))
+RMS_BENCH_D = 2048  # llama_bench's 1b-tpu d_model
+RMS_SCALING_ROWS = (2048, 16384)  # the K2 backward timed at d = 4096 beside 8192 rows
 # Forward, kernels vs plain, relative L2 error of the logits: each of the
 # four kernels in each of the 2 layers may round an element one bf16 step
 # (2^-8 relative) away from its plain version; 2e-2 is five such steps.
@@ -494,6 +508,9 @@ def kernel_phase(dev, gen) -> tuple:
         check_attention_bwd(f"attention_bwd {shape}", q, k, v, bf16(q.shape, gen, dev))
         check_rope_bwd(f"rope_bwd {shape}", q, k, theta)
         check_rmsnorm_bwd(f"rmsnorm_bwd {B * S, H * hd}", x, sc, bf16(x.shape, gen, dev))
+    for rows, d in RMS_WIDTH_CLASSES:
+        x, sc = bf16((rows, d), gen, dev), bf16((d,), gen, dev, 0.1, 1.0)
+        check_rmsnorm_bwd(f"rmsnorm_bwd {rows, d}", x, sc, bf16(x.shape, gen, dev))
     for rows, n in ((37, 24), (3, 40), (5, 1000)):
         g, u = bf16((rows, n), gen, dev, 2.0), bf16((rows, n), gen, dev)
         check_close(f"swiglu {rows, n}", [swiglu.swiglu(g, u)], [swiglu.swiglu_plain(g, u)],
@@ -600,14 +617,9 @@ def kernel_phase(dev, gen) -> tuple:
                    bound_ms(2 * 2 * n, 3 * n, PEAK_F32), None))
     del q, k, v, do, dq, dk
 
-    x, dy = bf16((rows, d), gen, dev), bf16((rows, d), gen, dev)
-    err = check_rmsnorm_bwd("rmsnorm_bwd 8B", x, sc, dy)
-    out.append(row("rmsnorm_bwd", "rmsnorm.cu", 128, f"rows={rows} d={d}", err,
-                   time_ms(lambda: rmsnorm.rmsnorm_bwd_kernel(x, sc, dy)),
-                   time_ms(lambda: rmsnorm.rmsnorm_bwd_plain(x, sc, dy)),
-                   bound_ms(2 * (3 * x.numel() + 2 * d), 10 * x.numel(), PEAK_F32),
-                   library_bwd_ms(lambda a, w: F.rms_norm(a, (d,), w, 1e-5), [x, sc], [dy])))
-    del x, dy
+    out.append(rmsnorm_bwd_row(rows, d, gen, dev))
+    print_row(rmsnorm_bwd_row(rows, RMS_BENCH_D, gen, dev))  # llama_bench's width
+    rmsnorm_bwd_scaling(rows, d, out[-1]["ms"], gen, dev)
 
     logits = bf16((rows, cfg.vocab), gen, dev, 2.0)
     t = torch.randint(0, cfg.vocab, (rows,), generator=gen, device=dev)
@@ -681,6 +693,37 @@ def check_rmsnorm_bwd(name, x, sc, dy) -> float:
     check_rel_l2(f"{name} vs autograd", got, plain_vjp(rmsnorm.rmsnorm_plain, [x, sc], [dy]),
                  BWD_REL_L2_TOL)
     return err
+
+
+def rmsnorm_bwd_row(rows, d, gen, dev) -> dict:
+    """The K2 backward at (rows, d) against its plain version and autograd,
+    timed beside its bound, the plain version and F.rms_norm's backward."""
+    x, dy = bf16((rows, d), gen, dev), bf16((rows, d), gen, dev)
+    sc = bf16((d,), gen, dev, 0.1, 1.0)
+    err = check_rmsnorm_bwd(f"rmsnorm_bwd {rows, d}", x, sc, dy)
+    return row("rmsnorm_bwd", "rmsnorm.cu", 128, f"rows={rows} d={d}", err,
+               time_ms(lambda: rmsnorm.rmsnorm_bwd_kernel(x, sc, dy)),
+               time_ms(lambda: rmsnorm.rmsnorm_bwd_plain(x, sc, dy)),
+               bound_ms(2 * (3 * x.numel() + 2 * d), 10 * x.numel(), PEAK_F32),
+               library_bwd_ms(lambda a, w: F.rms_norm(a, (d,), w, 1e-5), [x, sc], [dy]))
+
+
+def rmsnorm_bwd_scaling(rows, d, ms, gen, dev):
+    """The K2 backward's time against rows at width d: ms at rows, its
+    times at RMS_SCALING_ROWS, and the line through the fewest and the
+    most rows, whose slope is the rate at which it streams x, dy and dx
+    (6 bytes an element) and whose value at 0 rows its fixed cost a
+    launch."""
+    times = {rows: ms}
+    for n in RMS_SCALING_ROWS:
+        extra = rmsnorm_bwd_row(n, d, gen, dev)
+        print_row(extra)
+        times[n] = extra["ms"]
+    lo, hi = min(times), max(times)
+    per_row = (times[hi] - times[lo]) / (hi - lo)
+    print(f"rmsnorm_bwd at d={d}, rows {sorted(times)}: streaming "
+          f"{6 * d / (per_row * 1e-3) / 1e12:.3f} TB/s, fixed "
+          f"{(times[lo] - per_row * lo) * 1e3:.2f} us a launch", flush=True)
 
 
 def check_swiglu_bwd(name, g, u, dy) -> float:
@@ -900,6 +943,8 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
                  f"want {per_step.get(name, 0)} per step")
     step_ms = float(np.mean(times[1:])) * 1e3  # the first step pays for cuBLAS's set-up
     parts = step_breakdown(cfg, params, opt, tokens)
+    print(f"train step, device ms by part (3 more steps, profiler): "
+          f"{step_device_parts(step, tokens)}", flush=True)
     parts["torch_adamw_ms"] = torch_adamw_ms(llama.param_leaves(params), 0.1)
     kernel_ms = {**kernel_ms, "adamw": parts["optimizer_ms"]}
     kern_ms = sum(per_step[name] * kernel_ms[name] for name in per_step)
@@ -1708,7 +1753,8 @@ def determinism_phase(dev):
     the same bits.  Causal at the Llama train shape (K1), non-causal at
     BERT-large's (K7a), and a ring block pair (diagonal, then the block
     behind) accumulating into f32 buffers (K6); K8's statistics and
-    backward at the stem and stage 4; K9's backward at BERT's d_ff."""
+    backward at the stem and stage 4; K9's backward at BERT's d_ff; K7b's
+    backward at two widths; K2's backward at 8192 x 4096 and 8192 x 2048."""
     gen = torch.Generator(device=dev).manual_seed(7)
     cfg, bcfg = llama.llama_3_8b(), bert.bert_large()
     cases = (("K1 causal", TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True),
@@ -1775,6 +1821,16 @@ def determinism_phase(dev):
             fail(f"layernorm_bwd ({rows}, {d}): two runs differ")
         print(f"layernorm_bwd ({rows}, {d}): dx, dscale and dbias of two runs bit-identical",
               flush=True)
+    # K2: dscale sums over the blocks' partials in a fixed order
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    for d in (cfg.d_model, RMS_BENCH_D):
+        x, dy = bf16((rows, d), gen, dev), bf16((rows, d), gen, dev)
+        sc = bf16((d,), gen, dev, 0.1, 1.0)
+        runs = [rmsnorm.rmsnorm_bwd_kernel(x, sc, dy) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"rmsnorm_bwd ({rows}, {d}): two runs differ")
+        print(f"rmsnorm_bwd ({rows}, {d}): dx and dscale of two runs bit-identical", flush=True)
 
 
 def attention_build_report():
@@ -1829,7 +1885,7 @@ def ptxas_report(source: str):
 def readable_kernel(mangled: str) -> str:
     """A kernel's name (lower case, ending in _kernel) from its mangled
     one, with its template argument."""
-    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z]+)*_kernel)(ILb[01]E|IiE|IxE)?", mangled)
+    m = re.search(r"(?<=\d)([a-z]+(?:_[a-z]+\d*)*_kernel)(ILb[01]E|IiE|IxE)?", mangled)
     if m is None:
         return mangled
     arg = {"ILb0E": "<false>", "ILb1E": "<true>", "IiE": "<int>", "IxE": "<long long>"}
@@ -2409,27 +2465,27 @@ def recording_train_step(losses: list, last=None):
     return make, wrapped
 
 
-BENCH_PARTS = (("adafactor", ("adafactor_",)), ("attention", ("attention_",)),
-               ("gemm", ("nvjet", "gemm", "cutlass")))
+STEP_PARTS = (("adafactor", ("adafactor_",)), ("attention", ("attention_",)),
+              ("gemm", ("nvjet", "gemm", "cutlass")), ("rmsnorm", ("rmsnorm_",)))
 
 
-def bench_step_parts(last: dict, steps: int = 3) -> dict:
-    """The last llama_bench step (its params, optimizer and batch) run
-    `steps` more times under torch.profiler: device ms a step by part (K10b's
-    five passes, the attention kernels, cuBLAS's matrix products, the
-    rest) and in all."""
+def step_device_parts(step, tokens, steps: int = 3) -> dict:
+    """A train step run `steps` more times under torch.profiler: device ms
+    a step by part (K10b's five passes, the attention kernels, cuBLAS's
+    matrix products, K2's forward and backward kernels, the rest) and in
+    all."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            last["step"](last["tokens"])
+            step(tokens)
         torch.cuda.synchronize()
-    parts = dict.fromkeys([name for name, _ in BENCH_PARTS] + ["other"], 0.0)
+    parts = dict.fromkeys([name for name, _ in STEP_PARTS] + ["other"], 0.0)
     for ev in prof.key_averages():
         if not benchguard.is_device_op(ev):
             continue
-        part = next((name for name, keys in BENCH_PARTS if any(k in ev.key for k in keys)),
+        part = next((name for name, keys in STEP_PARTS if any(k in ev.key for k in keys)),
                     "other")
         parts[part] += benchguard.device_time_us(ev) / 1e3 / steps
     parts["total"] = sum(parts.values())
@@ -2486,7 +2542,7 @@ def llama_bench_phase(card: str) -> dict:
         card, "adafactor", BENCH_WARMUP + BENCH_STEPS + 1,  # the profiled step too
         lambda: (llama_bench.main(argv), json.load(open(out)))[1], last)
     peak = torch.cuda.max_memory_allocated()
-    parts = bench_step_parts(last)
+    parts = step_device_parts(last["step"], last["tokens"])
     last.clear()
     check_bench_result(res, "adafactor", BENCH_BATCH, BENCH_STEPS)
     print("llama_bench result: " + json.dumps(res), flush=True)
@@ -2558,7 +2614,7 @@ def main():
     libs = build.build_all()
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s", flush=True)
     attention_build_report()
-    for source in ("batchnorm", "gelu", "layernorm", "optim"):
+    for source in ("batchnorm", "gelu", "layernorm", "optim", "rmsnorm"):
         ptxas_report(source)
 
     gen = torch.Generator(device=dev).manual_seed(0)

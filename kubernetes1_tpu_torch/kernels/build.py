@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel), kept beside the library (``compile_log``).
 EXTRA_FLAGS: Dict[str, tuple] = {name: ("-Xptxas", "-v")
                                  for name in ("attention", "batchnorm", "gelu", "layernorm",
-                                              "optim")}
+                                              "optim", "rmsnorm")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}   # process-wide: one load per library
@@ -217,11 +217,12 @@ def ticket_words(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` int32 words, made zero, for the current stream of
     ``device``: the counters of the one-launch reductions, a ticket or
     arrival count at each even word and a generation after it (K8's
-    columns in ``csrc/batchnorm.cu``; ``grid_barrier`` in
-    ``csrc/layernorm.cu``).  Every kernel sets a count it took back to 0
-    for the next call on the stream, and only compares a generation with
-    what it read at its start; a buffer per stream, so that calls on two
-    streams never share a count."""
+    columns in ``csrc/batchnorm.cu``; ``csrc/common.cuh``'s
+    ``grid_barrier`` in ``csrc/layernorm.cu`` and ``csrc/rmsnorm.cu``).
+    Every kernel sets a count it took back to 0 for the next call on the
+    stream, and only compares a generation with what it read at its start;
+    a buffer per stream, so that calls on two streams never share a
+    count."""
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     with _lock:
         buf = _tickets.get(key)

@@ -8,7 +8,7 @@ Replaces the XLA-fused ``rmsnorm`` of the JAX package's
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,14 +21,34 @@ KERNEL = build.Kernel("rmsnorm", "ktpu_rmsnorm_bf16", [
 ])
 KERNEL_BWD = build.Kernel("rmsnorm", "ktpu_rmsnorm_bwd_bf16", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, scale, dy
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dx, dscale, partial
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # rows, d, P
+    ctypes.c_void_p, ctypes.c_void_p,                   # dx, dscale
+    ctypes.c_void_p, ctypes.c_void_p,                   # partial, sync
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,      # rows, d, P
     ctypes.c_float,                                     # eps
     ctypes.c_void_p,                                    # stream
 ])
-# Blocks of the backward's row pass, each writing one (d,) f32 partial of
-# dscale: two per SM of an H100 (132 SMs) keep every SM busy.
-BWD_BLOCKS = 264
+
+_grids: Dict[Tuple[Optional[int], int], Tuple[int, int]] = {}
+
+
+def bwd_blocks(device: torch.device, rows: int, d: int) -> int:
+    """The backward's blocks at (rows, d) on ``device``, each one (d,) f32
+    partial of dscale: as many as the SMs hold at once (the launch is
+    cooperative, and the library counts them once per width), but no more
+    than one per row a block takes at a time."""
+    key = (device.index, d)
+    if key not in _grids:
+        fn = build.load_library("rmsnorm").ktpu_rmsnorm_bwd_grid
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        resident, per_block = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(d, ctypes.byref(resident), ctypes.byref(per_block))
+        if err != 0 or resident.value <= 0 or per_block.value <= 0:
+            raise build.KernelLaunchError(f"ktpu_rmsnorm_bwd_grid({d}): CUDA error {err}, "
+                                          f"{resident.value} blocks of {per_block.value} rows")
+        _grids[key] = (resident.value, per_block.value)
+    resident, per_block = _grids[key]
+    return min(resident, -(-rows // per_block))
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -64,9 +84,9 @@ def _check(x, scale):
 
 def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """One launch of the forward kernel; ``scale`` in x's dtype."""
-    KERNEL.load()
-    build.check_cuda_tensors("rmsnorm", x, scale)
     _check(x, scale)
+    build.check_cuda_tensors("rmsnorm", x, scale)
+    KERNEL.load()
     out = torch.empty_like(x)
     d = x.shape[-1]
     KERNEL.launch(x.device, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
@@ -76,20 +96,22 @@ def rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> t
 
 def rmsnorm_bwd_kernel(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                        eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One call of the backward entry point (the row pass, then the column
-    sums of its per-block partials): (dx, dscale)."""
-    KERNEL_BWD.load()
-    build.check_cuda_tensors("rmsnorm backward", x, scale, dy)
+    """One launch of the backward kernel (the rows, then the column sums of
+    its per-block partials): (dx, dscale).  Raises for a CPU tensor: it
+    never runs the plain version."""
     _check(x, scale)
     if dy.shape != x.shape:
         raise ValueError(f"rmsnorm backward: dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    build.check_cuda_tensors("rmsnorm backward", x, scale, dy)
+    KERNEL_BWD.load()
     d = x.shape[-1]
     rows = x.numel() // d
-    blocks = min(rows, BWD_BLOCKS)
+    P = bwd_blocks(x.device, rows, d)
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
-    partial = torch.empty((blocks, d), device=x.device, dtype=torch.float32)
+    partial = torch.empty((P, d), device=x.device, dtype=torch.float32)
     KERNEL_BWD.launch(x.device, x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                      dscale.data_ptr(), partial.data_ptr(), rows, d, blocks, eps)
+                      dscale.data_ptr(), partial.data_ptr(),
+                      build.ticket_words(x.device, 2).data_ptr(), rows, d, P, eps)
     return dx, dscale
 
 

@@ -180,6 +180,6 @@ def test_attention_compile_log_empty_without_a_build(tmp_path, monkeypatch):
     """ptxas's report for the attention kernels is kept beside the library
     (built with -Xptxas -v); with no library built there is none."""
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    assert "-Xptxas" in build._flags("attention") and "-Xptxas" not in build._flags("rmsnorm")
+    assert "-Xptxas" in build._flags("attention") and "-Xptxas" not in build._flags("rope")
     assert build._lib_path("attention").parent == tmp_path
     assert build.compile_log("attention") == ""
