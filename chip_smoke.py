@@ -93,8 +93,31 @@
    JAX payload's result keys and every kernel's launches per step, and
    prints the profiled step's device time and, over 3 more steps, the
    device time a step by part (K10b, attention, cuBLAS, K2, the rest).
+17. (data parallelism, K8 across ranks) holds K8's split entries (bn_sums,
+   bn_fold, bn_bwd_sums, bn_bwd_dx) against their plain versions at the
+   odd shapes and the four layers of 7., each at one rank bit for bit the
+   one-launch kernels, and two halves of the rows with their sums added
+   against the one-launch kernels on all of them; times them at the stem
+   (this runs after 7.);
+18. over a 1-rank NCCL group (FileStore in a temp dir), trains Llama-3-8B
+   widths x 4 layers (4 x 2048), BERT-large (32 x 512) and ResNet-50
+   (128 x 224^2) for 3 steps each through mesh=, bit for bit the same steps
+   without a mesh from the same weights and batch and with their launches
+   (one data rank issues no collective); then ResNet-50 with its batch
+   norm forced onto the split kernels over that group, bit for bit again,
+   and prints its extra time a step, the device's share of it (profiler)
+   and the gradients' all-reduce alone: a one-card floor, not a multi-card
+   figure;
+19. runs 2 gloo ranks of this script on the one card (NCCL takes one rank a
+   card): a ResNet-50 step on 32 x 224^2 images, 16 a rank, with the split
+   K8 and a real all-reduce between its launches, held to the whole batch's
+   step on one process (the loss; the gradients of the leaves nearest the
+   loss) and the ranks' weights to each other, bit for bit, after two
+   steps.
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
-SGD, AdamW), whose launches per step are checked there.
+SGD, AdamW), whose launches per step are checked there.  The kernels' rows
+carry their launches on each main path (``launches_<path>``; ``dp`` is
+18.'s runs and rank 0's steps in 19.) and in all.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -235,6 +258,39 @@ RESNET_CHECK_BATCH = 8
 RESNET_BATCH, RESNET_SIZE = 128, 224  # resnet_bench.py's defaults
 RESNET_STEPS, RESNET_WARMUP = 20, 2  # resnet_bench.py's default --steps
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd")
+# K8's split entries (data parallelism), each against its plain version on
+# the same inputs: the sums (Σx, Σx²; Σdy', Σdy'·x) are f32 sums of the same
+# values in another order, each channel within BN_SUMS_RTOL of the sum of
+# the terms' magnitudes (a run of ~1,600 sequential f32 adds a thread, then
+# fixed trees: ~√1600 · 2^-24 ≈ 2.4e-6 as a random walk); the fold as the
+# statistics (BN_STATS_TOL), dscale, dbias, dx and dr as the backward
+# (BWD_REL_L2_TOL).  At one rank each entry must give the one-launch
+# kernels' bits (the same partials, order and per-channel code).
+BN_SUMS_RTOL = 1e-5
+BN_SPLIT_KERNELS = ("bn_sums", "bn_fold", "bn_bwd_sums", "bn_bwd_dx")
+# Data parallelism on the card.  World 1 over NCCL: DP_STEPS steps of each
+# train path at its main path's size through mesh=, bit for bit the steps
+# without a mesh from the same weights and batch (and ResNet-50's again
+# with its batch norm forced onto the split kernels).  Two gloo ranks on
+# the one card (NCCL takes one rank a card):
+# - the last batch-norm layer (stage 4's bn3, ReLU and residual, at
+#   DP2_BATCH images) through batchnorm(group=), forward and backward, each
+#   rank on its half of the rows: the rows' y, dx and dr and the ranks'
+#   dscale and dbias summed, within BWD_REL_L2_TOL of the one-launch
+#   kernels on all the rows (the sums differ only in order);
+# - a ResNet-50 step on DP2_BATCH images (16 a rank) against the whole
+#   batch on one process: the loss within RESNET_LOSS_TOL, and the first
+#   step's gradients of the head's leaves within DP2_GRAD_TOL relative L2
+#   of the whole batch's.  The two runs differ only in the order of the
+#   batch statistics' sums and of the gradients' average, which bf16
+#   ResNet-50 at random weights spreads through the layers (see
+#   RESNET_ACCURACY_RATIO): on an H100 the head read 4.3e-2 (w) and
+#   1.4e-3 (b), the last block's conv3 already 0.47 and its bn3 scale 0.14.
+#   The phase also shows that rank 0's rows alone, halved gradients and
+#   zero gradients each exceed DP2_GRAD_TOL.
+DP_STEPS = 3
+DP2_RANKS, DP2_BATCH = 2, 32
+DP2_GRAD_TOL = 0.1
 
 # BERT (K7a, K7b, K9, K5 over f32 logits), kernel vs plain on the same inputs.
 # Non-causal attention: ATTENTION_TOL forward, BWD_REL_L2_TOL backward, for
@@ -327,6 +383,8 @@ KERNELS = {
     "cross_entropy_bwd": cross_entropy.KERNEL_BWD,
     "bn_stats": batchnorm.KERNEL_STATS, "bn_apply": batchnorm.KERNEL_APPLY,
     "bn_bwd": batchnorm.KERNEL_BWD,
+    "bn_sums": batchnorm.KERNEL_SUMS, "bn_fold": batchnorm.KERNEL_FOLD,
+    "bn_bwd_sums": batchnorm.KERNEL_BWD_SUMS, "bn_bwd_dx": batchnorm.KERNEL_BWD_DX,
     "attention_noncausal": attention.KERNEL_NC, "attention_noncausal_bwd": attention.KERNEL_BWD_NC,
     "layernorm": layernorm.KERNEL, "layernorm_bwd": layernorm.KERNEL_BWD,
     "gelu": gelu.KERNEL, "gelu_bwd": gelu.KERNEL_BWD,
@@ -368,6 +426,13 @@ def resnet_launches_per_step(n_bn: int) -> dict:
     update."""
     return {**{name: n_bn for name in BN_KERNELS}, "cross_entropy_f32": 1,
             "cross_entropy_f32_bwd": 1, "sgdm": 1}
+
+
+def dp_resnet_launches_per_step(n_bn: int) -> dict:
+    """One ResNet-50 step over a mesh: batch norm's split kernels and the
+    apply once per layer, the rest as without a mesh."""
+    return {**{name: n_bn for name in BN_SPLIT_KERNELS + ("bn_apply",)},
+            "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1, "sgdm": 1}
 
 
 def bert_launches_per_step(L: int) -> dict:
@@ -944,7 +1009,7 @@ def train_phase(card: str, kernel_ms: dict) -> dict:
     step_ms = float(np.mean(times[1:])) * 1e3  # the first step pays for cuBLAS's set-up
     parts = step_breakdown(cfg, params, opt, tokens)
     print(f"train step, device ms by part (3 more steps, profiler): "
-          f"{step_device_parts(step, tokens)}", flush=True)
+          f"{step_device_parts(step, (tokens,))}", flush=True)
     parts["torch_adamw_ms"] = torch_adamw_ms(llama.param_leaves(params), 0.1)
     kernel_ms = {**kernel_ms, "adamw": parts["optimizer_ms"]}
     kern_ms = sum(per_step[name] * kernel_ms[name] for name in per_step)
@@ -2469,27 +2534,27 @@ STEP_PARTS = (("adafactor", ("adafactor_",)), ("attention", ("attention_",)),
               ("gemm", ("nvjet", "gemm", "cutlass")), ("rmsnorm", ("rmsnorm_",)))
 
 
-def step_device_parts(step, tokens, steps: int = 3) -> dict:
-    """A train step run `steps` more times under torch.profiler: device ms
-    a step by part (K10b's five passes, the attention kernels, cuBLAS's
-    matrix products, K2's forward and backward kernels, the rest) and in
-    all."""
+def step_device_parts(step, batch: tuple, steps: int = 3, parts=STEP_PARTS) -> dict:
+    """A train step run `steps` more times on ``batch`` under
+    torch.profiler: device ms a step by part (by default K10b's five
+    passes, the attention kernels, cuBLAS's matrix products, K2's forward
+    and backward kernels), the rest and in all."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            step(tokens)
+            step(*batch)
         torch.cuda.synchronize()
-    parts = dict.fromkeys([name for name, _ in STEP_PARTS] + ["other"], 0.0)
+    ms = dict.fromkeys([name for name, _ in parts] + ["other"], 0.0)
     for ev in prof.key_averages():
         if not benchguard.is_device_op(ev):
             continue
-        part = next((name for name, keys in STEP_PARTS if any(k in ev.key for k in keys)),
+        part = next((name for name, keys in parts if any(k in ev.key for k in keys)),
                     "other")
-        parts[part] += benchguard.device_time_us(ev) / 1e3 / steps
-    parts["total"] = sum(parts.values())
-    return {k: round(v, 3) for k, v in parts.items()}
+        ms[part] += benchguard.device_time_us(ev) / 1e3 / steps
+    ms["total"] = sum(ms.values())
+    return {k: round(v, 3) for k, v in ms.items()}
 
 
 def bench_run(card: str, optimizer: str, steps_run: int, call, last=None) -> tuple:
@@ -2542,7 +2607,7 @@ def llama_bench_phase(card: str) -> dict:
         card, "adafactor", BENCH_WARMUP + BENCH_STEPS + 1,  # the profiled step too
         lambda: (llama_bench.main(argv), json.load(open(out)))[1], last)
     peak = torch.cuda.max_memory_allocated()
-    parts = step_device_parts(last["step"], last["tokens"])
+    parts = step_device_parts(last["step"], (last["tokens"],))
     last.clear()
     check_bench_result(res, "adafactor", BENCH_BATCH, BENCH_STEPS)
     print("llama_bench result: " + json.dumps(res), flush=True)
@@ -2585,6 +2650,481 @@ def llama_bench_phase(card: str) -> dict:
     return dict(launches=all_launches, runs=runs, sweep=sweep, peak_mem_gib=peak / 2 ** 30)
 
 
+# ------------------------------------------ data parallelism (K8 across ranks)
+
+
+def check_bn_split(name, x, scale, bias, r, relu, dy) -> list:
+    """K8's split entries against their plain versions on the same inputs,
+    and at one rank against the one-launch kernels bit for bit; then two
+    halves of the rows with their sums added (the all-reduce of two ranks)
+    against the one-launch kernels on all of them.  Returns the four
+    entries' max abs errors."""
+    M = x.shape[0]
+    sums = batchnorm.bn_sums_kernel(x)
+    torch.cuda.synchronize()
+    xf = x.float()
+    err = (sums - batchnorm.bn_sums_plain(x)).abs()
+    mag = torch.stack([xf.abs().sum(0), xf.square().sum(0)])
+    if not bool((err <= BN_SUMS_RTOL * mag).all()):
+        fail(f"{name} bn_sums: beyond {BN_SUMS_RTOL} of the terms' magnitudes")
+    errs = [err.max().item()]
+    fold = batchnorm.bn_fold_kernel(sums, M, scale, bias)
+    errs.append(check_close(f"{name} bn_fold", fold, batchnorm.bn_fold_plain(sums, M, scale,
+                                                                             bias),
+                            BN_STATS_TOL))
+    one = batchnorm.bn_stats_kernel(x, scale, bias)
+    if not all(torch.equal(a, b) for a, b in zip(fold, one)):
+        fail(f"{name}: bn_fold(bn_sums(x)) is not bn_stats(x) bit for bit")
+    w, b, stats = one
+    _y, mask = batchnorm.bn_apply_kernel(x, w, b, r, relu)
+    res = r is not None
+    bsums, dscale, dbias = batchnorm.bn_bwd_sums_kernel(x, mask, dy, stats)
+    psums, pdscale, pdbias = batchnorm.bn_bwd_sums_plain(x, mask, dy, stats)
+    errs.append(check_rel_l2(f"{name} bn_bwd_sums", [bsums, dscale, dbias],
+                             [psums, pdscale, pdbias], BWD_REL_L2_TOL))
+    dx, dr = batchnorm.bn_bwd_dx_kernel(x, mask, dy, w, scale, stats, bsums, M, res)
+    pdx, pdr = batchnorm.bn_bwd_dx_plain(x, mask, dy, w, scale, stats, bsums, M, res)
+    errs.append(check_rel_l2(f"{name} bn_bwd_dx", [dx] + ([dr] if res else []),
+                             [pdx] + ([pdr] if res else []), BWD_REL_L2_TOL))
+    whole = batchnorm.bn_bwd_kernel(x, mask, dy, w, scale, stats, res)
+    if not all(torch.equal(a, b) for a, b in zip((dx, dscale, dbias) + ((dr,) if res else ()),
+                                                  (whole[0], whole[2], whole[3])
+                                                  + ((whole[1],) if res else ()))):
+        fail(f"{name}: the split backward is not bn_bwd's bits at one rank")
+    if M >= 2:  # two ranks' halves, their sums added as the all-reduce adds them
+        h = M // 2
+        parts = [slice(0, h), slice(h, 2 * h)]
+        gsum = sum(batchnorm.bn_sums_kernel(x[s]) for s in parts)
+        w2, b2, stats2 = batchnorm.bn_fold_kernel(gsum, 2 * h, scale, bias)
+        ref = batchnorm.bn_stats_plain(x[:2 * h], scale, bias)
+        check_close(f"{name} two halves' fold", (w2, b2, stats2), ref, BN_STATS_TOL)
+        # each half's mask in its own (16-byte aligned) buffer, as a rank's is
+        ms = [None if mask is None else mask[s].clone() for s in parts]
+        bw = [batchnorm.bn_bwd_sums_kernel(x[s], m, dy[s], stats2) for s, m in zip(parts, ms)]
+        gb = bw[0][0] + bw[1][0]
+        dxs = [batchnorm.bn_bwd_dx_kernel(x[s], m, dy[s], w2, scale, stats2, gb, 2 * h, res)
+               for s, m in zip(parts, ms)]
+        ref = batchnorm.bn_bwd_plain(x[:2 * h], None if mask is None else mask[:2 * h],
+                                     dy[:2 * h], w2, scale, stats2, res)
+        check_rel_l2(f"{name} two halves' backward",
+                     [torch.cat([d[0] for d in dxs]), bw[0][1] + bw[1][1], bw[0][2] + bw[1][2]],
+                     [ref[0], ref[2], ref[3]], BWD_REL_L2_TOL)
+    return errs
+
+
+def bn_split_phase(dev, gen) -> list:
+    """K8's split entries at bn_kernel_phase's odd shapes and at the
+    BN_TIMED layers of batch 128 (check_bn_split), timed at the stem: the
+    kernels' rows."""
+    for M, C in ((1, 64), (37, 24), (1000, 8), (3, 2048), (517, 136)):
+        for relu, res in ((False, False), (True, False), (True, True)):
+            x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
+            check_bn_split(f"bn split {M, C} relu={relu} residual={res}", x, sc, bi, r, relu,
+                           bf16((M, C), gen, dev))
+    out = []
+    for where, side, C, res in BN_TIMED:
+        M, n = RESNET_BATCH * side * side, RESNET_BATCH * side * side * C
+        x, sc, bi, r = bn_inputs(M, C, gen, dev, res)
+        dy = bf16((M, C), gen, dev)
+        errs = check_bn_split(f"bn split {where} {M, C}", x, sc, bi, r, True, dy)
+        if where != "stem":
+            continue
+        sums = batchnorm.bn_sums_kernel(x)
+        w, b, stats = batchnorm.bn_fold_kernel(sums, M, sc, bi)
+        _y, mask = batchnorm.bn_apply_kernel(x, w, b, r, True)
+        bsums = batchnorm.bn_bwd_sums_kernel(x, mask, dy, stats)[0]
+        shape = f"M={M} C={C} ({where}, ReLU; split across ranks)"
+        out = [
+            # reads x, writes the (2, C) sums
+            row("bn_sums", "batchnorm.cu", "83-97,104", shape, errs[0],
+                time_ms(lambda: batchnorm.bn_sums_kernel(x)),
+                time_ms(lambda: batchnorm.bn_sums_plain(x), 5, 1),
+                bound_ms(2 * n + 8 * C, 3 * n, PEAK_F32), None, jax_file="resnet.py"),
+            # reads the sums, scale and bias, writes w, b and stats
+            row("bn_fold", "batchnorm.cu", "83-97,104", shape, errs[1],
+                time_ms(lambda: batchnorm.bn_fold_kernel(sums, M, sc, bi)),
+                time_ms(lambda: batchnorm.bn_fold_plain(sums, M, sc, bi), 5, 1),
+                bound_ms(8 * C + 8 * C + 4 * C + 16 * C, 12 * C, PEAK_F32), None,
+                jax_file="resnet.py"),
+            # reads x, dy, the mask and stats, writes the sums, dscale and dbias
+            row("bn_bwd_sums", "batchnorm.cu", "83-97,104", shape, errs[2],
+                time_ms(lambda: batchnorm.bn_bwd_sums_kernel(x, mask, dy, stats)),
+                time_ms(lambda: batchnorm.bn_bwd_sums_plain(x, mask, dy, stats), 5, 1),
+                bound_ms(4 * n + n / 8 + 16 * C + 16 * C, 4 * n, PEAK_F32), None,
+                jax_file="resnet.py"),
+            # reads x, dy, the mask, w, scale, stats and the sums, writes dx
+            row("bn_bwd_dx", "batchnorm.cu", "83-97,104", shape, errs[3],
+                time_ms(lambda: batchnorm.bn_bwd_dx_kernel(x, mask, dy, w, sc, stats, bsums, M)),
+                time_ms(lambda: batchnorm.bn_bwd_dx_plain(x, mask, dy, w, sc, stats, bsums, M),
+                        5, 1),
+                bound_ms(6 * n + n / 8 + 2 * C + 28 * C, 5 * n, PEAK_F32), None,
+                jax_file="resnet.py"),
+        ]
+        for rw in out:
+            print_row(rw)
+        del x, dy, mask, r
+    print("bn split: at one rank each entry gives the one-launch kernels' bits; two halves "
+          "with their sums added meet the one-launch kernels on all the rows", flush=True)
+    return out
+
+
+def dp_models() -> list:
+    """(name, module, config, make_train_state's arguments, the batch) of
+    each train path at its main path's size."""
+    dev = torch.device("cuda")
+    lcfg = dataclasses.replace(llama.llama_3_8b(), n_layers=TRAIN_LAYERS)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, lcfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    bcfg = bert.bert_large()
+    rcfg = resnet.ResNetConfig()
+    return [("llama", llama, lcfg, dict(seed=0), (tokens,)),
+            ("bert", bert, bcfg, dict(lr=BERT_LR, seed=0),
+             tuple(t.to(dev) for t in bert.synthetic_batch(bcfg, BERT_BATCH, BERT_SEQ, seed=0))),
+            ("resnet", resnet, rcfg, dict(seed=0),
+             resnet.synthetic_batch(rcfg, RESNET_BATCH, RESNET_SIZE, rcfg.dtype, dev))]
+
+
+def dp_steps(mod, cfg, kw, batch, mesh, ops=None) -> tuple:
+    """DP_STEPS steps from the seed's weights (with ``ops`` in place of
+    the module's kernels where given): (losses, each step's ms, the
+    weights after them, the state, the step)."""
+    params, opt = mod.make_train_state(cfg, mesh=mesh, **kw)
+    step = mod.make_train_step(cfg, params, opt, mesh=mesh,
+                               **({} if ops is None else dict(ops=ops)))
+    losses, ms = [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(*batch).item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, [p.detach().clone() for p in mod.param_leaves(params)], (params, opt), step
+
+
+def dp_launches(name: str, cfg, split: bool) -> dict:
+    """One step's launches on a data-parallel path: the path's own, with
+    ResNet's batch norm on the split kernels where ``split``."""
+    if name == "llama":
+        return train_launches_per_step(cfg.n_layers)
+    if name == "bert":
+        return bert_launches_per_step(cfg.n_layers)
+    n_bn = resnet.num_bn_layers(cfg)
+    return dp_resnet_launches_per_step(n_bn) if split else resnet_launches_per_step(n_bn)
+
+
+def dp_run(tag, name, mod, cfg, kw, batch, ref, total, mesh=None, ops=None, split=False):
+    """DP_STEPS steps through ``mesh`` (or ``ops``) with the launch counts
+    from 0, bit for bit ``ref`` (the losses and weights of the steps
+    without either), and the launches per step asserted and added to
+    ``total``: (mean step ms after the first, the state, the step)."""
+    for kern in KERNELS.values():
+        kern.launches = 0
+    losses, ms, got, state, step = dp_steps(mod, cfg, kw, batch, mesh, ops)
+    launches = {k: kern.launches for k, kern in KERNELS.items()}
+    if losses != ref[0] or not all(torch.equal(a, b) for a, b in zip(got, ref[1])):
+        fail(f"{tag} {name}: the steps are not the steps without a mesh bit for bit (losses "
+             f"{losses} vs {ref[0]})")
+    per_step = dp_launches(name, cfg, split)
+    for k, n in launches.items():
+        if n != per_step.get(k, 0) * DP_STEPS:
+            fail(f"{tag} {name}: {k} launched {n} times in {DP_STEPS} steps, want "
+                 f"{per_step.get(k, 0)} per step")
+        total[k] += n
+    return float(np.mean(ms[1:])), state, step
+
+
+DP_PARTS = (("bn", ("bn_",)), ("nccl", ("nccl", "Nccl")))
+# the host calls a ResNet-50 step's batch norm makes, one-launch or split
+DP_HOST_CALLS = ("bn_stats_kernel", "bn_bwd_kernel", "bn_sums_kernel", "bn_fold_kernel",
+                 "bn_bwd_sums_kernel", "bn_bwd_dx_kernel", "bn_apply_kernel", "all_reduce")
+
+
+def host_ms_by_call(step, batch: tuple, steps: int = 3) -> dict:
+    """A train step run `steps` more times under cProfile: the host's ms a
+    step inside each of DP_HOST_CALLS (cumulative: a call's Python and
+    what it calls) and in all, cProfile's own cost included."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(steps):
+        step(*batch)
+    torch.cuda.synchronize()
+    prof.disable()
+    ms = {"total": (time.perf_counter() - t0) * 1e3 / steps}
+    for (_file, _line, func), (_cc, _nc, _tt, cum, _callers) in pstats.Stats(prof).stats.items():
+        if func in DP_HOST_CALLS:
+            ms[func] = ms.get(func, 0.0) + cum * 1e3 / steps
+    return {k: round(v, 3) for k, v in ms.items()}
+
+
+def dp_world1_phase(card: str) -> dict:
+    """Each train path (Llama-3-8B widths x 4 layers at 4 x 2048, BERT-large
+    at 32 x 512, ResNet-50 at 128 x 224^2) for DP_STEPS steps through
+    mesh= over a 1-rank NCCL group on this card: bit for bit the same steps
+    without a mesh, with the same launches (one data rank issues no
+    collective and keeps the one-launch K8).  Then ResNet-50 with its batch
+    norm forced onto the split kernels over that group, bit for bit the
+    same again, its extra time a step and where it goes (device time by
+    part under the profiler; the host's by call under cProfile), the
+    gradients' all-reduce alone and one
+    collective's host time: a one-card floor of what a step over more ranks
+    adds, not a multi-card figure."""
+    import shutil
+    import torch.distributed as dist
+    from kubernetes1_tpu_torch.workloads import sharding
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same convolution algorithms in both runs
+    tmp = tempfile.mkdtemp(prefix="dp_store")
+    total = {name: 0 for name in KERNELS}
+    out = {}
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            mesh = sharding.make_mesh(dp=1, device_type="cuda")
+            group = sharding.data_group(mesh)
+            for name, mod, cfg, kw, batch in dp_models():
+                losses, ref_ms, ref_params, state, step = dp_steps(mod, cfg, kw, batch, None)
+                del state, step
+                free_memory()
+                ref, ref_ms = (losses, ref_params), float(np.mean(ref_ms[1:]))
+                step_ms, (params, opt), step = dp_run("dp world 1", name, mod, cfg, kw, batch,
+                                                      ref, total, mesh=mesh)
+                res = dict(step_ms=step_ms, ref_step_ms=ref_ms, extra_ms=step_ms - ref_ms,
+                           losses=losses)
+                leaves = mod.param_leaves(params)
+                grads = [p.grad for p in leaves]
+                op = "sum" if name == "bert" else "avg"
+                res["all_reduce_ms"] = time_ms(lambda: sharding.all_reduce_(grads, group, op), 5,
+                                               1, back_to_back=False)
+                res["grad_bytes"] = sum(p.numel() * 4 for p in leaves)
+                del params, opt, leaves, grads
+                print(f"dp world 1 {name}: {DP_STEPS} steps through mesh= bit for bit the steps "
+                      f"without, the same launches, no collective (losses "
+                      f"{[round(x, 4) for x in losses]}); step_ms {step_ms:.2f} vs "
+                      f"{ref_ms:.2f} without a mesh; the gradients' all-reduce over the "
+                      f"1-rank group alone ({res['grad_bytes'] / 1e9:.3f} GB) "
+                      f"{res['all_reduce_ms']:.2f} ms on [{card}]", flush=True)
+                if name == "resnet":
+                    # the meshed step is the one without a mesh: the reference
+                    parts_ref = step_device_parts(step, batch, parts=DP_PARTS)
+                    host_ref = host_ms_by_call(step, batch)
+                    del step
+                    free_memory()
+                    ops = resnet.KERNELS._replace(batchnorm=partial(batchnorm.batchnorm,
+                                                                    group=group))
+                    split_ms, state, step = dp_run("dp world 1 split K8", name, mod, cfg, kw,
+                                                   batch, ref, total, ops=ops, split=True)
+                    parts_split = step_device_parts(step, batch, parts=DP_PARTS)
+                    host_split = host_ms_by_call(step, batch)
+                    del state
+                    res.update(split_step_ms=split_ms, split_extra_ms=split_ms - ref_ms,
+                               device_ms=parts_ref, split_device_ms=parts_split,
+                               host_ms=host_ref, split_host_ms=host_split)
+                    dev_extra = parts_split["total"] - parts_ref["total"]
+                    print(f"dp world 1 resnet, batch norm on the split kernels over the 1-rank "
+                          f"group: bit for bit the steps without, launches per step "
+                          f"{dp_launches(name, cfg, True)}; step_ms {split_ms:.2f} vs "
+                          f"{ref_ms:.2f} (extra {split_ms - ref_ms:.2f}); device ms a step by "
+                          f"part (profiler, 3 steps) {parts_split} vs {parts_ref} (extra on the "
+                          f"device {dev_extra:.3f}, on the host's side "
+                          f"{split_ms - ref_ms - dev_extra:.2f}); host ms a step by call "
+                          f"(cProfile, 3 steps) {host_split} vs {host_ref} on [{card}]",
+                          flush=True)
+                del step, ref, ref_params
+                free_memory()
+                out[name] = res
+            # the host's cost of one collective, as the split K8 issues two a
+            # layer: a (2, 64) f32 all-reduce, back to back
+            sums = torch.zeros((2, 64), device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                dist.all_reduce(sums, group=group)
+            torch.cuda.synchronize()
+            out["all_reduce_call_us"] = (time.perf_counter() - t0) / 200 * 1e6
+            print(f"dp world 1: one all_reduce of (2, 64) f32 {out['all_reduce_call_us']:.1f} "
+                  f"us a call, host to host (200 back to back); the split K8 issues "
+                  f"{2 * resnet.num_bn_layers(resnet.ResNetConfig())} a ResNet-50 step",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic = deterministic
+    out["launches"] = total
+    return out
+
+
+def dp2_worker(rank: int, tmp: str):
+    """One of DP2_RANKS gloo ranks on card 0: a ResNet-50 step on its rows
+    of the DP2_BATCH images over a mesh built from the group, then one
+    more; writes its loss, the first step's gradients (rank 0), a digest
+    of its weights after both steps, its launches and its step time; and
+    before them, the last batch-norm layer on its half of the rows
+    (bn_layer_grads over the group)."""
+    import hashlib
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store", DP2_RANKS), rank=rank,
+                            world_size=DP2_RANKS)
+    try:
+        mesh = DeviceMesh.from_group(dist.group.WORLD, "cuda", mesh_dim_names=("dp",))
+        inputs = dp2_layer_inputs(torch.device("cuda"))
+        h = inputs[0].shape[0] // DP2_RANKS
+        rows = slice(rank * h, (rank + 1) * h)
+        layer = bn_layer_grads(*(t[rows] if t.dim() == 2 else t for t in inputs),
+                               group=dist.group.WORLD)
+        cfg = resnet.ResNetConfig()
+        params, opt = resnet.make_train_state(cfg, seed=0, mesh=mesh)
+        step = resnet.make_train_step(cfg, params, opt, mesh=mesh)
+        images, labels = resnet.synthetic_batch(cfg, DP2_BATCH, RESNET_SIZE, cfg.dtype,
+                                                torch.device("cuda"))
+        for kern in KERNELS.values():
+            kern.launches = 0
+        loss = step(images, labels).item()
+        leaves = resnet.param_leaves(params)
+        grads = [p.grad.cpu() for p in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, labels).item()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        flat = torch.cat([p.detach().reshape(-1) for p in leaves]).cpu()
+        torch.save(dict(loss=loss, grads=grads if rank == 0 else None, step_ms=step_ms,
+                        layer=[t.cpu() for t in layer],
+                        digest=hashlib.sha256(flat.numpy().tobytes()).hexdigest(),
+                        launches={k: kern.launches for k, kern in KERNELS.items()}),
+                   f"{tmp}/out{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp2_held_leaves(params) -> dict:
+    """The leaves whose gradients dp2_phase holds to the whole batch's:
+    the head's, one layer from the loss, where bf16 ResNet-50 at random
+    weights has not yet spread the two runs' rounding apart (see
+    DP2_GRAD_TOL)."""
+    return {"head.w": params["head"]["w"], "head.b": params["head"]["b"]}
+
+
+def dp2_layer_inputs(dev):
+    """The last batch-norm layer's inputs at DP2_BATCH images, from a fixed
+    seed: (x, scale, bias, residual, dy), the same in every process."""
+    _where, side, C, res = BN_TIMED[-1]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    M = DP2_BATCH * side * side
+    x, scale, bias, r = bn_inputs(M, C, gen, dev, res)
+    return x, scale, bias, r, bf16((M, C), gen, dev)
+
+
+def bn_layer_grads(x, scale, bias, r, dy, group=None) -> list:
+    """batchnorm(x, ...) with its ReLU and residual, forward and backward:
+    [y, dx, dr, dscale, dbias]."""
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, r)]
+    y = batchnorm.batchnorm(*leaves, relu=True, group=group)
+    y.backward(dy)
+    return [y.detach()] + [leaves[i].grad for i in (0, 3, 1, 2)]
+
+
+def dp2_phase(card: str) -> dict:
+    """DP2_RANKS gloo ranks on this one card (processes of this script),
+    the split K8 with a real all-reduce between its launches: the last
+    batch-norm layer over the ranks' halves of its rows against the
+    one-launch kernels on all of them, and a ResNet-50 step (full width,
+    DP2_BATCH x 224^2) held to the whole batch's step on one process: the
+    loss within RESNET_LOSS_TOL, and the head's gradients within
+    DP2_GRAD_TOL, which rank 0's rows alone (batch norm without the other
+    rank's rows, no average), halved gradients and zero gradients each
+    exceed."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="dp2_")
+    try:
+        logs = [open(f"{tmp}/log{r}.txt", "w") for r in range(DP2_RANKS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp2-rank",
+                                   str(r), tmp], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(DP2_RANKS)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if rcs != [0] * DP2_RANKS:
+            text = "\n".join(open(f"{tmp}/log{r}.txt").read()[-3000:] for r in range(DP2_RANKS))
+            fail(f"dp2: rank exit codes {rcs}:\n{text}")
+        outs = [torch.load(f"{tmp}/out{r}.pt", weights_only=False) for r in range(DP2_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len({o["digest"] for o in outs}) != 1 or len({o["loss"] for o in outs}) != 1:
+        fail("dp2: the ranks' weights or losses differ after their steps")
+    cfg = resnet.ResNetConfig()
+    per_step = dp_resnet_launches_per_step(resnet.num_bn_layers(cfg))
+    for k, n in outs[0]["launches"].items():
+        if n != per_step.get(k, 0) * 2:
+            fail(f"dp2: {k} launched {n} times in 2 steps on rank 0, want {per_step.get(k, 0)}")
+
+    dev = torch.device("cuda")
+    whole = bn_layer_grads(*dp2_layer_inputs(dev))
+    split = [torch.cat([o["layer"][i] for o in outs]).to(dev) for i in range(3)] + [
+        sum(o["layer"][i] for o in outs).to(dev) for i in (3, 4)]
+    layer_err = check_rel_l2("dp2 last batch norm over the ranks' rows", split, whole,
+                             BWD_REL_L2_TOL)
+    images, labels = resnet.synthetic_batch(cfg, DP2_BATCH, RESNET_SIZE, cfg.dtype, dev)
+    params = resnet.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    leaves = resnet.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    index = {id(p): i for i, p in enumerate(leaves)}
+    held = {k: index[id(p)] for k, p in dp2_held_leaves(params).items()}
+
+    def grads_of(n_rows):
+        loss = resnet.loss_fn(cfg, params, images[:n_rows], labels[:n_rows], resnet.KERNELS)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    w_loss, whole = grads_of(DP2_BATCH)
+    _, own = grads_of(DP2_BATCH // DP2_RANKS)
+    ranks = [g.to(dev) for g in outs[0]["grads"]]
+
+    def errs(gs):
+        return {k: ((gs[i].float() - whole[i].float()).norm()
+                    / whole[i].float().norm().clamp_min(1e-30)).item() for k, i in held.items()}
+
+    got = errs(ranks)
+    wrong = {"rank 0's rows alone": errs(own), "halved": errs([g / 2 for g in ranks]),
+             "zero": errs([torch.zeros_like(g) for g in ranks])}
+    print(f"dp2 ({DP2_RANKS} gloo ranks on one card, ResNet-50 {DP2_BATCH} x {RESNET_SIZE}^2, "
+          f"{DP2_BATCH // DP2_RANKS} a rank): the last batch norm over the ranks' rows (y, dx, "
+          f"dr, summed dscale and dbias) against the one-launch kernels on all of them, max "
+          f"abs err {layer_err:.3e} (relative L2 within {BWD_REL_L2_TOL}); loss {outs[0]['loss']:.6f} vs the "
+          f"whole batch's "
+          f"{w_loss:.6f} (tol {RESNET_LOSS_TOL}); first step's gradients' rel_l2 against the "
+          f"whole batch's: { {k: f'{v:.3e}' for k, v in got.items()} } (tol {DP2_GRAD_TOL}); "
+          f"the same for " + "; ".join(f"{w}: max {max(e.values()):.3e}"
+                                       for w, e in wrong.items())
+          + f"; the ranks' weights the same bits after 2 steps; step_ms "
+          f"{[round(o['step_ms'], 2) for o in outs]} (gloo through the host) on [{card}]",
+          flush=True)
+    if not abs(outs[0]["loss"] - w_loss) <= RESNET_LOSS_TOL:
+        fail(f"dp2: loss {outs[0]['loss']} vs the whole batch's {w_loss}")
+    if not max(got.values()) <= DP2_GRAD_TOL:
+        fail(f"dp2: the ranks' gradients are beyond {DP2_GRAD_TOL} of the whole batch's")
+    for w, e in wrong.items():
+        if max(e.values()) <= DP2_GRAD_TOL:
+            fail(f"dp2: {w} passes the bar of {DP2_GRAD_TOL}: the check cannot see it")
+    return dict(loss=outs[0]["loss"], whole_loss=w_loss, grad_rel=got, layer_err=layer_err,
+                step_ms=[o["step_ms"] for o in outs], launches=outs[0]["launches"])
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -2622,6 +3162,8 @@ def main():
     free_memory()
     bn_rows = bn_kernel_phase(dev, gen)
     free_memory()
+    bn_split_rows = bn_split_phase(dev, gen)
+    free_memory()
     bert_rows, bert_per_call = bert_kernel_phase(dev, gen)
     free_memory()
     ring_rows = ring_kernel_phase(dev, gen)
@@ -2649,9 +3191,14 @@ def main():
     optim_rows = optim_kernel_phase(dev, gen)
     free_memory()
     bench = llama_bench_phase(card)
-    rows += bn_rows + bert_rows + ring_rows + optim_rows
+    free_memory()
+    dp = dp_world1_phase(card)
+    free_memory()
+    dp2 = dp2_phase(card)
+    dp["launches"] = {k: n + dp2["launches"][k] for k, n in dp["launches"].items()}
+    rows += bn_rows + bn_split_rows + bert_rows + ring_rows + optim_rows
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,
-             "llama_bench": bench}
+             "llama_bench": bench, "dp": dp}
     for r in rows:
         for path, res in paths.items():
             r[f"launches_{path}"] = res["launches"][r["name"]]
@@ -2664,4 +3211,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp2-rank"]:  # one rank of dp2_phase
+        dp2_worker(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -59,6 +59,22 @@
 //   dx = dy'·w + (d_mean + 2·x·d_mean2) / M,   dr = dy' (the residual's).
 // JAX sums d_w and d_b in bf16 (the transpose of the bf16 broadcast); the
 // kernel sums in f32.
+//
+// Across ranks (data parallelism: each rank holds M rows of a global batch
+// of n·M, and JAX's statistics are over the global batch), a launch cannot
+// wait for a collective that the host issues, so the one-launch kernels
+// split at their per-channel step:
+//   forward:  bn_sums (this rank's (2, C) Σx, Σx², the same partials and
+//             fixed-order column total as the statistics) -> all-reduce on
+//             the host -> bn_fold (the same per-channel fold, M·n rows);
+//   backward: bn_bwd_sums (this rank's Σdy', Σdy'·x, and dscale, dbias from
+//             them: the train step averages those with every gradient) ->
+//             all-reduce -> bn_bwd_dx (the coefficients from the global
+//             sums and M·n rows, then dx and dr over the rank's rows).
+// With one rank the split gives the one-launch kernels' bits: the same
+// partials in the same order, and the same per-channel functions.  It
+// reads x, dy and the mask twice in the backward, as the one launch does
+// beyond L2; it is the simple form, not a tuned one.
 
 #include "common.cuh"
 
@@ -226,14 +242,63 @@ __device__ __forceinline__ bool column_totals(const float* __restrict__ partial,
   return blockIdx.x * width + tid < C;
 }
 
-// Statistics in one launch: w, b (bf16) and stats = (mean, rstd, inv,
-// gate) f32 (4, C).  sync: the columns' ticket counters (2 words each).
+// Channel c's fold of its sums s = Σx, s2 = Σx² over m rows: w, b (bf16)
+// and stats = (mean, rstd, inv, gate).  The statistics kernel and the
+// split fold both call it, so that they give the same bits.
+__device__ __forceinline__ void fold_channel(float s, float s2, float m, int c, int C,
+                                             const float* __restrict__ scale,
+                                             const float* __restrict__ bias, float eps,
+                                             __nv_bfloat16* __restrict__ w,
+                                             __nv_bfloat16* __restrict__ b,
+                                             float* __restrict__ stats) {
+  const float mean = s / m, mean2 = s2 / m;
+  // no fused multiply-add here: fma(-mean, mean, mean2) would keep the
+  // square's rounding error, so a single row (mean2 = fl(x²)) would not
+  // give the exact 0 (a tie, gate ½) that JAX's order of roundings gives
+  const float d = __fsub_rn(mean2, __fmul_rn(mean, mean));
+  const float rstd = rsqrtf(fmaxf(d, 0.f) + eps);
+  const float inv = rstd * scale[c];
+  w[c] = ktpu::f2bf(inv);
+  b[c] = ktpu::f2bf(__fmaf_rn(-mean, inv, bias[c]));
+  stats[c] = mean;
+  stats[C + c] = rstd;
+  stats[2 * C + c] = inv;
+  stats[3 * C + c] = d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
+}
+
+// Channel c's d_inv = d_w − d_b·mean from its sums d_b = Σdy', d_w =
+// Σdy'·x; unfused, as d in the fold: a single row gives d_inv = 0 exactly.
+__device__ __forceinline__ float bwd_d_inv(float d_b, float d_w, int c,
+                                           const float* __restrict__ stats) {
+  return __fsub_rn(d_w, __fmul_rn(d_b, stats[c]));
+}
+
+// Channel c's dx coefficients (c0, c1) = (d_mean / m, 2·d_mean2 / m) from
+// its sums over m rows, each op rounded on its own (no contraction), so
+// that every kernel that calls it gets the same bits.
+__device__ __forceinline__ void bwd_coef(float d_b, float d_w, float m, int c, int C,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ stats, float& c0,
+                                         float& c1) {
+  const float mean = stats[c], rstd = stats[C + c], inv = stats[2 * C + c];
+  const float gate = stats[3 * C + c];
+  const float d_inv = bwd_d_inv(d_b, d_w, c, stats);
+  const float d_v = -0.5f * d_inv * scale[c] * rstd * rstd * rstd * gate;
+  c0 = __fdiv_rn(__fsub_rn(__fmul_rn(-d_b, inv), __fmul_rn(2.f * mean, d_v)), m);
+  c1 = __fdiv_rn(2.f * d_v, m);
+}
+
+// Statistics in one launch (kFold): w, b (bf16) and stats = (mean, rstd,
+// inv, gate) f32 (4, C).  Without kFold (bn_sums): this launch's (2, C)
+// sums Σx, Σx² in `sums`, from the same partials in the same order.
+// sync: the columns' ticket counters (2 words each).
+template <bool kFold>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 bn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ w,
                 __nv_bfloat16* __restrict__ b, float* __restrict__ stats,
-                float* __restrict__ partial, unsigned* __restrict__ sync, long long M, int C,
-                float eps) {
+                float* __restrict__ sums, float* __restrict__ partial,
+                unsigned* __restrict__ sync, long long M, int C, float eps) {
   __shared__ float smem[2 * kThreads * 8];
   const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
   float a[8], q[8];
@@ -247,23 +312,27 @@ bn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ s
   float s, s2;
   if (column_totals(partial, smem, C, s, s2)) {
     const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
-    const float m = static_cast<float>(M);
-    const float mean = s / m, mean2 = s2 / m;
-    // no fused multiply-add here: fma(-mean, mean, mean2) would keep the
-    // square's rounding error, so a single row (mean2 = fl(x²)) would not
-    // give the exact 0 (a tie, gate ½) that JAX's order of roundings gives
-    const float d = __fsub_rn(mean2, __fmul_rn(mean, mean));
-    const float rstd = rsqrtf(fmaxf(d, 0.f) + eps);
-    const float inv = rstd * scale[c];
-    w[c] = ktpu::f2bf(inv);
-    b[c] = ktpu::f2bf(bias[c] - mean * inv);
-    stats[c] = mean;
-    stats[C + c] = rstd;
-    stats[2 * C + c] = inv;
-    stats[3 * C + c] = d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
+    if (kFold) {
+      fold_channel(s, s2, static_cast<float>(M), c, C, scale, bias, eps, w, b, stats);
+    } else {
+      sums[c] = s;
+      sums[C + c] = s2;
+    }
   }
   // the next call's ticket; no block waits on this column's generation
   if (ktpu::lead_thread()) sync[2 * blockIdx.x] = 0;
+}
+
+// The split fold, one thread a channel: w, b and stats from the all-reduced
+// sums (2, C) over M rows (every rank's).
+__global__ void bn_fold_kernel(const float* __restrict__ sums, const float* __restrict__ scale,
+                               const float* __restrict__ bias, __nv_bfloat16* __restrict__ w,
+                               __nv_bfloat16* __restrict__ b, float* __restrict__ stats,
+                               long long M, int C, float eps) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C)
+    fold_channel(sums[c], sums[C + c], static_cast<float>(M), c, C, scale, bias, eps, w, b,
+                 stats);
 }
 
 // dx = dy'·w + c0 + c1·x, and dr = dy' where dr is not null, over one row.
@@ -338,16 +407,9 @@ bn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ m
     float d_b, d_w;
     if (column_totals(partial, smem, C, d_b, d_w)) {
       const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
-      const float m = static_cast<float>(M);
-      const float mean = stats[c], rstd = stats[C + c], inv = stats[2 * C + c];
-      const float gate = stats[3 * C + c];
-      // unfused, as d in the statistics: a single row gives d_inv = 0 exactly
-      const float d_inv = __fsub_rn(d_w, __fmul_rn(d_b, mean));
-      const float d_v = -0.5f * d_inv * scale[c] * rstd * rstd * rstd * gate;
       dbias[c] = d_b;
-      dscale[c] = d_inv * rstd;
-      coef[c] = (-d_b * inv - 2.f * mean * d_v) / m;
-      coef[C + c] = 2.f * d_v / m;
+      dscale[c] = bwd_d_inv(d_b, d_w, c, stats) * stats[C + c];
+      bwd_coef(d_b, d_w, static_cast<float>(M), c, C, scale, stats, coef[c], coef[C + c]);
     }
     ktpu::barrier_release(column_sync);  // coef is visible before the generation moves
   } else {
@@ -359,6 +421,58 @@ bn_bwd_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ m
   load_coef(coef + col, c0);
   load_coef(coef + C + col, c1);
   dx_rows(x, mask, dy, wv, c0, c1, dx, dr, M, C, col, r0, step);
+}
+
+// The split backward's sums: this launch's (2, C) Σdy', Σdy'·x in `sums`
+// (the one-launch backward's partials, in its order), and in the column's
+// last block dscale and dbias from them.  Not cooperative: no block waits.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bn_bwd_sums_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
+                   const __nv_bfloat16* __restrict__ dy, const float* __restrict__ stats,
+                   float* __restrict__ sums, float* __restrict__ dscale,
+                   float* __restrict__ dbias, float* __restrict__ partial,
+                   unsigned* __restrict__ sync, long long M, int C) {
+  __shared__ float smem[2 * kThreads * 8];
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  float a[8], q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = q[k] = 0.f;
+  if (col < C)
+    thread_sums<true>(x, dy, mask, M, C, col,
+                      static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y,
+                      static_cast<long long>(gridDim.y) * blockDim.y, a, q);
+  if (!block_partial(a, q, smem, partial, sync + 2 * blockIdx.x, C)) return;
+  float d_b, d_w;
+  if (column_totals(partial, smem, C, d_b, d_w)) {
+    const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
+    sums[c] = d_b;
+    sums[C + c] = d_w;
+    dbias[c] = d_b;
+    dscale[c] = bwd_d_inv(d_b, d_w, c, stats) * stats[C + c];
+  }
+  if (ktpu::lead_thread()) sync[2 * blockIdx.x] = 0;
+}
+
+// The split backward's dx: each thread's 8 channels' coefficients from the
+// all-reduced sums over M_global rows, then dx (and dr) over its own rows
+// of this rank's M, as the one-launch backward's dx pass.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+bn_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
+                 const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ scale, const float* __restrict__ stats,
+                 const float* __restrict__ sums, __nv_bfloat16* __restrict__ dx,
+                 __nv_bfloat16* __restrict__ dr, long long M, long long M_global, int C) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (col >= C) return;
+  const float m = static_cast<float>(M_global);
+  float wv[8], c0[8], c1[8];
+  unpack8(ld16(w + col), wv);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    bwd_coef(sums[col + k], sums[C + col + k], m, col + k, C, scale, stats, c0[k], c1[k]);
+  dx_rows(x, mask, dy, wv, c0, c1, dx, dr, M, C, col,
+          static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y,
+          static_cast<long long>(gridDim.y) * blockDim.y);
 }
 
 // y = relu?(x * w + b [+ r]), in f32, rounded once; where mask is not
@@ -436,7 +550,7 @@ bool bad_shape(long long M, int C) { return M <= 0 || C <= 0 || C % 8 != 0; }
 // The blocks of a reduction grid that are resident at once on this card:
 // the wrapper sizes P (and the partial scratch) from it, P * columns <= it.
 extern "C" int ktpu_bn_resident_blocks(int* out) {
-  const int s = resident_blocks(bn_stats_kernel), b = resident_blocks(bn_bwd_kernel);
+  const int s = resident_blocks(bn_stats_kernel<true>), b = resident_blocks(bn_bwd_kernel);
   *out = s < b ? s : b;
   return static_cast<int>(cudaGetLastError());
 }
@@ -450,11 +564,41 @@ extern "C" int ktpu_bn_stats_bf16(const void* x, const void* scale, const void* 
                                   int C, int P, float eps, void* stream) {
   if (bad_shape(M, C) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block = block_for(C);
-  bn_stats_kernel<<<dim3(columns(C, block), P), block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+  bn_stats_kernel<true>
+      <<<dim3(columns(C, block), P), block, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+          static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(w),
+          static_cast<__nv_bfloat16*>(b), static_cast<float*>(stats), nullptr,
+          static_cast<float*>(partial), static_cast<unsigned*>(sync), M, C, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split forward's first launch.  x: (M, C) bf16; sums: (2, C) f32 out
+// (Σx, Σx²); partial, sync and P as for ktpu_bn_stats_bf16, whose partials
+// and order it keeps.
+extern "C" int ktpu_bn_sums_bf16(const void* x, void* sums, void* partial, void* sync,
+                                 long long M, int C, int P, void* stream) {
+  if (bad_shape(M, C) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block = block_for(C);
+  bn_stats_kernel<false>
+      <<<dim3(columns(C, block), P), block, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(x), nullptr, nullptr, nullptr, nullptr, nullptr,
+          static_cast<float*>(sums), static_cast<float*>(partial), static_cast<unsigned*>(sync),
+          M, C, 0.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split forward's fold.  sums: (2, C) f32, summed over every rank;
+// M: the rows of every rank; scale, bias: (C,) f32; w, b: (C,) bf16 out;
+// stats: (4, C) f32 out, as ktpu_bn_stats_bf16 writes them.
+extern "C" int ktpu_bn_fold_f32(const void* sums, const void* scale, const void* bias, void* w,
+                                void* b, void* stats, long long M, int C, float eps,
+                                void* stream) {
+  if (bad_shape(M, C)) return static_cast<int>(cudaErrorInvalidValue);
+  bn_fold_kernel<<<(C + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(sums), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(b), static_cast<float*>(stats), static_cast<float*>(partial),
-      static_cast<unsigned*>(sync), M, C, eps);
+      static_cast<__nv_bfloat16*>(b), static_cast<float*>(stats), M, C, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -502,4 +646,43 @@ extern "C" int ktpu_bn_bwd_bf16(const void* x, const void* mask, const void* dy,
   return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&bn_bwd_kernel),
                                                       grid, block, args, 0,
                                                       static_cast<cudaStream_t>(stream)));
+}
+
+// The split backward's first launch.  x, dy: (M, C) bf16; mask as for
+// ktpu_bn_bwd_bf16; stats: (4, C) f32 from the fold; sums: (2, C) f32 out
+// (Σdy', Σdy'·x over these M rows); dscale, dbias: (C,) f32 out, from
+// these sums; partial, sync and P as for ktpu_bn_bwd_bf16, whose partials
+// and order it keeps.  Not cooperative.
+extern "C" int ktpu_bn_bwd_sums_bf16(const void* x, const void* mask, const void* dy,
+                                     const void* stats, void* sums, void* dscale, void* dbias,
+                                     void* partial, void* sync, long long M, int C, int P,
+                                     void* stream) {
+  if (bad_shape(M, C) || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block = block_for(C);
+  bn_bwd_sums_kernel<<<dim3(columns(C, block), P), block, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(mask),
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(stats),
+      static_cast<float*>(sums), static_cast<float*>(dscale), static_cast<float*>(dbias),
+      static_cast<float*>(partial), static_cast<unsigned*>(sync), M, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split backward's dx.  x, dy, dx: (M, C) bf16 (this rank's rows); mask,
+// dr, w, scale, stats as for ktpu_bn_bwd_bf16; sums: (2, C) f32, Σdy' and
+// Σdy'·x summed over every rank; M_global: the rows of every rank; P as
+// for the sums (the grid walks the rows as the one-launch dx pass does).
+extern "C" int ktpu_bn_bwd_dx_bf16(const void* x, const void* mask, const void* dy,
+                                   const void* w, const void* scale, const void* stats,
+                                   const void* sums, void* dx, void* dr, long long M,
+                                   long long M_global, int C, int P, void* stream) {
+  if (bad_shape(M, C) || M_global < M || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block = block_for(C);
+  bn_bwd_dx_kernel<<<dim3(columns(C, block), P), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(mask),
+      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(stats),
+      static_cast<const float*>(sums), static_cast<__nv_bfloat16*>(dx),
+      static_cast<__nv_bfloat16*>(dr), M, M_global, C);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,10 @@ JAX package's ``workloads/benchguard.py``.
   summarized to the top-N kernels by self device time.  The JAX version
   also reports each op's "bound by" from xprof; torch's profiler has no
   such verdict, so ``bound`` is "unknown".
+- profile_step: the same for a step that every data rank runs, where a
+  profiler's failure must not keep a rank from its collectives.
+- run_payload: a payload's main around its run: rank 0 alone prints and
+  writes the result, then the process group ends.
 """
 
 from __future__ import annotations
@@ -59,6 +63,60 @@ def collect_profile(run_once, top_n: int = 5) -> Optional[dict]:
         return summarize_device_ops(prof.key_averages(), top_n)
     except Exception as e:  # noqa: BLE001
         return {"error": f"{type(e).__name__}: {e}"}
+
+
+def profile_step(run_once, ranks: int, top_n: int = 5) -> Optional[dict]:
+    """``collect_profile(run_once)`` for a step that each of ``ranks`` data
+    ranks runs.  With one rank, exactly that.  With more, the step runs
+    once whatever the profiler does (the other ranks wait for it in its
+    collectives): a failure of the step itself raises, and a profiler that
+    failed before the step leaves the step to run unprofiled."""
+    if ranks == 1:
+        return collect_profile(run_once, top_n)
+    ran, failed = [], []
+
+    def guarded():
+        ran.append(True)
+        try:
+            run_once()
+        except BaseException as e:
+            failed.append(e)
+            raise
+
+    prof = collect_profile(guarded, top_n)
+    if failed:
+        raise failed[0]
+    if not ran:
+        run_once()
+    return prof
+
+
+def run_payload(compute, out_path: str, watchdog) -> None:
+    """Run ``compute()`` and report its result dict, or the error it
+    raised as ``{"error": ...}``: rank 0 prints it and writes it to
+    ``out_path`` (every rank of a data-parallel run computes the same
+    result; another rank's error goes to its stderr).  The rank is read
+    before the process group is ended, after the run's last collective.
+    Exits 1 on an error."""
+    from .sharding import end_process_group, is_rank0
+
+    try:
+        result, failed = compute(), False
+    except Exception as e:  # noqa: BLE001
+        result, failed = {"error": f"{type(e).__name__}: {e}"}, True
+    finally:
+        watchdog.cancel()
+    rank0 = is_rank0()
+    end_process_group()
+    if rank0:
+        print(json.dumps(result), flush=True)
+        if out_path:
+            with open(out_path, "w") as f:
+                json.dump(result, f)
+    elif failed:
+        sys.stderr.write(json.dumps(result) + "\n")
+    if failed:
+        sys.exit(1)
 
 
 def device_time_us(event) -> float:

@@ -17,8 +17,11 @@ Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 dicts (JAX stacks them on a leading axis for ``lax.scan``).  Under
 ``cfg.remat`` each layer is one ``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint`` with no policy recomputes the whole layer body: the
-attention forward runs twice per layer and step.  The sharded step comes
-with a later slice.
+attention forward runs twice per layer and step.  The train step is data
+parallel over a ``DeviceMesh`` (``mesh=``, one process per card: each rank
+takes its rows of the global batch, the loss divides by the global batch's
+masked count and the gradients are summed); the parameter-sharded step
+comes with a later slice.
 
 BERT-large = BertConfig(d_model=1024, n_layers=24, n_heads=16, d_ff=4096,
 vocab=30522, max_seq=512).
@@ -40,6 +43,7 @@ from ..kernels import attention as _attention
 from ..kernels import cross_entropy as _cross_entropy
 from ..kernels import gelu as _gelu
 from ..kernels import layernorm as _layernorm
+from . import sharding
 from .sharding import resolve_device
 
 MASK_TOKEN = 0  # reserved id used by the synthetic MLM batch maker
@@ -207,48 +211,70 @@ def forward(cfg: BertConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
 
 def mlm_loss_fn(cfg: BertConfig, params: Dict[str, Any], tokens: torch.Tensor,
-                mask: torch.Tensor, ops: Ops = KERNELS) -> torch.Tensor:
+                mask: torch.Tensor, ops: Ops = KERNELS, mesh=None) -> torch.Tensor:
     """Masked-LM: predict original tokens at masked positions only; a
     0-dim f32 tensor.  ``mask`` (B, S) is 1 where the input was replaced
     by MASK_TOKEN.  The per-row NLL is the cross-entropy op's over the f32
     logits; the mask weighting Σ(nll·mask) / max(Σmask, 1) stays a torch
-    op, so its backward hands the op mask / denom per row."""
+    op, so its backward hands the op mask / denom per row.
+
+    With ``mesh``, ``tokens`` and ``mask`` are this rank's rows and the
+    denominator is the global batch's masked count (JAX's ``mask.sum()``
+    over the whole batch): the ranks' losses then sum to the global loss,
+    and so do their gradients."""
     masked_in = torch.where(mask == 1, MASK_TOKEN, tokens)
     logits = forward(cfg, params, masked_in, ops)
     nll = ops.cross_entropy(logits.reshape(-1, cfg.vocab), tokens.reshape(-1).to(torch.int64))
     m = mask.reshape(-1).to(torch.float32)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    count = m.sum() if mesh is None else sharding.all_reduce_value(m.sum(), mesh, "sum")
+    return (nll * m).sum() / count.clamp_min(1.0)
 
 
 # --------------------------------------------------------------- train step
 
 def make_train_state(cfg: BertConfig, device: Optional[torch.device | str] = None,
                      lr: float = 1e-4, seed: int = 0,
-                     params: Optional[Dict[str, Any]] = None
+                     params: Optional[Dict[str, Any]] = None, mesh=None
                      ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
     """f32 master weights (random from ``seed``, or ``params``, e.g. from
     ``params_from_jax``) that require grad, and the port's AdamW (K10) over
     all of them: optax's ``adamw(lr, weight_decay=0.01)`` with its defaults, decay on
-    every leaf.  ``device`` defaults to the card and raises without one."""
+    every leaf.  ``device`` defaults to the card and raises without one.
+    With ``mesh``, every data rank's weights become rank 0's before the
+    optimizer is built over them."""
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     leaves = param_leaves(params)
+    if mesh is not None:
+        sharding.broadcast_params(leaves, mesh)
     for p in leaves:
         p.requires_grad_(True)
     return params, optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
 
 
 def make_train_step(cfg: BertConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,
-                    ops: Ops = KERNELS) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+                    ops: Ops = KERNELS, mesh=None
+                    ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """step(tokens, mask) -> the loss before the update (0-dim, detached):
     one value-and-grad of ``mlm_loss_fn`` and one optimizer update, in
-    place."""
+    place.
+
+    With ``mesh``, ``tokens`` and ``mask`` are the global batch: each data
+    rank takes its rows, divides by the global masked count (the ranks'
+    counts differ), and the gradients and the loss are summed over the
+    data ranks before the update."""
+    leaves = param_leaves(params)
 
     def step(tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            tokens, mask = (sharding.shard_batch(t, mesh) for t in (tokens, mask))
         opt.zero_grad(set_to_none=True)
-        loss = mlm_loss_fn(cfg, params, tokens, mask, ops)
+        loss = mlm_loss_fn(cfg, params, tokens, mask, ops, mesh)
         loss.backward()
+        if mesh is not None:
+            sharding.all_reduce_grads(leaves, mesh, "sum")
+            loss = sharding.all_reduce_value(loss, mesh, "sum")
         opt.step()
         return loss.detach()
 
@@ -270,13 +296,16 @@ def synthetic_batch(cfg: BertConfig, batch: int, seq: int, seed: int = 0,
 
 def train_demo(cfg: Optional[BertConfig] = None, steps: int = 3, batch: int = 8,
                seq: int = 32, lr: float = 1e-3,
-               device: Optional[torch.device | str] = None) -> float:
+               device: Optional[torch.device | str] = None, mesh=None) -> float:
     """A few MLM steps on one synthetic batch (the step memorizes it);
     returns the final loss.  On the card unless ``device="cpu"``; raises
-    when no card is visible."""
+    when no card is visible.  ``batch`` is the global batch: without
+    ``mesh``, a launcher's environment gives ``auto_mesh()`` (one process
+    per card), else one device."""
     cfg = cfg or tiny()
-    params, opt = make_train_state(cfg, device, lr=lr)
-    step = make_train_step(cfg, params, opt)
+    mesh = mesh if mesh is not None else sharding.launched_mesh(resolve_device(device))
+    params, opt = make_train_state(cfg, device, lr=lr, mesh=mesh)
+    step = make_train_step(cfg, params, opt, mesh=mesh)
     dev = params["embed"].device
     tokens, mask = (t.to(dev) for t in synthetic_batch(cfg, batch, seq))
     loss = None

@@ -16,8 +16,11 @@ left them to XLA.
 Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 ``h @ W``, so weights carried over from the JAX pytree
 (``params_from_jax``) need no transpose.  Layers are a list of per-layer
-dicts (JAX stacks them on a leading axis for ``lax.scan``).  The sharded
-train step and ``serving_deployment`` come with later slices.
+dicts (JAX stacks them on a leading axis for ``lax.scan``).  The train
+step is data parallel over a ``DeviceMesh`` (``mesh=``, one process per
+card: each rank takes its rows of the global batch and the gradients are
+averaged, as JAX's step splits the batch over ``(dp, fsdp)``); the
+parameter-sharded step and ``serving_deployment`` come with later slices.
 
 Llama-3-8B = LlamaConfig(d_model=4096, n_layers=32, n_heads=32,
 n_kv_heads=8, d_ff=14336, vocab=128256, rope_theta=500000).
@@ -47,6 +50,7 @@ from ..kernels import rope as _rope
 from ..kernels import swiglu as _swiglu
 from .. import optim
 from ..obs.appmetrics import AppMetrics
+from . import sharding
 from .sharding import resolve_device
 
 
@@ -280,32 +284,46 @@ def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
 def make_train_state(cfg: LlamaConfig, device: Optional[torch.device | str] = None,
                      lr: float = 3e-4, seed: int = 0,
-                     params: Optional[Dict[str, Any]] = None
+                     params: Optional[Dict[str, Any]] = None, mesh=None
                      ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
     """f32 master weights (random from ``seed``, or ``params``, e.g. from
     ``params_from_jax``) that require grad, and the port's AdamW (K10) over
     all of them: optax's ``adamw(lr, weight_decay=0.1)`` with its
     defaults, decay on every leaf.  ``device`` defaults to the card and
-    raises without one."""
+    raises without one.  With ``mesh``, every data rank's weights become
+    rank 0's before the optimizer is built over them."""
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                              dtype=torch.float32)
     leaves = param_leaves(params)
+    if mesh is not None:
+        sharding.broadcast_params(leaves, mesh)
     for p in leaves:
         p.requires_grad_(True)
     return params, optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
 
 
 def make_train_step(cfg: LlamaConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,
-                    ops: Ops = KERNELS) -> Callable[[torch.Tensor], torch.Tensor]:
+                    ops: Ops = KERNELS, mesh=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """step(tokens) -> the loss before the update (0-dim, detached): one
-    value-and-grad of ``loss_fn`` and one optimizer update, in place."""
+    value-and-grad of ``loss_fn`` and one optimizer update, in place.
+
+    With ``mesh``, ``tokens`` is the global batch: each data rank takes
+    its rows (``sharding.shard_batch``), the gradients are averaged over
+    the data ranks before the update and the loss returned is the global
+    one (the mean of the ranks' means: every rank has as many tokens)."""
+    leaves = param_leaves(params)
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            tokens = sharding.shard_batch(tokens, mesh)
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(cfg, params, tokens, ops)
         loss.backward()
+        if mesh is not None:
+            sharding.all_reduce_grads(leaves, mesh, "avg")
+            loss = sharding.all_reduce_value(loss, mesh, "avg")
         opt.step()
         return loss.detach()
 
@@ -314,13 +332,16 @@ def make_train_step(cfg: LlamaConfig, params: Dict[str, Any], opt: torch.optim.O
 
 def train_demo(cfg: Optional[LlamaConfig] = None, steps: int = 3, batch: int = 8,
                seq: int = 64, lr: float = 3e-4,
-               device: Optional[torch.device | str] = None) -> float:
+               device: Optional[torch.device | str] = None, mesh=None) -> float:
     """Run a few steps on one fixed batch of synthetic tokens (the step
     memorizes it); returns the final loss.  On the card unless
-    ``device="cpu"``; raises when no card is visible."""
+    ``device="cpu"``; raises when no card is visible.  ``batch`` is the
+    global batch: without ``mesh``, a launcher's environment gives
+    ``auto_mesh()`` (one process per card), else one device."""
     cfg = cfg or tiny()
-    params, opt = make_train_state(cfg, device, lr=lr)
-    step = make_train_step(cfg, params, opt)
+    mesh = mesh if mesh is not None else sharding.launched_mesh(resolve_device(device))
+    params, opt = make_train_state(cfg, device, lr=lr, mesh=mesh)
+    step = make_train_step(cfg, params, opt, mesh=mesh)
     rng = np.random.default_rng(0)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq))).to(
         params["embed"].device)

@@ -21,14 +21,20 @@ default), ``AdamW`` or ``SGD`` with momentum: each one kernel launch a step.
 Same flags, defaults and result keys as the JAX payload, with
 ``--device`` (default ``cuda``) in place of ``--platform``.  Without a
 card it writes ``{"error": ...}`` and exits 1.
+
+Data parallel under a launcher, one process per card (``torchrun
+--nproc-per-node=N -m kubernetes1_tpu_torch.workloads.llama_bench``):
+``--batch`` is the global batch, split over the N data ranks;
+``n_devices`` is N, tokens/sec counts the global batch, the executed
+FLOPs are one rank's count times N and MFU and HFU divide by N cards'
+peak, as the JAX payload does.  Only rank 0 prints and writes the result.
+A ``--sweep`` runs on one rank only.
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
-import json
-import sys
 import time
 
 from .gpu_peaks import peak_flops_per_device
@@ -83,25 +89,32 @@ def make_optimizer(name: str, params, lr: float):
 
 def run(preset: str, batch: int, seq: int, steps: int, optimizer: str,
         warmup: int = 2, lr: float = 3e-4, remat: bool = True,
-        watchdog=None, profile: bool = True, device: str = "cuda") -> dict:
+        watchdog=None, profile: bool = True, device: str = "cuda", mesh=None) -> dict:
+    """The payload's result on this rank.  ``batch`` is the global batch;
+    without ``mesh``, ``sharding.launched_mesh`` decides (one device
+    unless a launcher set the environment)."""
     import numpy as np
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from ..kernels import attention as _attention
     from .llama import LlamaConfig, init_params, make_train_step, param_leaves
-    from .sharding import resolve_device
+    from .sharding import broadcast_params, data_ranks, launched_mesh, resolve_device
 
     dev = resolve_device(device)
     if watchdog is not None:
         watchdog.cancel()  # device claim succeeded: stand down
+    mesh = mesh if mesh is not None else launched_mesh(dev)
+    n_dev = data_ranks(mesh)
     cfg = LlamaConfig(max_seq=seq, remat=remat, **PRESETS[preset])
     # f32 master weights from seed 0, as the JAX payload's init_params(key(0))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype=torch.float32)
+    if mesh is not None:  # rank 0's weights everywhere, before the optimizer's table
+        broadcast_params(param_leaves(params), mesh)
     for p in param_leaves(params):
         p.requires_grad_(True)
     opt = make_optimizer(optimizer, params, lr)
-    step = make_train_step(cfg, params, opt)
+    step = make_train_step(cfg, params, opt, mesh=mesh)
     rng = np.random.default_rng(0)
     # +1: loss_fn trains next-token over tokens[:, :-1] -> [:, 1:]
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq + 1))).to(dev)
@@ -117,11 +130,13 @@ def run(preset: str, batch: int, seq: int, steps: int, optimizer: str,
             counter = FlopCounterMode(display=False)
             with counter:
                 loss = step(tokens)
-            # the attention kernel's pairs: causal, (query, key <= query)
-            pairs = batch * cfg.n_heads * seq * (seq + 1) / 2
+            # the attention kernel's pairs over this rank's rows: causal,
+            # (query, key <= query)
+            pairs = batch // n_dev * cfg.n_heads * seq * (seq + 1) / 2
             attn = ((_attention.KERNEL.launches - fwd0) * 4
                     + (_attention.KERNEL_BWD.launches - bwd0) * 10) * cfg.head_dim * pairs
-            exec_flops = float(counter.get_total_flops()) + attn or None
+            # this rank's count, times the ranks: every shard is the same size
+            exec_flops = (float(counter.get_total_flops()) + attn) * n_dev or None
         else:
             loss = step(tokens)
     float(loss)
@@ -135,18 +150,17 @@ def run(preset: str, batch: int, seq: int, steps: int, optimizer: str,
 
     prof = None
     if profile:
-        from .benchguard import collect_profile
+        from .benchguard import profile_step
 
         def one_step():
             nonlocal loss
             loss = step(tokens)
             float(loss)
 
-        prof = collect_profile(one_step)
+        prof = profile_step(one_step, n_dev)
 
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
     peak, granularity = peak_flops_per_device(dev)
-    n_dev = 1
     steps_per_sec = steps / wall
     tokens_per_step = batch * seq
     tokens_per_sec = tokens_per_step * steps_per_sec
@@ -185,21 +199,31 @@ def run(preset: str, batch: int, seq: int, steps: int, optimizer: str,
 
 
 def run_sweep(candidates, preset, seq, steps, optimizer, remat=True,
-              watchdog=None, profile=True, probe_steps=3, device="cuda") -> dict:
+              watchdog=None, profile=True, probe_steps=3, device="cuda", mesh=None) -> dict:
     """Batch sweep: probe each candidate batch with a few steps, run the
     winner at full length.  A candidate that runs out of device memory is
     recorded and skipped, its tensors freed before the next one; any other
     error (a kernel's launch error among them) propagates, where the JAX
-    payload's bare ``except`` would record it as a failed candidate."""
+    payload's bare ``except`` would record it as a failed candidate.
+
+    One data rank only: raises over a mesh of more, where one rank out of
+    memory would go on to its next candidate while the others wait for it
+    in the failed step's collectives."""
     import torch
 
+    from .sharding import data_ranks, launched_mesh, resolve_device
+
+    mesh = mesh if mesh is not None else launched_mesh(resolve_device(device))
+    if data_ranks(mesh) > 1:
+        raise ValueError(f"run_sweep: a sweep runs on one data rank, not {data_ranks(mesh)}: "
+                         f"sweep on one card, then run the winner over the mesh")
     probes = {}
     best, best_tps = None, -1.0
     for i, b in enumerate(candidates):
         try:
             r = run(preset, b, seq, probe_steps, optimizer, warmup=1,
                     remat=remat, watchdog=watchdog if i == 0 else None,
-                    profile=False, device=device)
+                    profile=False, device=device, mesh=mesh)
             probes[b] = {"tokens_per_sec": r["tokens_per_sec"],
                          "mfu": r["mfu"]}
             if r["tokens_per_sec"] > best_tps:
@@ -217,7 +241,7 @@ def run_sweep(candidates, preset, seq, steps, optimizer, remat=True,
     if best is None:
         return {"error": "every sweep candidate failed", "sweep": probes}
     result = run(preset, best, seq, steps, optimizer, remat=remat,
-                 profile=profile, device=device)
+                 profile=profile, device=device, mesh=mesh)
     result["sweep"] = probes
     result["sweep_winner_batch"] = best
     return result
@@ -242,34 +266,23 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on ('cpu' runs the plain versions)")
     args = ap.parse_args(argv)
-    from .benchguard import device_acquisition_watchdog
+    from .benchguard import device_acquisition_watchdog, run_payload
 
     watchdog = device_acquisition_watchdog(args.out, args.acquire_timeout)
-    try:
+
+    def compute():
         if args.sweep:
-            result = run_sweep(
+            return run_sweep(
                 [int(b) for b in args.sweep.split(",") if b.strip()],
                 args.preset, args.seq, args.steps, args.optimizer,
                 remat=not args.no_remat, watchdog=watchdog,
                 profile=not args.no_profile, device=args.device)
-        else:
-            result = run(args.preset, args.batch, args.seq, args.steps,
-                         args.optimizer, remat=not args.no_remat,
-                         watchdog=watchdog, profile=not args.no_profile,
-                         device=args.device)
-    except Exception as e:  # noqa: BLE001
-        result = {"error": f"{type(e).__name__}: {e}"}
-        print(json.dumps(result), flush=True)
-        if args.out:
-            with open(args.out, "w") as f:
-                json.dump(result, f)
-        sys.exit(1)
-    finally:
-        watchdog.cancel()
-    print(json.dumps(result), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(result, f)
+        return run(args.preset, args.batch, args.seq, args.steps,
+                   args.optimizer, remat=not args.no_remat,
+                   watchdog=watchdog, profile=not args.no_profile,
+                   device=args.device)
+
+    run_payload(compute, args.out, watchdog)
 
 
 if __name__ == "__main__":

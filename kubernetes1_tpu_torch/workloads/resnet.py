@@ -1,15 +1,19 @@
 """ResNet-50 and its train step, in PyTorch.
 
-The port of the JAX package's ``workloads/resnet.py`` on one card: the
-model (``forward`` over a plain parameter dict), the loss and the SGD
-train step (``make_train_state``, ``make_train_step``, ``train_demo``,
-``bench_imgs_per_sec``).  Batch norm with its ReLU and residual add runs
-as hand-written CUDA kernels on the card, forward and backward
-(``kernels/batchnorm.py``, K8), and so do the cross-entropy over the f32
-logits (``kernels/cross_entropy.py``, K5) and the SGD-momentum update
-(``kubernetes1_tpu_torch.optim``, K10c); the convolutions stay
-``F.conv2d`` (cuDNN) and the pooling ``F.max_pool2d``, as the JAX package
-left them to XLA.
+The port of the JAX package's ``workloads/resnet.py``: the model
+(``forward`` over a plain parameter dict), the loss and the SGD train step
+(``make_train_state``, ``make_train_step``, ``train_demo``,
+``bench_imgs_per_sec``), on one card or data parallel over a
+``DeviceMesh`` (``mesh=``, one process per card: each rank takes its rows
+of the global batch, every batch norm takes its statistics over the
+global batch through the split K8 and an all-reduce, as JAX's ``_bn``
+does under its batch split, and the gradients are averaged).  Batch norm
+with its ReLU and residual add runs as hand-written CUDA kernels on the
+card, forward and backward (``kernels/batchnorm.py``, K8), and so do the
+cross-entropy over the f32 logits (``kernels/cross_entropy.py``, K5) and
+the SGD-momentum update (``kubernetes1_tpu_torch.optim``, K10c); the
+convolutions stay ``F.conv2d`` (cuDNN) and the pooling ``F.max_pool2d``,
+as the JAX package left them to XLA.
 
 Layout: the public functions keep JAX's NHWC images (B, H, W, 3).  Inside,
 activations are logical NCHW tensors in ``torch.channels_last`` memory,
@@ -29,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from functools import partial
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -38,6 +43,7 @@ import torch.nn.functional as F
 from .. import optim
 from ..kernels import batchnorm as _batchnorm
 from ..kernels import cross_entropy as _cross_entropy
+from . import sharding
 from .sharding import resolve_device
 
 # (blocks per stage, bottleneck mid-channels) for ResNet-50
@@ -241,32 +247,60 @@ def loss_fn(cfg: ResNetConfig, params: Dict[str, Any], images: torch.Tensor,
 # --------------------------------------------------------------- train step
 
 def make_train_state(cfg: ResNetConfig, device: Optional[torch.device | str] = None,
-                     seed: int = 0, params: Optional[Dict[str, Any]] = None
+                     seed: int = 0, params: Optional[Dict[str, Any]] = None, mesh=None
                      ) -> Tuple[Dict[str, Any], torch.optim.Optimizer]:
     """f32 weights (random from ``seed``, or ``params``, e.g. from
     ``params_from_jax``) that require grad, and the port's SGD with
     momentum 0.9 (K10c) over all of them: optax's ``sgd(0.1,
     momentum=0.9)``.  ``device`` defaults to the card and raises without
-    one."""
+    one.  With ``mesh``, every data rank's weights become rank 0's before
+    the optimizer is built over them."""
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     leaves = param_leaves(params)
+    if mesh is not None:
+        sharding.broadcast_params(leaves, mesh)
     for p in leaves:
         p.requires_grad_(True)
     return params, optim.SGD(leaves, lr=0.1, momentum=0.9)
 
 
+def ops_over(ops: Ops, mesh) -> Ops:
+    """``ops`` with batch norm's statistics over the mesh's data ranks:
+    ``ops`` itself over one, whose statistics are its own (the split
+    kernels would give the same bits, with four launches a layer in
+    place of three and two collectives)."""
+    if sharding.data_ranks(mesh) == 1:
+        return ops
+    return ops._replace(batchnorm=partial(ops.batchnorm, group=sharding.data_group(mesh)))
+
+
 def make_train_step(cfg: ResNetConfig, params: Dict[str, Any], opt: torch.optim.Optimizer,
-                    ops: Ops = KERNELS) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+                    ops: Ops = KERNELS, mesh=None
+                    ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """step(images, labels) -> the loss before the update (0-dim,
     detached): one value-and-grad of ``loss_fn`` and one SGD update, in
-    place."""
+    place.
+
+    With ``mesh``, ``images`` and ``labels`` are the global batch: each
+    data rank takes its rows, batch norm takes its statistics over every
+    rank's rows (``ops_over``), and the gradients and the loss (the mean
+    over the rank's rows) are averaged over the data ranks; over one data
+    rank, that is the step without a mesh."""
+    leaves = param_leaves(params)
+    if mesh is not None:
+        ops = ops_over(ops, mesh)
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            images, labels = (sharding.shard_batch(t, mesh) for t in (images, labels))
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(cfg, params, images, labels, ops)
         loss.backward()
+        if mesh is not None:
+            sharding.all_reduce_grads(leaves, mesh, "avg")
+            loss = sharding.all_reduce_value(loss, mesh, "avg")
         opt.step()
         return loss.detach()
 
@@ -284,13 +318,18 @@ def synthetic_batch(cfg: ResNetConfig, batch: int, size: int, dtype: torch.dtype
 
 
 def train_demo(cfg: Optional[ResNetConfig] = None, steps: int = 3, batch: int = 8,
-               size: int = 32, device: Optional[torch.device | str] = None) -> float:
+               size: int = 32, device: Optional[torch.device | str] = None,
+               mesh=None) -> float:
     """A few SGD steps on one fixed batch of f32 synthetic images (the step
     memorizes it; the stem conv casts them); returns the final loss.  On
-    the card unless ``device="cpu"``; raises when no card is visible."""
+    the card unless ``device="cpu"``; raises when no card is visible.
+    ``batch`` is the global batch: without ``mesh``, a launcher's
+    environment gives ``auto_mesh()`` (one process per card), else one
+    device."""
     cfg = cfg or tiny()
-    params, opt = make_train_state(cfg, device)
-    step = make_train_step(cfg, params, opt)
+    mesh = mesh if mesh is not None else sharding.launched_mesh(resolve_device(device))
+    params, opt = make_train_state(cfg, device, mesh=mesh)
+    step = make_train_step(cfg, params, opt, mesh=mesh)
     images, labels = synthetic_batch(cfg, batch, size, torch.float32,
                                      params["head"]["w"].device)
     loss = None
@@ -300,12 +339,14 @@ def train_demo(cfg: Optional[ResNetConfig] = None, steps: int = 3, batch: int = 
 
 
 def bench_imgs_per_sec(batch: int = 64, size: int = 224, steps: int = 10,
-                       device: Optional[torch.device | str] = None) -> float:
-    """imgs/sec of ResNet-50 training on one device (the north-star
-    metric), fenced by reading the loss back."""
+                       device: Optional[torch.device | str] = None, mesh=None) -> float:
+    """imgs/sec of ResNet-50 training (the north-star metric) over the
+    global ``batch``, on one device or over ``mesh`` (by default
+    ``launched_mesh``), fenced by reading the loss back."""
     cfg = ResNetConfig()
-    params, opt = make_train_state(cfg, device)
-    step = make_train_step(cfg, params, opt)
+    mesh = mesh if mesh is not None else sharding.launched_mesh(resolve_device(device))
+    params, opt = make_train_state(cfg, device, mesh=mesh)
+    step = make_train_step(cfg, params, opt, mesh=mesh)
     images, labels = synthetic_batch(cfg, batch, size, torch.float32,
                                      params["head"]["w"].device)
     float(step(images, labels))  # warm-up

@@ -10,13 +10,20 @@ trained with SGD on one fixed synthetic batch: FLOPs per step come from
 from the device kind (``gpu_peaks``).  Same flags, defaults and result
 keys as the JAX payload, with ``--device`` (default ``cuda``) in place of
 ``--platform``.  Without a card it writes ``{"error": ...}`` and exits 1.
+
+Data parallel under a launcher, one process per card:
+
+    torchrun --nproc-per-node=N -m kubernetes1_tpu_torch.workloads.resnet_bench --out <file>
+
+``--batch`` is then the global batch, split over the N data ranks
+(``sharding.auto_mesh``); ``n_devices`` is N, the FLOPs are one rank's
+count times N (the shards are equal) and MFU divides by N cards' peak, as
+the JAX payload does.  Only rank 0 prints and writes the result.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
-import sys
 import time
 
 from .gpu_peaks import peak_flops_per_device
@@ -27,19 +34,24 @@ RESNET50_TRAIN_FLOPS_PER_IMG_224 = 3 * 4.1e9
 
 
 def run(batch: int, steps: int, size: int, warmup: int = 2, watchdog=None,
-        profile: bool = True, device: str = "cuda") -> dict:
+        profile: bool = True, device: str = "cuda", mesh=None) -> dict:
+    """The payload's result on this rank.  ``batch`` is the global batch;
+    without ``mesh``, ``sharding.launched_mesh`` decides (one device
+    unless a launcher set the environment)."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from .resnet import ResNetConfig, make_train_state, make_train_step, synthetic_batch
-    from .sharding import resolve_device
+    from .sharding import data_ranks, launched_mesh, resolve_device
 
     dev = resolve_device(device)
     if watchdog is not None:
         watchdog.cancel()  # device claim succeeded: stand down
+    mesh = mesh if mesh is not None else launched_mesh(dev)
+    n_dev = data_ranks(mesh)
     cfg = ResNetConfig()
-    params, opt = make_train_state(cfg, dev, seed=0)
-    step = make_train_step(cfg, params, opt)
+    params, opt = make_train_state(cfg, dev, seed=0, mesh=mesh)
+    step = make_train_step(cfg, params, opt, mesh=mesh)
     # feed in the compute dtype: the stem conv reads the raw pixels, so a
     # f32 feed doubles the first (and largest-spatial) read for nothing
     images, labels = synthetic_batch(cfg, batch, size, cfg.dtype, dev)
@@ -54,7 +66,8 @@ def run(batch: int, steps: int, size: int, warmup: int = 2, watchdog=None,
             counter = FlopCounterMode(display=False)
             with counter:
                 loss = step(images, labels)
-            flops_per_step = float(counter.get_total_flops()) or None
+            # this rank's count, times the ranks: every shard is the same size
+            flops_per_step = float(counter.get_total_flops()) * n_dev or None
             first = float(loss)
         else:
             loss = step(images, labels)
@@ -71,25 +84,25 @@ def run(batch: int, steps: int, size: int, warmup: int = 2, watchdog=None,
 
     prof = None
     if profile:
-        from .benchguard import collect_profile
+        from .benchguard import profile_step
 
         def one_step():
             nonlocal loss
             loss = step(images, labels)
             float(loss)
 
-        prof = collect_profile(one_step)
+        prof = profile_step(one_step, n_dev)
 
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
     peak, granularity = peak_flops_per_device(dev)
     steps_per_sec = steps / wall
     imgs_per_sec = batch * steps_per_sec
-    mfu = (flops_per_step * steps_per_sec / peak) if peak else None
+    mfu = (flops_per_step * steps_per_sec / (peak * n_dev)) if peak else None
     return {
         "workload": "resnet50",
         "device_kind": kind,
         "platform": "gpu" if dev.type == "cuda" else dev.type,
-        "n_devices": 1,
+        "n_devices": n_dev,
         "device_granularity": granularity,
         "batch": batch,
         "image_size": size,
@@ -97,7 +110,7 @@ def run(batch: int, steps: int, size: int, warmup: int = 2, watchdog=None,
         "compile_s": round(compile_s, 2),
         "step_time_ms": round(1000 * wall / steps, 2),
         "imgs_per_sec": round(imgs_per_sec, 1),
-        "imgs_per_sec_per_device": round(imgs_per_sec, 1),
+        "imgs_per_sec_per_device": round(imgs_per_sec / n_dev, 1),
         "flops_per_step": flops_per_step,
         "peak_flops_per_device": peak,
         "mfu": round(mfu, 4) if mfu is not None else None,
@@ -119,25 +132,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on ('cpu' runs the plain versions)")
     args = ap.parse_args(argv)
-    from .benchguard import device_acquisition_watchdog
+    from .benchguard import device_acquisition_watchdog, run_payload
 
     watchdog = device_acquisition_watchdog(args.out, args.acquire_timeout)
-    try:
-        result = run(args.batch, args.steps, args.size, watchdog=watchdog,
-                     profile=not args.no_profile, device=args.device)
-    except Exception as e:  # noqa: BLE001
-        result = {"error": f"{type(e).__name__}: {e}"}
-        print(json.dumps(result), flush=True)
-        if args.out:
-            with open(args.out, "w") as f:
-                json.dump(result, f)
-        sys.exit(1)
-    finally:
-        watchdog.cancel()
-    print(json.dumps(result), flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(result, f)
+    run_payload(lambda: run(args.batch, args.steps, args.size, watchdog=watchdog,
+                            profile=not args.no_profile, device=args.device),
+                args.out, watchdog)
 
 
 if __name__ == "__main__":
