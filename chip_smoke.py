@@ -113,11 +113,30 @@
    K8 and a real all-reduce between its launches, held to the whole batch's
    step on one process (the loss; the gradients of the leaves nearest the
    loss) and the ranks' weights to each other, bit for bit, after two
-   steps.
+   steps;
+20. (parameter sharding, K5 over a vocab block) holds K5's partial entries
+   (ktpu_xent_part_bf16 at 8192 x 64128, rank 1's half of Llama-3-8B's
+   vocab; ktpu_xent_part_f32 at 16384 x 15261, half of BERT-large's, and
+   each at the 4096 rows the sharded steps give it) against
+   their plain twins, two blocks' parts combined against K5 over the whole
+   vocab, and the one-block backward fed the global lse and the targets
+   shifted to the block against its plain version; times the partials;
+21. runs the whole model's first step (Llama-3-8B widths x 2 layers at
+   2 x 2049, 1,486,901,248 parameters; BERT-large at 8 x 512) in a process
+   of its own, then 2 gloo ranks of this script on the one card at tp=2 and
+   then at fsdp=2 (and Llama without remat, whose autograd keeps each
+   layer's gathered weights), each model's sharded step held to it (the
+   loss; the gradients of a few leaves, gathered from the ranks' blocks), with every
+   kernel's launches per step, each rank's parameter and state bytes
+   (asserted to be the specs' share), its peak memory and step ms (gloo
+   through the host, not a multi-card figure);
+22. runs entry.dryrun_multichip(1) over NCCL (the sharded Llama and BERT
+   steps and the ring on a one-rank mesh; more ranks take a card each).
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.  The kernels' rows
 carry their launches on each main path (``launches_<path>``; ``dp`` is
-18.'s runs and rank 0's steps in 19.) and in all.
+18.'s runs and rank 0's steps in 19., ``shard`` rank 0's steps in 21.) and
+in all.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -292,6 +311,33 @@ DP_STEPS = 3
 DP2_RANKS, DP2_BATCH = 2, 32
 DP2_GRAD_TOL = 0.1
 
+# Parameter sharding.  K5's partial entries hold to their plain twins at
+# XENT_LOSS_TOL (the same row loop as the forward kernel); two blocks' parts
+# combined (the log-sum-exp of their lse, the sum of their target logits)
+# meet K5's plain version over the whole vocab at XENT_LOSS_TOL; the
+# one-block backward fed the global lse and shifted targets holds to its
+# plain version at XENT_GRAD_TOL (bf16) and XENT_F32_GRAD_TOL (f32).
+# The gloo ranks' sharded steps against the whole model's: the first step's
+# loss within TRAIN_LOSS_TOL (Llama) and BERT_LOSS_TOL, and the first
+# SHARD2_HELD_NUMEL elements of each held leaf's gradient within
+# SHARD2_GRAD_TOL relative L2: over tp the bf16 products are summed in
+# another order (the partial sums of wo, w_down and w_out, added in bf16)
+# and the vocab's lse is combined over two blocks, over fsdp the batch's
+# rows are split, and 2 (Llama) or 24 (BERT) bf16 layers carry those
+# roundings to the gradients; halved and zero gradients must exceed it.
+SHARD_LAYERS = 2              # Llama-3-8B widths: 1,486,901,248 parameters
+SHARD2_MESHES = ((1, 1, 2), (1, 2, 1))
+SHARD2_STEPS = 2
+SHARD2_LLAMA_BATCH, SHARD2_BERT_BATCH = 2, 8
+SHARD2_GRAD_TOL = 5e-2
+SHARD2_HELD_NUMEL = 1 << 22
+SHARD2_HELD = {
+    "llama": (("unembed",), ("final_norm",), ("layers", 0, "wq"), ("layers", 0, "attn_norm"),
+              ("layers", -1, "w_down")),
+    "bert": (("embed",), ("mlm_dense",), ("mlm_bias",), ("layers", 0, "wq"),
+             ("layers", -1, "w_out")),
+}
+
 # BERT (K7a, K7b, K9, K5 over f32 logits), kernel vs plain on the same inputs.
 # Non-causal attention: ATTENTION_TOL forward, BWD_REL_L2_TOL backward, for
 # the reasons given there (the mask changes which keys count, not how).
@@ -395,6 +441,8 @@ KERNELS = {
     "ring_block_bwd_nc": ring_kernels.RING_BLOCK_BWD_NC,
     "adamw": optim_kernels.KERNEL_ADAMW, "adafactor": optim_kernels.KERNEL_ADAFACTOR,
     "sgdm": optim_kernels.KERNEL_SGDM,
+    "cross_entropy_part": cross_entropy.KERNEL_PART,
+    "cross_entropy_part_f32": cross_entropy.KERNEL_PART_F32,
 }
 
 
@@ -3125,6 +3173,320 @@ def dp2_phase(card: str) -> dict:
                 step_ms=[o["step_ms"] for o in outs], launches=outs[0]["launches"])
 
 
+def xent_part_rows(name, logits, t, grad, grad_tol, replaces, jax_file, shard_rows) -> list:
+    """K5's partial entry on the two halves of ``logits`` (rows, V): each
+    half against the plain twin, at all rows and at the first
+    ``shard_rows`` (the sharded step's rows); the halves combined against K5's plain
+    version over the whole vocab; the one-block backward of each half fed
+    the global lse and the shifted targets against its plain version.  The
+    row of the second half (rank 1's block), timed."""
+    rows, vocab = logits.shape
+    w = vocab // 2
+    blocks = [logits[:, :w].contiguous(), logits[:, w:].contiguous()]
+    parts, err = [], 0.0
+    for r, block in enumerate(blocks):
+        got = cross_entropy.cross_entropy_part_kernel(block, t, r * w)
+        err = max(err, check_close(f"{name} block {r}", got,
+                                   cross_entropy.cross_entropy_part_plain(block, t, r * w),
+                                   XENT_LOSS_TOL))
+        parts.append(got)
+        err = max(err, check_close(
+            f"{name} block {r} at {shard_rows} rows",
+            cross_entropy.cross_entropy_part_kernel(block[:shard_rows], t[:shard_rows], r * w),
+            cross_entropy.cross_entropy_part_plain(block[:shard_rows], t[:shard_rows], r * w),
+            XENT_LOSS_TOL))
+    lse = torch.logsumexp(torch.stack([p[0] for p in parts]), dim=0)
+    loss = lse - (parts[0][1] + parts[1][1])
+    check_close(f"{name} combined over both blocks", [loss, lse],
+                [cross_entropy.cross_entropy_plain(logits, t),
+                 cross_entropy.cross_entropy_lse_plain(logits)], XENT_LOSS_TOL)
+    bwd_err = 0.0
+    for r, block in enumerate(blocks):
+        local = t - r * w
+        got = cross_entropy.cross_entropy_bwd_kernel(block, local, lse, grad)
+        bwd_err = max(bwd_err, check_close(
+            f"{name} backward, block {r}, global lse", [got],
+            [cross_entropy.cross_entropy_bwd_plain(block, local, lse, grad)], grad_tol))
+    block, v0 = blocks[1], w
+    m = block.numel()
+    out = row(name, "cross_entropy.cu", replaces,
+              f"rows={rows} vocab block={w} of {vocab} {str(block.dtype)[6:]}", err,
+              time_ms(lambda: cross_entropy.cross_entropy_part_kernel(block, t, v0)),
+              time_ms(lambda: cross_entropy.cross_entropy_part_plain(block, t, v0), 5, 1),
+              bound_ms(block.element_size() * m + 8 * rows + 8 * rows, 4 * m, PEAK_F32), None,
+              jax_file=jax_file)
+    print(f"{name}: two blocks' parts combined meet K5's plain version over the whole "
+          f"vocab; the one-block backward with the global lse and shifted targets, max abs "
+          f"err {bwd_err:.3e}", flush=True)
+    return [out]
+
+
+def xent_part_phase(dev, gen) -> list:
+    """K5's vocab-parallel partial entries at tp = 2's blocks: Llama-3-8B's
+    8192 x 128256 bf16 logits and BERT-large's 16384 x 30522 f32 ones,
+    and the first 4096 rows of each, the rows ``shard2_phase`` gives them."""
+    vocab, rows = llama.llama_3_8b().vocab, TRAIN_BATCH * TRAIN_SEQ
+    logits = bf16((rows, vocab), gen, dev, 2.0)
+    t = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+    out = xent_part_rows("cross_entropy_part", logits, t,
+                         torch.randn(rows, generator=gen, device=dev), XENT_GRAD_TOL,
+                         "196-202", "llama.py", SHARD2_LLAMA_BATCH * TRAIN_SEQ)
+    del logits
+    free_memory()
+    vocab, rows = bert.bert_large().vocab, BERT_BATCH * BERT_SEQ
+    logits = torch.randn((rows, vocab), generator=gen, device=dev) * 2.0
+    t = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+    out += xent_part_rows("cross_entropy_part_f32", logits, t,
+                          torch.randn(rows, generator=gen, device=dev), XENT_F32_GRAD_TOL,
+                          "157-166", "bert.py", SHARD2_BERT_BATCH * BERT_SEQ)
+    del logits
+    for r in out:
+        print_row(r)
+    return out
+
+
+def shard2_models() -> list:
+    """(name, module, config, make_train_state's arguments, the batch) of
+    the sharded paths on two gloo ranks; "llama_noremat" is Llama without
+    remat, whose autograd keeps each layer's gathered weights (the whole
+    model's step is the same values as with remat)."""
+    dev = torch.device("cuda")
+    lcfg = dataclasses.replace(llama.llama_3_8b(), n_layers=SHARD_LAYERS)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, lcfg.vocab, (SHARD2_LLAMA_BATCH, TRAIN_SEQ + 1))).to(dev)
+    bcfg = bert.bert_large()
+    return [("llama", llama, lcfg, dict(seed=0), (tokens,)),
+            ("llama_noremat", llama, dataclasses.replace(lcfg, remat=False), dict(seed=0),
+             (tokens,)),
+            ("bert", bert, bcfg, dict(lr=BERT_LR, seed=0),
+             tuple(t.to(dev) for t in bert.synthetic_batch(bcfg, SHARD2_BERT_BATCH, BERT_SEQ,
+                                                           seed=0)))]
+
+
+def _model(name: str) -> str:
+    return name.split("_")[0]
+
+
+def _leaf(params, path):
+    return params[path[0]] if len(path) == 1 else params["layers"][path[1]][path[2]]
+
+
+def _held(grad: torch.Tensor) -> torch.Tensor:
+    return grad.detach().reshape(-1)[:SHARD2_HELD_NUMEL].float().cpu()
+
+
+def shard2_ref(tmp: str):
+    """The whole model's first step for each sharded path, in a process of
+    its own: its loss, the held leaves' gradients, every leaf's shape."""
+    out = {}
+    for name, mod, cfg, kw, batch in shard2_models():
+        if name != _model(name):
+            continue
+        params, opt = mod.make_train_state(cfg, **kw)
+        step = mod.make_train_step(cfg, params, opt)
+        loss = step(*batch).item()
+        out[name] = dict(loss=loss, grads={p: _held(_leaf(params, p).grad)
+                                           for p in SHARD2_HELD[name]},
+                         shapes=[tuple(p.shape) for p in mod.param_leaves(params)])
+        del params, opt, step
+        free_memory()
+    torch.save(out, f"{tmp}/ref.pt")
+
+
+def count_collective_bytes(dist) -> dict:
+    """Wrap the collectives the sharded steps call so that each adds its
+    tensor's bytes: the all-gathers' outputs, the reduce-scatters' inputs,
+    the all-reduces' tensors.  For this process alone (a shard2 rank)."""
+    count = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+    for name, key, arg in (("all_gather_into_tensor", "all_gather", 0),
+                           ("reduce_scatter_tensor", "reduce_scatter", 1),
+                           ("all_reduce", "all_reduce", 0)):
+        def wrapped(*a, _orig=getattr(dist, name), _key=key, _arg=arg, **kw):
+            count[_key] += a[_arg].numel() * a[_arg].element_size()
+            return _orig(*a, **kw)
+        setattr(dist, name, wrapped)
+    return count
+
+
+def shard2_worker(rank: int, tmp: str, dims: str):
+    """One of 2 gloo ranks on card 0 over make_mesh(*dims): each sharded
+    path's SHARD2_STEPS steps from the seed; writes the losses, the held
+    gradients gathered from the ranks' blocks (rank 0), the launches, the
+    elements held and the specs' share of them, the state, the peak
+    memory, the steps' ms and the last step's collective bytes."""
+    import torch.distributed as dist
+    from kubernetes1_tpu_torch.workloads import sharding
+
+    coll = count_collective_bytes(dist)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/store-{dims}", 2), rank=rank,
+                            world_size=2)
+    try:
+        mesh = sharding.make_mesh(*(int(x) for x in dims.split(",")), device_type="cuda")
+        ref = torch.load(f"{tmp}/ref.pt", weights_only=False)
+        out = {}
+        for name, mod, cfg, kw, batch in shard2_models():
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            params, opt = mod.make_train_state(cfg, mesh=mesh, **kw)
+            step = mod.make_train_step(cfg, params, opt, mesh=mesh)
+            specs = mod.param_specs(cfg)
+            for kern in KERNELS.values():
+                kern.launches = 0
+            losses, ms = [], []
+            for i in range(SHARD2_STEPS):
+                torch.cuda.synchronize()
+                coll.update({k: 0 for k in coll})
+                t0 = time.perf_counter()
+                losses.append(step(*batch).item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    launches_first = {k: kern.launches for k, kern in KERNELS.items()}
+                    grads = {p: _held(sharding.gather_tensor(
+                        _leaf(params, p).grad, sharding.spec_of(specs, p), mesh))
+                        for p in SHARD2_HELD[_model(name)]}
+            leaves = mod.param_leaves(params)
+            leaf_specs = sharding.spec_leaves(specs, cfg.n_layers, mod.param_leaves)
+            out[name] = dict(
+                losses=losses, ms=ms, grads=grads if rank == 0 else None, coll=dict(coll),
+                launches_first=launches_first,
+                launches={k: kern.launches for k, kern in KERNELS.items()},
+                numel=sum(p.numel() for p in leaves),
+                share=sharding.spec_numel(ref[_model(name)]["shapes"], leaf_specs, mesh),
+                state=sum(t.numel() for p in leaves for t in opt.state[p].values()),
+                peak=torch.cuda.max_memory_allocated())
+            del params, opt, step, leaves, grads
+        torch.save(out, f"{tmp}/out-{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_script(args: list, tmp: str, n: int, what: str):
+    """n processes of this script, rank r's arguments ``args`` with r
+    after the first; fail with their logs' ends unless every one exits 0."""
+    logs = [open(f"{tmp}/log-{r}.txt", "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), args[0], str(r),
+                               *args[1:]], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(n)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if rcs != [0] * n:
+        text = "\n".join(open(f"{tmp}/log-{r}.txt").read()[-3000:] for r in range(n))
+        fail(f"{what}: exit codes {rcs}:\n{text}")
+
+
+def shard_launches(name: str, cfg, tp: int) -> dict:
+    """One sharded step's launches: the path's own, with K5's partial
+    entry in place of the one-block forward over tp.  Llama without remat
+    runs each layer's RMSNorms and SwiGLU once."""
+    L = cfg.n_layers
+    if name == "bert":
+        per_step = bert_launches_per_step(L)
+    elif cfg.remat:
+        per_step = train_launches_per_step(L)
+    else:
+        per_step = {**train_launches_per_step(L), "rmsnorm": 2 * L + 1, "swiglu": L}
+    if tp > 1:
+        fwd = "cross_entropy" if name != "bert" else "cross_entropy_f32"
+        per_step = {**per_step, fwd: 0, fwd.replace("cross_entropy", "cross_entropy_part"): 1}
+    return per_step
+
+
+def shard2_phase(card: str) -> dict:
+    """The whole model's first step in its own process, then 2 gloo ranks
+    on this card at each of SHARD2_MESHES: each sharded path held to it,
+    its launches per step asserted, each rank's parameters and state the
+    specs' share."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="shard2_")
+    total = {name: 0 for name in KERNELS}
+    res = {}
+    try:
+        _run_script(["--shard2-ref", tmp], tmp, 1, "shard2 whole model")
+        ref = torch.load(f"{tmp}/ref.pt", weights_only=False)
+        for dims in SHARD2_MESHES:
+            tag = "dp={} fsdp={} tp={}".format(*dims)
+            _run_script(["--shard2-rank", tmp, ",".join(map(str, dims))], tmp, 2,
+                        f"shard2 {tag}")
+            outs = [torch.load(f"{tmp}/out-{r}.pt", weights_only=False) for r in range(2)]
+            for name, _mod, cfg, _kw, _batch in shard2_models():
+                got, want = outs[0][name], ref[_model(name)]
+                if any(o[name]["losses"] != got["losses"] for o in outs):
+                    fail(f"shard2 {tag} {name}: the ranks' losses differ")
+                per_step = shard_launches(name, cfg, dims[2])
+                for k, n in got["launches"].items():
+                    if n != per_step.get(k, 0) * SHARD2_STEPS or \
+                            got["launches_first"][k] != per_step.get(k, 0):
+                        fail(f"shard2 {tag} {name}: {k} launched {got['launches_first'][k]} "
+                             f"times in the first step and {n} in {SHARD2_STEPS}, want "
+                             f"{per_step.get(k, 0)} a step")
+                    total[k] += n
+                for r, o in enumerate(outs):
+                    if o[name]["numel"] != o[name]["share"] or \
+                            o[name]["state"] != 2 * o[name]["share"]:
+                        fail(f"shard2 {tag} {name} rank {r}: holds {o[name]['numel']} "
+                             f"parameters and {o[name]['state']} of state, its specs' share "
+                             f"is {o[name]['share']}")
+                whole = sum(int(np.prod(s)) for s in want["shapes"])
+
+                def rel(gs):
+                    return {"/".join(map(str, p)): ((gs[p] - want["grads"][p]).norm()
+                                                    / want["grads"][p].norm().clamp_min(1e-30)
+                                                    ).item() for p in SHARD2_HELD[_model(name)]}
+
+                errs = rel(got["grads"])
+                wrong = {"halved": rel({p: g / 2 for p, g in got["grads"].items()}),
+                         "zero": rel({p: torch.zeros_like(g) for p, g in got["grads"].items()})}
+                loss_tol = BERT_LOSS_TOL if name == "bert" else TRAIN_LOSS_TOL
+                numel = got["numel"]
+                print(f"shard2 {tag} {name} (2 gloo ranks on one card): first loss "
+                      f"{got['losses'][0]:.6f} vs the whole model's {want['loss']:.6f} (tol "
+                      f"{loss_tol}); first step's gradients' rel_l2 against the whole model's "
+                      f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (tol {SHARD2_GRAD_TOL}; "
+                      + "; ".join(f"{w}: min {min(e.values()):.3e}" for w, e in wrong.items())
+                      + f"); launches per step {per_step}; per rank {numel:,} of {whole:,} "
+                      f"parameters: {numel * 4 / 1e9:.2f} GB of weights, "
+                      f"{numel * 16 / 1e9:.2f} GB with their gradients and AdamW's m and v "
+                      f"({whole * 16 / 1e9:.2f} GB whole); peak memory GB "
+                      f"{[round(o[name]['peak'] / 1e9, 2) for o in outs]}; step ms "
+                      f"{[round(o[name]['ms'][-1], 1) for o in outs]} (gloo through the host, "
+                      f"not a multi-card figure); collective GB a step (rank 0) "
+                      f"{ {k: round(v / 1e9, 4) for k, v in got['coll'].items()} } on [{card}]",
+                      flush=True)
+                if not abs(got["losses"][0] - want["loss"]) <= loss_tol:
+                    fail(f"shard2 {tag} {name}: loss {got['losses'][0]} vs {want['loss']}")
+                if not max(errs.values()) <= SHARD2_GRAD_TOL:
+                    fail(f"shard2 {tag} {name}: gradients beyond {SHARD2_GRAD_TOL}: {errs}")
+                for w, e in wrong.items():
+                    if min(e.values()) <= SHARD2_GRAD_TOL:
+                        fail(f"shard2: {w} gradients pass the bar: the check cannot see them")
+                res[tag, name] = dict(loss=got["losses"][0], whole_loss=want["loss"],
+                                      grad_rel=errs, numel=numel, whole=whole,
+                                      peak=[o[name]["peak"] for o in outs], coll=got["coll"],
+                                      step_ms=[o[name]["ms"][-1] for o in outs])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = total
+    return res
+
+
+def dryrun_phase():
+    """entry.dryrun_multichip(1) over NCCL: the sharded Llama and BERT
+    steps and the ring on a one-rank mesh, on this one card."""
+    from kubernetes1_tpu_torch import entry
+
+    line = entry.dryrun_multichip(1)
+    print(f"entry.dryrun_multichip(1), NCCL: {line}; n > 1 takes a card a rank, and this "
+          f"machine has {torch.cuda.device_count()}", flush=True)
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -3166,6 +3528,8 @@ def main():
     free_memory()
     bert_rows, bert_per_call = bert_kernel_phase(dev, gen)
     free_memory()
+    part_rows = xent_part_phase(dev, gen)
+    free_memory()
     ring_rows = ring_kernel_phase(dev, gen)
     free_memory()
     determinism_phase(dev)
@@ -3196,9 +3560,13 @@ def main():
     free_memory()
     dp2 = dp2_phase(card)
     dp["launches"] = {k: n + dp2["launches"][k] for k, n in dp["launches"].items()}
-    rows += bn_rows + bn_split_rows + bert_rows + ring_rows + optim_rows
+    free_memory()
+    shard = shard2_phase(card)
+    free_memory()
+    dryrun_phase()
+    rows += bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,
-             "llama_bench": bench, "dp": dp}
+             "llama_bench": bench, "dp": dp, "shard": shard}
     for r in rows:
         for path, res in paths.items():
             r[f"launches_{path}"] = res["launches"][r["name"]]
@@ -3213,5 +3581,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp2-rank"]:  # one rank of dp2_phase
         dp2_worker(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ["--shard2-ref"]:  # shard2_phase's whole model
+        shard2_ref(sys.argv[3])
+    elif sys.argv[1:2] == ["--shard2-rank"]:  # one rank of shard2_phase
+        shard2_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     else:
         main()

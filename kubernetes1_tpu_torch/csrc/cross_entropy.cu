@@ -30,6 +30,17 @@
 // otherwise), then the pairs are merged across the warp with shuffles and
 // across the warps in shared memory.  A target outside [0, vocab) gives a
 // NaN loss.
+//
+// Vocab-parallel partial (ktpu_xent_part_*): under JAX's param specs the
+// logits are split over the tp ranks by vocab (llama.py:93 `unembed`
+// P("fsdp", "tp"); bert.py:64,153, the tied decode of `embed` P("tp",
+// "fsdp")), and JAX's log_softmax reduces across the split.  The same row
+// loop over a rank's block of V columns, the block starting at global
+// column v0, writes per row the block's lse and the target's logit where
+// the target lies in [v0, v0 + V), else 0.  The wrapper adds the ranks'
+// target logits and takes the log-sum-exp of their lse; the backward is
+// ktpu_xent_bwd_* fed the global lse and targets - v0 (no one-hot outside
+// [0, V)).  Bound: bytes, as the forward.
 
 #include "common.cuh"
 
@@ -60,10 +71,12 @@ template <> struct Raw<16> { using type = uint4; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<4> { using type = unsigned; };
 
-template <typename T, int VEC>
+// PART: `out` gets the target's logit (0 outside [v0, v0 + V)), else the
+// loss (NaN for a target outside [0, V)).
+template <typename T, int VEC, bool PART>
 __global__ void __launch_bounds__(kThreads)
 xent_fwd_kernel(const T* __restrict__ logits, const long long* __restrict__ targets,
-                float* __restrict__ loss, float* __restrict__ lse, int V) {
+                float* __restrict__ out, float* __restrict__ lse, int V, long long v0) {
   __shared__ float sm_m[kThreads / 32], sm_s[kThreads / 32];
   const long long row = blockIdx.x;
   const T* x = logits + row * V;
@@ -110,9 +123,11 @@ xent_fwd_kernel(const T* __restrict__ logits, const long long* __restrict__ targ
     }
     if (lane == 0) {
       const float l = m + logf(s);
-      const long long t = targets[row];
+      const long long t = targets[row] - v0;
+      const bool inside = t >= 0 && t < V;
       lse[row] = l;
-      loss[row] = (t >= 0 && t < V) ? l - to_f(x[t]) : NAN;
+      if constexpr (PART) out[row] = inside ? to_f(x[t]) : 0.f;
+      else out[row] = inside ? l - to_f(x[t]) : NAN;
     }
   }
 }
@@ -157,9 +172,9 @@ int vec_for(int V) {
   return V % 4 == 0 ? 4 : (V % 2 == 0 ? 2 : 1);
 }
 
-template <typename T>
+template <typename T, bool PART>
 int launch_fwd(const void* logits, const void* targets, void* loss, void* lse, int rows, int V,
-               void* stream) {
+               long long v0, void* stream) {
   if (rows <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const T*>(logits);
@@ -168,12 +183,12 @@ int launch_fwd(const void* logits, const void* targets, void* loss, void* lse, i
   auto* ls = static_cast<float*>(lse);
   const int vec = vec_for<T>(V);
   if constexpr (sizeof(T) == 2) {
-    if (vec == 8) xent_fwd_kernel<T, 8><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
-    else xent_fwd_kernel<T, 1><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+    if (vec == 8) xent_fwd_kernel<T, 8, PART><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V, v0);
+    else xent_fwd_kernel<T, 1, PART><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V, v0);
   } else {
-    if (vec == 4) xent_fwd_kernel<T, 4><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
-    else if (vec == 2) xent_fwd_kernel<T, 2><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
-    else xent_fwd_kernel<T, 1><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V);
+    if (vec == 4) xent_fwd_kernel<T, 4, PART><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V, v0);
+    else if (vec == 2) xent_fwd_kernel<T, 2, PART><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V, v0);
+    else xent_fwd_kernel<T, 1, PART><<<rows, kThreads, 0, st>>>(x, t, lo, ls, V, v0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -206,12 +221,25 @@ int launch_bwd(const void* logits, const void* targets, const void* lse, const v
 // lse: (rows,) f32.
 extern "C" int ktpu_xent_fwd_bf16(const void* logits, const void* targets, void* loss,
                                   void* lse, int rows, int V, void* stream) {
-  return launch_fwd<__nv_bfloat16>(logits, targets, loss, lse, rows, V, stream);
+  return launch_fwd<__nv_bfloat16, false>(logits, targets, loss, lse, rows, V, 0, stream);
 }
 
 extern "C" int ktpu_xent_fwd_f32(const void* logits, const void* targets, void* loss,
                                  void* lse, int rows, int V, void* stream) {
-  return launch_fwd<float>(logits, targets, loss, lse, rows, V, stream);
+  return launch_fwd<float, false>(logits, targets, loss, lse, rows, V, 0, stream);
+}
+
+// The vocab-parallel partial: logits (rows, V) one rank's block of the
+// vocab, starting at global column v0; targets: (rows,) int64 global ids;
+// tgt, lse: (rows,) f32.
+extern "C" int ktpu_xent_part_bf16(const void* logits, const void* targets, void* tgt,
+                                   void* lse, int rows, int V, long long v0, void* stream) {
+  return launch_fwd<__nv_bfloat16, true>(logits, targets, tgt, lse, rows, V, v0, stream);
+}
+
+extern "C" int ktpu_xent_part_f32(const void* logits, const void* targets, void* tgt,
+                                  void* lse, int rows, int V, long long v0, void* stream) {
+  return launch_fwd<float, true>(logits, targets, tgt, lse, rows, V, v0, stream);
 }
 
 // logits, dlogits: (rows, V) contiguous, of one dtype (bf16 or f32),

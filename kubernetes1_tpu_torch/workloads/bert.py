@@ -17,11 +17,16 @@ Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 dicts (JAX stacks them on a leading axis for ``lax.scan``).  Under
 ``cfg.remat`` each layer is one ``torch.utils.checkpoint``, as JAX's
 ``jax.checkpoint`` with no policy recomputes the whole layer body: the
-attention forward runs twice per layer and step.  The train step is data
-parallel over a ``DeviceMesh`` (``mesh=``, one process per card: each rank
-takes its rows of the global batch, the loss divides by the global batch's
-masked count and the gradients are summed); the parameter-sharded step
-comes with a later slice.
+attention forward runs twice per layer and step.  The train step runs
+over a ``DeviceMesh`` (``mesh=``, one process per card) with JAX's
+placement (``param_specs``): each rank holds its block of every leaf, the
+data ranks take their rows of the global batch (the loss divides by the
+global batch's masked count and the gradients are summed), a layer
+gathers its fsdp blocks inside remat's checkpoint, and over tp the layer
+works on its heads and its columns of d_ff; the head's transform is split
+by column and gathered over tp after its GELU (the tied decode needs the
+whole d), and the decode reads this rank's vocab block of ``embed`` into
+K5's vocab-parallel form, with ``mlm_bias``'s slice of that block.
 
 BERT-large = BertConfig(d_model=1024, n_layers=24, n_heads=16, d_ff=4096,
 vocab=30522, max_seq=512).
@@ -80,6 +85,63 @@ def tiny(vocab: int = 256, d_model: int = 64, n_layers: int = 2, n_heads: int = 
 LAYER_KEYS = ("ln1_scale", "ln1_bias", "wq", "wk", "wv", "wo", "ln2_scale", "ln2_bias",
               "w_in", "w_out")
 TOP_KEYS = ("embed", "pos_embed", "final_ln_scale", "final_ln_bias", "mlm_dense", "mlm_bias")
+# JAX's PartitionSpecs (kubernetes1_tpu/workloads/bert.py:60-79) without the
+# stacked layer axis.
+LAYER_SPECS = {
+    "ln1_scale": (None,), "ln1_bias": (None,),
+    "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    "ln2_scale": (None,), "ln2_bias": (None,),
+    "w_in": ("fsdp", "tp"),      # (d, f)
+    "w_out": ("tp", "fsdp"),     # (f, d)
+}
+TOP_SPECS = {
+    "embed": ("tp", "fsdp"),        # (vocab, d)
+    "pos_embed": (None, "fsdp"),    # (max_seq, d)
+    "final_ln_scale": (None,), "final_ln_bias": (None,),
+    "mlm_dense": ("fsdp", "tp"),    # (d, d) transform head
+    "mlm_bias": (None,),            # (vocab,) decode bias
+}
+
+
+def param_specs(cfg: BertConfig) -> Dict[str, Any]:
+    """Each leaf's placement over a ``("dp", "fsdp", "tp")`` mesh, JAX's
+    ``param_specs`` leaf for leaf (``sharding.Spec``); "layers" is the one
+    spec dict of every layer."""
+    return {**TOP_SPECS, "layers": dict(LAYER_SPECS)}
+
+
+def leaf_shapes(cfg: BertConfig):
+    """Every leaf of ``init_params`` in its draw order: (path, whole shape,
+    fan_in), the path ("embed",) or ("layers", i, key); fan_in None for a
+    LayerNorm scale (ones) or a bias (zeros)."""
+    d = cfg.d_model
+    layer = {"ln1_scale": ((d,), None), "ln1_bias": ((d,), None), "wq": ((d, d), d),
+             "wk": ((d, d), d), "wv": ((d, d), d), "wo": ((d, d), d),
+             "ln2_scale": ((d,), None), "ln2_bias": ((d,), None),
+             "w_in": ((d, cfg.d_ff), d), "w_out": ((cfg.d_ff, d), cfg.d_ff)}
+    yield ("embed",), (cfg.vocab, d), d
+    yield ("pos_embed",), (cfg.max_seq, d), d
+    for i in range(cfg.n_layers):
+        for key in LAYER_KEYS:
+            yield ("layers", i, key), *layer[key]
+    yield ("final_ln_scale",), (d,), None
+    yield ("final_ln_bias",), (d,), None
+    yield ("mlm_dense",), (d, d), d
+    yield ("mlm_bias",), (cfg.vocab,), None
+
+
+def init_leaves(cfg: BertConfig, generator: torch.Generator):
+    """``init_params``'s leaves one at a time, in its draw order: (path,
+    tensor)."""
+    dev = generator.device
+    for path, shape, fan_in in leaf_shapes(cfg):
+        if fan_in is None:
+            value = 1.0 if path[-1].endswith("scale") else 0.0
+            yield path, torch.full(shape, value, device=dev, dtype=torch.float32)
+        else:
+            x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+            yield path, x.div_(math.sqrt(fan_in))
 
 
 def init_params(cfg: BertConfig, generator: torch.Generator) -> Dict[str, Any]:
@@ -89,30 +151,7 @@ def init_params(cfg: BertConfig, generator: torch.Generator) -> Dict[str, Any]:
     scales, zeros for biases.  (The draws differ from ``jax.random``'s;
     carry JAX weights over with ``params_from_jax`` where the numbers must
     match.)"""
-    dev = generator.device
-    d = cfg.d_model
-
-    def w(shape, fan_in):
-        x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return x.div_(math.sqrt(fan_in))
-
-    def full(n, value):
-        return torch.full((n,), value, device=dev, dtype=torch.float32)
-
-    return {
-        "embed": w((cfg.vocab, d), d),
-        "pos_embed": w((cfg.max_seq, d), d),
-        "layers": [{
-            "ln1_scale": full(d, 1.0), "ln1_bias": full(d, 0.0),
-            "wq": w((d, d), d), "wk": w((d, d), d), "wv": w((d, d), d), "wo": w((d, d), d),
-            "ln2_scale": full(d, 1.0), "ln2_bias": full(d, 0.0),
-            "w_in": w((d, cfg.d_ff), d), "w_out": w((cfg.d_ff, d), cfg.d_ff),
-        } for _ in range(cfg.n_layers)],
-        "final_ln_scale": full(d, 1.0),
-        "final_ln_bias": full(d, 0.0),
-        "mlm_dense": w((d, d), d),
-        "mlm_bias": full(cfg.vocab, 0.0),
-    }
+    return sharding.tree_from_leaves(init_leaves(cfg, generator), cfg.n_layers)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: BertConfig,
@@ -157,6 +196,8 @@ class Ops(NamedTuple):
     attention: Callable  # non-causal: (q, k, v) -> o
     gelu: Callable
     cross_entropy: Callable
+    # over a vocab block: (logits, targets, v0, tp group) -> per-row loss
+    cross_entropy_vp: Callable = _cross_entropy.cross_entropy_vocab_parallel
 
 
 # The wrappers: the kernels on CUDA tensors (forward and backward), the
@@ -165,7 +206,10 @@ KERNELS = Ops(_layernorm.layernorm, partial(_attention.attention, causal=False),
               _cross_entropy.cross_entropy)
 # The plain versions on every device: the reference a card run compares with.
 PLAIN = Ops(_layernorm.layernorm_plain, partial(_attention.attention_plain, causal=False),
-            _gelu.gelu_plain, _cross_entropy.cross_entropy_plain)
+            _gelu.gelu_plain, _cross_entropy.cross_entropy_plain,
+            _cross_entropy.cross_entropy_vocab_parallel_plain)
+# No mesh: every leaf whole, no collective.
+WHOLE = sharding.Layout()
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -175,43 +219,61 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def layer_fn(cfg: BertConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-             ops: Ops = KERNELS) -> torch.Tensor:
-    """Post-LN transformer encoder block (BERT ordering)."""
+             ops: Ops = KERNELS, lay: sharding.Layout = WHOLE) -> torch.Tensor:
+    """Post-LN transformer encoder block (BERT ordering); over tp, this
+    rank's heads and columns of d_ff, the projections' partial sums added
+    across the ranks."""
     B, S, _d = x.shape
-    h, hd, dt = cfg.n_heads, cfg.head_dim, cfg.dtype
-    q = (x @ lp["wq"].to(dt)).reshape(B, S, h, hd)
-    k = (x @ lp["wk"].to(dt)).reshape(B, S, h, hd)
-    v = (x @ lp["wv"].to(dt)).reshape(B, S, h, hd)
+    hd, dt = cfg.head_dim, cfg.dtype
+
+    def w(key):
+        return lay.full(lp[key].to(dt), LAYER_SPECS[key])
+
+    xc = lay.copy(x)
+    q = (xc @ w("wq")).reshape(B, S, -1, hd)
+    k = (xc @ w("wk")).reshape(B, S, -1, hd)
+    v = (xc @ w("wv")).reshape(B, S, -1, hd)
     attn = ops.attention(q, k, v)  # bidirectional: no causal mask
-    attn = attn.reshape(B, S, h * hd) @ lp["wo"].to(dt)
+    attn = lay.reduce(attn.reshape(B, S, -1) @ w("wo"))
     x = layernorm(x + attn, lp["ln1_scale"], lp["ln1_bias"], ops)
-    ff = ops.gelu(x @ lp["w_in"].to(dt)) @ lp["w_out"].to(dt)
+    ff = lay.reduce(ops.gelu(lay.copy(x) @ w("w_in")) @ w("w_out"))
     return layernorm(x + ff, lp["ln2_scale"], lp["ln2_bias"], ops)
 
 
 def forward(cfg: BertConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            ops: Ops = KERNELS) -> torch.Tensor:
-    """tokens (B, S) integer -> MLM logits (B, S, vocab) float32."""
+            ops: Ops = KERNELS, lay: sharding.Layout = WHOLE) -> torch.Tensor:
+    """tokens (B, S) integer -> MLM logits (B, S, vocab) float32; over tp,
+    the logits of this rank's vocab block (B, S, vocab / tp)."""
     _B, S = tokens.shape
     dt = cfg.dtype
-    # gather the rows, then cast: the values of casting the whole table first
-    x = params["embed"][tokens].to(dt)
-    x = x + params["pos_embed"][:S].to(dt)[None, :, :]
+    # this rank's vocab block, its d gathered over fsdp for the tied decode
+    embed = lay.full(params["embed"].to(dt), TOP_SPECS["embed"])
+    # the rows from the f32 block where its d is whole here (their gradient
+    # adds in f32, as without a mesh), else from the gathered copy; gather the
+    # rows, then cast: the values of casting the whole table first
+    table = params["embed"] if lay.fsdp == 1 else embed
+    x = lay.lookup(table, tokens, ("tp", None), dt)
+    x = x + lay.full(params["pos_embed"][:S].to(dt), TOP_SPECS["pos_embed"])[None, :, :]
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
         if remat:  # jax.checkpoint on the layer body: all of it recomputes
-            x = checkpoint(layer_fn, cfg, x, lp, ops, use_reentrant=False)
+            x = checkpoint(layer_fn, cfg, x, lp, ops, lay, use_reentrant=False)
         else:
-            x = layer_fn(cfg, x, lp, ops)
+            x = layer_fn(cfg, x, lp, ops, lay)
     x = layernorm(x, params["final_ln_scale"], params["final_ln_bias"], ops)
-    x = ops.gelu(x @ params["mlm_dense"].to(dt))
+    x = ops.gelu(lay.copy(x) @ lay.full(params["mlm_dense"].to(dt), TOP_SPECS["mlm_dense"]))
+    x = lay.copy(lay.gather_last(x))  # the tied decode needs the whole d
+    bias = params["mlm_bias"]
+    if lay.tp > 1:  # this rank's vocab block of the replicated bias
+        bias = lay.copy(bias).narrow(0, lay.vocab_start(embed.shape[0]), embed.shape[0])
     # tied decode: the token embedding as the output projection; the f32
     # bias promotes the bf16 product to f32, as in JAX
-    return (x @ params["embed"].to(dt).T + params["mlm_bias"]).float()
+    return (x @ embed.T + bias).float()
 
 
 def mlm_loss_fn(cfg: BertConfig, params: Dict[str, Any], tokens: torch.Tensor,
-                mask: torch.Tensor, ops: Ops = KERNELS, mesh=None) -> torch.Tensor:
+                mask: torch.Tensor, ops: Ops = KERNELS, mesh=None,
+                lay: sharding.Layout = WHOLE) -> torch.Tensor:
     """Masked-LM: predict original tokens at masked positions only; a
     0-dim f32 tensor.  ``mask`` (B, S) is 1 where the input was replaced
     by MASK_TOKEN.  The per-row NLL is the cross-entropy op's over the f32
@@ -221,10 +283,19 @@ def mlm_loss_fn(cfg: BertConfig, params: Dict[str, Any], tokens: torch.Tensor,
     With ``mesh``, ``tokens`` and ``mask`` are this rank's rows and the
     denominator is the global batch's masked count (JAX's ``mask.sum()``
     over the whole batch): the ranks' losses then sum to the global loss,
-    and so do their gradients."""
+    and so do their gradients.  Over tp (``lay``), the per-row NLL is
+    K5's vocab-parallel form over this rank's block of the logits."""
     masked_in = torch.where(mask == 1, MASK_TOKEN, tokens)
-    logits = forward(cfg, params, masked_in, ops)
-    nll = ops.cross_entropy(logits.reshape(-1, cfg.vocab), tokens.reshape(-1).to(torch.int64))
+    logits = forward(cfg, params, masked_in, ops, lay)
+    # a fresh tensor: the kernels take 16-byte aligned inputs, and a data
+    # rank's rows of the batch need not start at one
+    targets = tokens.reshape(-1).to(torch.int64).clone()
+    if lay.tp == 1:
+        nll = ops.cross_entropy(logits.reshape(-1, cfg.vocab), targets)
+    else:
+        block = logits.shape[-1]
+        nll = ops.cross_entropy_vp(logits.reshape(-1, block), targets, lay.vocab_start(block),
+                                   lay.tp_group)
     m = mask.reshape(-1).to(torch.float32)
     count = m.sum() if mesh is None else sharding.all_reduce_value(m.sum(), mesh, "sum")
     return (nll * m).sum() / count.clamp_min(1.0)
@@ -240,14 +311,23 @@ def make_train_state(cfg: BertConfig, device: Optional[torch.device | str] = Non
     ``params_from_jax``) that require grad, and the port's AdamW (K10) over
     all of them: optax's ``adamw(lr, weight_decay=0.01)`` with its defaults, decay on
     every leaf.  ``device`` defaults to the card and raises without one.
-    With ``mesh``, every data rank's weights become rank 0's before the
-    optimizer is built over them."""
+
+    With ``mesh``, each rank keeps its block of every leaf by
+    ``param_specs`` (``sharding.shard_params``), and the optimizer's state
+    is of those blocks.  From the seed, every rank draws the whole leaves
+    one at a time and keeps its block of each; given ``params`` must be
+    the same on every rank, and the dict's entries are replaced by the
+    blocks (it is the returned dict)."""
     dev = resolve_device(device)
+    specs = param_specs(cfg)
     if params is None:
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = sharding.tree_from_leaves(
+            ((path, sharding.shard_tensor(t, sharding.spec_of(specs, path), mesh))
+             for path, t in init_leaves(cfg, gen)), cfg.n_layers)
+    elif mesh is not None:
+        params.update(sharding.shard_params(params, specs, mesh))
     leaves = param_leaves(params)
-    if mesh is not None:
-        sharding.broadcast_params(leaves, mesh)
     for p in leaves:
         p.requires_grad_(True)
     return params, optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
@@ -262,18 +342,27 @@ def make_train_step(cfg: BertConfig, params: Dict[str, Any], opt: torch.optim.Op
 
     With ``mesh``, ``tokens`` and ``mask`` are the global batch: each data
     rank takes its rows, divides by the global masked count (the ranks'
-    counts differ), and the gradients and the loss are summed over the
-    data ranks before the update."""
+    counts differ), and the gradients (``sharding.reduce_grads``: an
+    fsdp-sharded leaf's summed over fsdp by its gather) and the loss are
+    summed over the data ranks before the update.  ``params`` are this
+    rank's blocks (``make_train_state`` with the mesh): raises ValueError
+    where a leaf is not."""
     leaves = param_leaves(params)
+    specs = sharding.spec_leaves(param_specs(cfg), cfg.n_layers, param_leaves)
+    if mesh is not None:
+        sharding.check_blocks(leaves, sharding.whole_shapes(leaf_shapes(cfg), cfg.n_layers,
+                                                            param_leaves),
+                              specs, mesh, "bert.make_train_step")
+    lay = WHOLE if mesh is None else sharding.Layout(mesh, "sum")
 
     def step(tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if mesh is not None:
             tokens, mask = (sharding.shard_batch(t, mesh) for t in (tokens, mask))
         opt.zero_grad(set_to_none=True)
-        loss = mlm_loss_fn(cfg, params, tokens, mask, ops, mesh)
+        loss = mlm_loss_fn(cfg, params, tokens, mask, ops, mesh, lay)
         loss.backward()
         if mesh is not None:
-            sharding.all_reduce_grads(leaves, mesh, "sum")
+            sharding.reduce_grads(leaves, specs, mesh, "sum")
             loss = sharding.all_reduce_value(loss, mesh, "sum")
         opt.step()
         return loss.detach()

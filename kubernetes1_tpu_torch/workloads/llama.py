@@ -17,10 +17,15 @@ Weights keep JAX's ``(d_in, d_out)`` layout and the forward computes
 ``h @ W``, so weights carried over from the JAX pytree
 (``params_from_jax``) need no transpose.  Layers are a list of per-layer
 dicts (JAX stacks them on a leading axis for ``lax.scan``).  The train
-step is data parallel over a ``DeviceMesh`` (``mesh=``, one process per
-card: each rank takes its rows of the global batch and the gradients are
-averaged, as JAX's step splits the batch over ``(dp, fsdp)``); the
-parameter-sharded step and ``serving_deployment`` come with later slices.
+step runs over a ``DeviceMesh`` (``mesh=``, one process per card) with
+JAX's placement (``param_specs``): each rank holds its block of every
+leaf, the data ranks (dp x fsdp) take their rows of the global batch, a
+layer gathers its fsdp blocks where it runs (inside remat's checkpoint,
+so the backward gathers them again), and over tp the layer works on its
+heads and its columns of d_ff (Megatron's split: q, k, v, gate and up
+split by column behind the tp "copy", wo and down by row before the tp
+"reduce"), the embedding looks up its vocab block and the loss is K5's
+vocab-parallel form.  ``serving_deployment`` comes with a later slice.
 
 Llama-3-8B = LlamaConfig(d_model=4096, n_layers=32, n_heads=32,
 n_kv_heads=8, d_ff=14336, vocab=128256, rope_theta=500000).
@@ -98,6 +103,60 @@ def tiny(vocab: int = 256, d_model: int = 64, n_layers: int = 2, n_heads: int = 
 # are the same, since the cast rounds to nearest even either way.
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+# JAX's PartitionSpecs (kubernetes1_tpu/workloads/llama.py:71-94) without
+# the stacked layer axis: Megatron's tp on heads and d_ff, fsdp on the other
+# weight dim; the vocab over tp and fsdp.
+LAYER_SPECS = {
+    "attn_norm": (None,),
+    "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    "mlp_norm": (None,),
+    "w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+    "w_down": ("tp", "fsdp"),
+}
+EMBED_SPEC = (("tp", "fsdp"), None)   # (vocab, d)
+FINAL_NORM_SPEC = (None,)
+UNEMBED_SPEC = ("fsdp", "tp")         # (d, vocab)
+
+
+def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Each leaf's placement over a ``("dp", "fsdp", "tp")`` mesh, JAX's
+    ``param_specs`` leaf for leaf (``sharding.Spec``); "layers" is the one
+    spec dict of every layer."""
+    return {"embed": EMBED_SPEC, "layers": dict(LAYER_SPECS), "final_norm": FINAL_NORM_SPEC,
+            "unembed": UNEMBED_SPEC}
+
+
+def leaf_shapes(cfg: LlamaConfig):
+    """Every leaf of ``init_params`` in its draw order: (path, whole shape,
+    fan_in), the path ("embed",) or ("layers", i, key); fan_in None for a
+    norm's scale (ones)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    layer = {"attn_norm": ((d,), None), "wq": ((d, q), d), "wk": ((d, kv), d),
+             "wv": ((d, kv), d), "wo": ((q, d), q), "mlp_norm": ((d,), None),
+             "w_gate": ((d, cfg.d_ff), d), "w_up": ((d, cfg.d_ff), d),
+             "w_down": ((cfg.d_ff, d), cfg.d_ff)}
+    yield ("embed",), (cfg.vocab, d), d
+    for i in range(cfg.n_layers):
+        for key in LAYER_KEYS:
+            yield ("layers", i, key), *layer[key]
+    yield ("final_norm",), (d,), None
+    yield ("unembed",), (d, cfg.vocab), d
+
+
+def init_leaves(cfg: LlamaConfig, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None):
+    """``init_params``'s leaves one at a time, in its draw order: (path,
+    tensor)."""
+    dev = generator.device
+    dtype = dtype or cfg.dtype
+    for path, shape, fan_in in leaf_shapes(cfg):
+        if fan_in is None:
+            yield path, torch.ones(shape, device=dev, dtype=dtype)
+        else:
+            x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+            yield path, x.div_(math.sqrt(fan_in)).to(dtype)
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -107,33 +166,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     for matrices, ones for norms.  (The draws differ from
     ``jax.random``'s; carry JAX weights over with ``params_from_jax``
     where the numbers must match.)"""
-    dev = generator.device
-    d, hd = cfg.d_model, cfg.head_dim
-    dtype = dtype or cfg.dtype
-
-    def w(shape, fan_in):
-        x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return x.div_(math.sqrt(fan_in)).to(dtype)
-
-    def ones(n):
-        return torch.ones(n, device=dev, dtype=dtype)
-
-    return {
-        "embed": w((cfg.vocab, d), d),
-        "layers": [{
-            "attn_norm": ones(d),
-            "wq": w((d, cfg.n_heads * hd), d),
-            "wk": w((d, cfg.n_kv_heads * hd), d),
-            "wv": w((d, cfg.n_kv_heads * hd), d),
-            "wo": w((cfg.n_heads * hd, d), cfg.n_heads * hd),
-            "mlp_norm": ones(d),
-            "w_gate": w((d, cfg.d_ff), d),
-            "w_up": w((d, cfg.d_ff), d),
-            "w_down": w((cfg.d_ff, d), cfg.d_ff),
-        } for _ in range(cfg.n_layers)],
-        "final_norm": ones(d),
-        "unembed": w((d, cfg.vocab), d),
-    }
+    return sharding.tree_from_leaves(init_leaves(cfg, generator, dtype), cfg.n_layers)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig, device: torch.device | str,
@@ -192,6 +225,8 @@ class Ops(NamedTuple):
     attention: Callable
     swiglu: Callable
     cross_entropy: Callable
+    # over a vocab block: (logits, targets, v0, tp group) -> per-row loss
+    cross_entropy_vp: Callable = _cross_entropy.cross_entropy_vocab_parallel
 
 
 # The wrappers: the kernels on CUDA tensors (forward and backward), the
@@ -200,65 +235,80 @@ KERNELS = Ops(_rmsnorm.rmsnorm, _rope.rope, _attention.attention, _swiglu.swiglu
               _cross_entropy.cross_entropy)
 # The plain versions on every device: the reference a card run compares with.
 PLAIN = Ops(_rmsnorm.rmsnorm_plain, _rope.rope_plain, _attention.attention_plain,
-            _swiglu.swiglu_plain, _cross_entropy.cross_entropy_plain)
+            _swiglu.swiglu_plain, _cross_entropy.cross_entropy_plain,
+            _cross_entropy.cross_entropy_vocab_parallel_plain)
+# No mesh: every leaf whole, no collective.
+WHOLE = sharding.Layout()
 
 
 def _attn_inputs(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                 ops: Ops) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The layer up to the attention call: rotated q, k and v."""
+                 ops: Ops, lay: sharding.Layout = WHOLE
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The layer up to the attention call: rotated q, k and v of this
+    rank's heads (n_heads / tp and n_kv_heads / tp)."""
     B, S, _d = x.shape
     hd, dt = cfg.head_dim, cfg.dtype
-    h = ops.rmsnorm(x, lp["attn_norm"])
-    q = (h @ lp["wq"].to(dt)).reshape(B, S, cfg.n_heads, hd)
-    k = (h @ lp["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (h @ lp["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+    h = lay.copy(ops.rmsnorm(x, lp["attn_norm"]))
+
+    def proj(key):
+        return (h @ lay.full(lp[key].to(dt), LAYER_SPECS[key])).reshape(B, S, -1, hd)
+
+    q, k, v = proj("wq"), proj("wk"), proj("wv")
     q, k = ops.rope(q, k, cfg.rope_theta)
     return q, k, v
 
 
 def _attn_out_and_mlp(cfg: LlamaConfig, x: torch.Tensor, attn: torch.Tensor,
-                      lp: Dict[str, torch.Tensor], ops: Ops) -> torch.Tensor:
+                      lp: Dict[str, torch.Tensor], ops: Ops,
+                      lay: sharding.Layout = WHOLE) -> torch.Tensor:
     """The layer after the attention call: output projection, residual,
-    RMSNorm, SwiGLU MLP, residual."""
+    RMSNorm, SwiGLU MLP, residual; over tp, each projection's partial sum
+    over this rank's heads or columns of d_ff, added across the ranks."""
     B, S, _d = x.shape
     dt = cfg.dtype
-    x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"].to(dt)
-    h = ops.rmsnorm(x, lp["mlp_norm"])
-    mlp = ops.swiglu(h @ lp["w_gate"].to(dt), h @ lp["w_up"].to(dt))
-    return x + mlp @ lp["w_down"].to(dt)
+
+    def w(key):
+        return lay.full(lp[key].to(dt), LAYER_SPECS[key])
+
+    x = x + lay.reduce(attn.reshape(B, S, -1) @ w("wo"))
+    h = lay.copy(ops.rmsnorm(x, lp["mlp_norm"]))
+    mlp = ops.swiglu(h @ w("w_gate"), h @ w("w_up"))
+    return x + lay.reduce(mlp @ w("w_down"))
 
 
 def layer_fn(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-             ops: Ops = KERNELS) -> torch.Tensor:
-    q, k, v = _attn_inputs(cfg, x, lp, ops)
-    return _attn_out_and_mlp(cfg, x, ops.attention(q, k, v), lp, ops)
+             ops: Ops = KERNELS, lay: sharding.Layout = WHOLE) -> torch.Tensor:
+    q, k, v = _attn_inputs(cfg, x, lp, ops, lay)
+    return _attn_out_and_mlp(cfg, x, ops.attention(q, k, v), lp, ops, lay)
 
 
 def _remat_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                 ops: Ops) -> torch.Tensor:
+                 ops: Ops, lay: sharding.Layout = WHOLE) -> torch.Tensor:
     """``layer_fn`` under activation checkpointing (JAX: jax.checkpoint on
     the layer body).  "save_attn": the parts before and after the
     attention call are checkpointed and recomputed in backward, while the
     attention keeps its output and its backward's inputs, so it runs once
-    per layer and step.  "full": the whole layer recomputes."""
+    per layer and step.  "full": the whole layer recomputes.  The fsdp
+    gathers run inside the checkpointed parts: the backward gathers again,
+    and one layer's whole weights are alive at a time."""
     if cfg.remat_policy == "save_attn":
-        q, k, v = checkpoint(_attn_inputs, cfg, x, lp, ops, use_reentrant=False)
-        return checkpoint(_attn_out_and_mlp, cfg, x, ops.attention(q, k, v), lp, ops,
+        q, k, v = checkpoint(_attn_inputs, cfg, x, lp, ops, lay, use_reentrant=False)
+        return checkpoint(_attn_out_and_mlp, cfg, x, ops.attention(q, k, v), lp, ops, lay,
                           use_reentrant=False)
     if cfg.remat_policy == "full":
-        return checkpoint(layer_fn, cfg, x, lp, ops, use_reentrant=False)
+        return checkpoint(layer_fn, cfg, x, lp, ops, lay, use_reentrant=False)
     raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'save_attn' or 'full'")
 
 
 def final_hidden(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
-                 ops: Ops = KERNELS) -> torch.Tensor:
+                 ops: Ops = KERNELS, lay: sharding.Layout = WHOLE) -> torch.Tensor:
     """tokens (B, S) integer -> the final-normed hidden state (B, S, d) in
     cfg.dtype; positions are arange(S) on every row."""
     # gather the rows, then cast: the values of casting the whole table first
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = lay.lookup(params["embed"], tokens, EMBED_SPEC, cfg.dtype)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x = _remat_layer(cfg, x, lp, ops) if remat else layer_fn(cfg, x, lp, ops)
+        x = _remat_layer(cfg, x, lp, ops, lay) if remat else layer_fn(cfg, x, lp, ops, lay)
     return ops.rmsnorm(x, params["final_norm"])
 
 
@@ -270,14 +320,22 @@ def forward(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
 
 
 def loss_fn(cfg: LlamaConfig, params: Dict[str, Any], tokens: torch.Tensor,
-            ops: Ops = KERNELS) -> torch.Tensor:
+            ops: Ops = KERNELS, lay: sharding.Layout = WHOLE) -> torch.Tensor:
     """Next-token cross entropy over tokens (B, S), a 0-dim f32 tensor.
     The logits stay in cfg.dtype: the cross-entropy op reads them there
-    and never holds an f32 (B, S, vocab) copy."""
-    x = final_hidden(cfg, params, tokens[:, :-1], ops)
-    logits = x @ params["unembed"].to(cfg.dtype)
-    targets = tokens[:, 1:].reshape(-1).to(torch.int64)
-    return ops.cross_entropy(logits.reshape(-1, cfg.vocab), targets).mean()
+    and never holds an f32 (B, S, vocab) copy.  Over tp, this rank's
+    logits are its vocab block's, and the loss is K5's vocab-parallel
+    form over the tp ranks."""
+    x = lay.copy(final_hidden(cfg, params, tokens[:, :-1], ops, lay))
+    logits = x @ lay.full(params["unembed"].to(cfg.dtype), UNEMBED_SPEC)
+    # a fresh tensor: the kernels take 16-byte aligned inputs, and one row's
+    # slice of the batch (a data rank's) need not start at one
+    targets = tokens[:, 1:].reshape(-1).to(torch.int64).clone()
+    if lay.tp == 1:
+        return ops.cross_entropy(logits.reshape(-1, cfg.vocab), targets).mean()
+    block = logits.shape[-1]
+    return ops.cross_entropy_vp(logits.reshape(-1, block), targets, lay.vocab_start(block),
+                                lay.tp_group).mean()
 
 
 # --------------------------------------------------------------- train step
@@ -290,15 +348,24 @@ def make_train_state(cfg: LlamaConfig, device: Optional[torch.device | str] = No
     ``params_from_jax``) that require grad, and the port's AdamW (K10) over
     all of them: optax's ``adamw(lr, weight_decay=0.1)`` with its
     defaults, decay on every leaf.  ``device`` defaults to the card and
-    raises without one.  With ``mesh``, every data rank's weights become
-    rank 0's before the optimizer is built over them."""
+    raises without one.
+
+    With ``mesh``, each rank keeps its block of every leaf by
+    ``param_specs`` (``sharding.shard_params``), and the optimizer's state
+    is of those blocks.  From the seed, every rank draws the whole leaves
+    one at a time and keeps its block of each, so at most one whole leaf
+    is alive; given ``params`` must be the same on every rank, and the
+    dict's entries are replaced by the blocks (it is the returned dict)."""
     dev = resolve_device(device)
+    specs = param_specs(cfg)
     if params is None:
-        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                             dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = sharding.tree_from_leaves(
+            ((path, sharding.shard_tensor(t, sharding.spec_of(specs, path), mesh))
+             for path, t in init_leaves(cfg, gen, dtype=torch.float32)), cfg.n_layers)
+    elif mesh is not None:
+        params.update(sharding.shard_params(params, specs, mesh))
     leaves = param_leaves(params)
-    if mesh is not None:
-        sharding.broadcast_params(leaves, mesh)
     for p in leaves:
         p.requires_grad_(True)
     return params, optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.1)
@@ -309,20 +376,30 @@ def make_train_step(cfg: LlamaConfig, params: Dict[str, Any], opt: torch.optim.O
     """step(tokens) -> the loss before the update (0-dim, detached): one
     value-and-grad of ``loss_fn`` and one optimizer update, in place.
 
-    With ``mesh``, ``tokens`` is the global batch: each data rank takes
-    its rows (``sharding.shard_batch``), the gradients are averaged over
-    the data ranks before the update and the loss returned is the global
-    one (the mean of the ranks' means: every rank has as many tokens)."""
+    With ``mesh``, ``params`` are this rank's blocks (``make_train_state``
+    with the mesh) and ``tokens`` is the global batch: each data rank
+    takes its rows (``sharding.shard_batch``), the gradients are averaged
+    over the data ranks before the update (``sharding.reduce_grads``) and
+    the loss returned is the global one (the mean of the ranks' means:
+    every rank has as many tokens).  Raises ValueError where a leaf is not
+    this rank's block.  A mesh of dims ("dp",) alone
+    (``sharding.data_mesh``) takes whole, replicated weights."""
     leaves = param_leaves(params)
+    specs = sharding.spec_leaves(param_specs(cfg), cfg.n_layers, param_leaves)
+    if mesh is not None:
+        sharding.check_blocks(leaves, sharding.whole_shapes(leaf_shapes(cfg), cfg.n_layers,
+                                                            param_leaves),
+                              specs, mesh, "llama.make_train_step")
+    lay = WHOLE if mesh is None else sharding.Layout(mesh, "avg")
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
         if mesh is not None:
             tokens = sharding.shard_batch(tokens, mesh)
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(cfg, params, tokens, ops)
+        loss = loss_fn(cfg, params, tokens, ops, lay)
         loss.backward()
         if mesh is not None:
-            sharding.all_reduce_grads(leaves, mesh, "avg")
+            sharding.reduce_grads(leaves, specs, mesh, "avg")
             loss = sharding.all_reduce_value(loss, mesh, "avg")
         opt.step()
         return loss.detach()

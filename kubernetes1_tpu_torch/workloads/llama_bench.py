@@ -99,7 +99,8 @@ def run(preset: str, batch: int, seq: int, steps: int, optimizer: str,
 
     from ..kernels import attention as _attention
     from .llama import LlamaConfig, init_params, make_train_step, param_leaves
-    from .sharding import broadcast_params, data_ranks, launched_mesh, resolve_device
+    from .sharding import (broadcast_params, data_mesh, data_ranks, launched_mesh,
+                           resolve_device)
 
     dev = resolve_device(device)
     if watchdog is not None:
@@ -114,7 +115,8 @@ def run(preset: str, batch: int, seq: int, steps: int, optimizer: str,
     for p in param_leaves(params):
         p.requires_grad_(True)
     opt = make_optimizer(optimizer, params, lr)
-    step = make_train_step(cfg, params, opt, mesh=mesh)
+    # whole weights on every data rank: JAX's payload has no param specs
+    step = make_train_step(cfg, params, opt, mesh=None if mesh is None else data_mesh(mesh))
     rng = np.random.default_rng(0)
     # +1: loss_fn trains next-token over tokens[:, :-1] -> [:, 1:]
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, seq + 1))).to(dev)

@@ -84,7 +84,7 @@ def test_importing_the_port_pulls_in_no_jax():
             "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.workloads.bert, "
             "kubernetes1_tpu_torch.workloads.ringattention, kubernetes1_tpu_torch.kernels.build, "
             "kubernetes1_tpu_torch.workloads.llama_bench, kubernetes1_tpu_torch.optim, "
-            "kubernetes1_tpu_torch.kernels.optim; "
+            "kubernetes1_tpu_torch.kernels.optim, kubernetes1_tpu_torch.entry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -142,7 +142,8 @@ def no_kernel_libraries(monkeypatch, tmp_path):
 @pytest.mark.parametrize("op", ["rmsnorm", "rope", "attention", "swiglu", "cross_entropy",
                                 "batchnorm", "attention_noncausal", "layernorm", "gelu",
                                 "cross_entropy_f32", "ring_block", "ring_block_nc", "ring_merge",
-                                "ring_block_bwd", "adamw", "adafactor", "sgdm"])
+                                "ring_block_bwd", "adamw", "adafactor", "sgdm",
+                                "cross_entropy_part", "cross_entropy_part_f32"])
 def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
                                                            monkeypatch, op):
     B, S, H, Hkv, hd = 2, 8, 4, 2, 16
@@ -199,6 +200,13 @@ def test_wrapper_raises_on_cuda_tensor_without_its_library(no_kernel_libraries,
             _FakeCudaTensor(B * S, 1001, dtype=torch.float32),
             _FakeCudaTensor(B * S, dtype=torch.int64))
         kernel = cross_entropy.KERNEL_F32
+    elif op in ("cross_entropy_part", "cross_entropy_part_f32"):  # vocab-parallel
+        monkeypatch.setattr(cross_entropy, "cross_entropy_part_plain", _plain_must_not_run)
+        f32_logits = op.endswith("f32")
+        call = lambda: cross_entropy.cross_entropy_vocab_parallel(
+            _FakeCudaTensor(B * S, 1000, dtype=f32 if f32_logits else torch.bfloat16),
+            _FakeCudaTensor(B * S, dtype=torch.int64), 1000, None)
+        kernel = cross_entropy.KERNEL_PART_F32 if f32_logits else cross_entropy.KERNEL_PART
     elif op == "swiglu":
         monkeypatch.setattr(swiglu, "swiglu_plain", _plain_must_not_run)
         call = lambda: swiglu.swiglu(_FakeCudaTensor(B * S, 64), _FakeCudaTensor(B * S, 64))

@@ -13,9 +13,10 @@ on the conftest's virtual devices.  From weights carried from JAX's
 ``init_params(key(0))`` (``params_from_jax``):
 
 - the mesh helpers: dims, ``auto_mesh``'s shape, ValueError past the
-  world (``tests/test_workloads.py:27-32``), NotImplementedError for tp;
+  world (``tests/test_workloads.py:27-32``), a tp mesh's dims;
 - in f32, each model's data-parallel step (the loss, every gradient leaf
-  after the first step, every parameter after three) equals the one-process
+  after the first step, every parameter after three; Llama's and BERT's
+  gathered from the ranks' blocks, where fsdp splits them) equals the one-process
   step on the whole batch within ``F32_TOL`` of each leaf's largest
   magnitude: the same sums in another order (the batch split, the
   all-reduce), a few f32 ulps of the leaf, where 1e-5 leaves room for the
@@ -151,9 +152,10 @@ try:
     res = {}
     mesh = sharding.make_mesh(**data["mesh"])
     res["mesh"] = (mesh.mesh_dim_names, tuple(mesh.shape), sharding.data_ranks(mesh),
-                   tuple(sharding.auto_mesh().shape))
-    for call, exc in ((lambda: sharding.make_mesh(dp=2 * n), ValueError),
-                      (lambda: sharding.make_mesh(tp=n), NotImplementedError),
+                   tuple(sharding.auto_mesh("cpu").shape))
+    tp_mesh = sharding.make_mesh(tp=n, device_type="cpu")
+    res["tp_mesh"] = (tp_mesh.mesh_dim_names, tuple(tp_mesh.shape), sharding.data_ranks(tp_mesh))
+    for call, exc in ((lambda: sharding.make_mesh(dp=2 * n, device_type="cpu"), ValueError),
                       (lambda: sharding.shard_batch(torch.zeros(n + 1), mesh), ValueError)):
         try:
             call()
@@ -178,12 +180,20 @@ try:
         step = mod.make_train_step(case["cfg"], params, opt, mesh=mesh)
         leaves = mod.param_leaves(params)
         batch = [torch.from_numpy(a) for a in case["batch"]]
+
+        def whole(ts):  # Llama's and BERT's blocks gathered from the ranks
+            if mesh is None or model == "resnet":
+                return ts
+            specs = sharding.spec_leaves(mod.param_specs(case["cfg"]), case["cfg"].n_layers,
+                                         mod.param_leaves)
+            return [sharding.gather_tensor(t, s, mesh) for t, s in zip(ts, specs)]
+
         losses = []
         for i in range(case["steps"]):
             losses.append(step(*batch).item())
             if i == 0:
-                grads = [p.grad.clone() for p in leaves]
-        return dict(losses=losses, grads=grads, params=[p.detach() for p in leaves])
+                grads = whole([p.grad.clone() for p in leaves])
+        return dict(losses=losses, grads=grads, params=whole([p.detach() for p in leaves]))
 
     for (model, dt), case in data["cases"].items():
         res[model, dt] = train(model, case, mesh)
@@ -191,7 +201,9 @@ try:
         # one data rank: the steps through mesh= issue no collective and are
         # the steps without a mesh, bit for bit
         calls = []
-        real = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+        real = {name: getattr(dist, name) for name in ("all_reduce", "broadcast",
+                                                       "all_gather_into_tensor",
+                                                       "reduce_scatter_tensor")}
         for name, fn in real.items():
             setattr(dist, name, lambda *a, _fn=fn, _name=name, **k: (calls.append(_name),
                                                                      _fn(*a, **k))[1])
@@ -347,6 +359,7 @@ def test_mesh_helpers_over_two_ranks(two_ranks):
         names, shape, ranks, auto = res["mesh"]
         assert names == ("dp", "fsdp", "tp") and shape == (2, 1, 1) and ranks == 2
         assert auto == (1, 2, 1)  # every rank fsdp, up to 8
+        assert res["tp_mesh"] == (("dp", "fsdp", "tp"), (1, 1, 2), 1)
         assert "not_raised" not in res, res["not_raised"]
 
 
@@ -355,6 +368,7 @@ def test_mesh_helpers_over_four_ranks(four_ranks):
         names, shape, ranks, auto = res["mesh"]
         assert names == ("dp", "fsdp", "tp") and shape == (2, 2, 1) and ranks == 4
         assert auto == (1, 4, 1)
+        assert res["tp_mesh"] == (("dp", "fsdp", "tp"), (1, 1, 4), 1)
         assert "not_raised" not in res, res["not_raised"]
 
 
