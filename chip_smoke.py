@@ -131,12 +131,33 @@
    (asserted to be the specs' share), its peak memory and step ms (gloo
    through the host, not a multi-card figure);
 22. runs entry.dryrun_multichip(1) over NCCL (the sharded Llama and BERT
-   steps and the ring on a one-rank mesh; more ranks take a card each).
+   steps and the ring on a one-rank mesh; more ranks take a card each);
+23. (MNIST, K5-f32 and K10c at its shapes) holds K5-f32 at MNIST's (256, 10)
+   f32 logits, forward and backward, and K10c at its 203,530 weights to
+   their plain versions and times them; then trains MNIST at JAX's defaults
+   (mnist.train: 50 SGD steps of batch 256) on the card, checking the
+   loss, the accuracy (>= 0.9) and the launches per step;
+24. (the nvidia.com/gpu device plane) runs the orchestrator as child
+   processes: the JAX package's unchanged apiserver, scheduler,
+   controller manager and kubelet (`python -m kubernetes1_tpu <component>`,
+   a ProcessRuntime node; none of them imports JAX) and the port's GPU
+   plugin in real mode, and speaks to the apiserver over HTTP: the node
+   must advertise the one card as torch names it; ResNet-50 at 128 x 224^2
+   through resnet_bench as a Job (workloads.specs.payload_job) must be
+   scheduled, get the card's ID and its UUID in CUDA_VISIBLE_DEVICES, and
+   reach the in-process run's first loss (9.) within RESNET_LOSS_TOL; an
+   MNIST Job made meanwhile must wait with the scheduler's "insufficient
+   nvidia.com/gpu", then succeed; llama.serving_deployment's pod must
+   answer /generate with the tokens of a DecodeServer(seed=0) in this
+   process; after teardown no pod process, no new process on the card and
+   no plugin socket may remain.  It prints chip_alloc_s and pod_start_s
+   (bench.py's names) and the Job's imgs/s beside the in-process run's.
+   The pods' launches happen in their own processes: no launches column.
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.  The kernels' rows
 carry their launches on each main path (``launches_<path>``; ``dp`` is
-18.'s runs and rank 0's steps in 19., ``shard`` rank 0's steps in 21.) and
-in all.
+18.'s runs and rank 0's steps in 19., ``shard`` rank 0's steps in 21.,
+``mnist`` 23.'s training) and in all.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -155,6 +176,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from functools import partial
 
@@ -167,7 +189,7 @@ from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_en
                                            layernorm, rmsnorm, rope, swiglu)
 from kubernetes1_tpu_torch.kernels import optim as optim_kernels
 from kubernetes1_tpu_torch.kernels import ringattention as ring_kernels
-from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, resnet,
+from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, mnist, resnet,
                                              resnet_bench, ringattention)
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
@@ -417,6 +439,19 @@ BENCH_KEYS = {"workload", "device_kind", "platform", "n_devices", "device_granul
               "step_time_ms", "tokens_per_sec", "tokens_per_sec_per_device",
               "model_flops_per_step", "exec_flops_per_step", "peak_flops_per_device", "mfu",
               "hfu", "final_loss", "profile"}
+# MNIST (BASELINE config 2), JAX's train defaults: 784-256-10, 50 SGD steps
+# of batch 256; JAX's demo separates the clusters to ~100 % accuracy.
+MNIST_BATCH, MNIST_HIDDEN, MNIST_STEPS = 256, 256, 50
+MNIST_PARAMS = 784 * 256 + 256 + 256 * 10 + 10  # 203,530
+MNIST_MIN_ACCURACY = 0.9
+# The device plane (cluster_phase): the node's name, and how long a wait for
+# a pod, a Job or the apiserver may take before the phase fails.
+CLUSTER_NODE = "gpu-node-0"
+CLUSTER_WAIT_S = 120.0
+# Sent one at a time to the serving pod and to a DecodeServer in this process
+# (the tiny config that `llama --serve` serves), whose tokens must be the same.
+CLUSTER_PROMPTS = ([1, 2, 3], [9, 8], [42, 7, 100, 3, 250], list(range(1, 40)))
+
 BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
                 "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
 
@@ -1424,7 +1459,7 @@ def resnet_phase(card: str) -> dict:
     prof = resnet_step_profile()
     step_ms = res["step_time_ms"]
     out = dict(launches=launches, step_ms=step_ms, imgs_per_s=res["imgs_per_sec"],
-               mfu=res["mfu"], peak_mem_gib=peak / 2 ** 30, **prof)
+               mfu=res["mfu"], peak_mem_gib=peak / 2 ** 30, first_loss=first, **prof)
     shares = (f"bn_ms={prof['bn_ms']:.3f} ({100 * prof['bn_ms'] / step_ms:.1f} % of the step, "
               f"{100 * prof['bn_ms'] / max(prof['device_ms'], 1e-9):.1f} % of device time) "
               f"device_ms={prof['device_ms']:.3f} ({100 * prof['device_ms'] / step_ms:.1f} % "
@@ -3487,6 +3522,435 @@ def dryrun_phase():
     print(f"entry.dryrun_multichip(1), NCCL: {line}; n > 1 takes a card a rank, and this "
           f"machine has {torch.cuda.device_count()}", flush=True)
 
+
+# --------------------------------------------- MNIST (K5-f32, K10c at its shapes)
+
+
+def mnist_phase(card: str, dev, gen) -> dict:
+    """K5-f32 at MNIST's (256, 10) f32 logits, forward and backward, and
+    K10c at its 203,530 weights, each against its plain version and timed;
+    then mnist.train at JAX's defaults (50 steps of batch 256) on the card,
+    its loss, its accuracy and its launches per step."""
+    rows = []
+    logits = torch.randn((MNIST_BATCH, mnist.CLASSES), generator=gen, device=dev) * 2.0
+    t = torch.randint(0, mnist.CLASSES, (MNIST_BATCH,), generator=gen, device=dev)
+    grad = torch.full((MNIST_BATCH,), 1.0 / MNIST_BATCH, device=dev)
+    errs = check_xent("cross_entropy_f32 MNIST", logits, t,
+                      torch.randn(MNIST_BATCH, generator=gen, device=dev), XENT_F32_GRAD_TOL)
+    _loss, lse = cross_entropy.cross_entropy_kernel(logits, t)
+    m, shape = logits.numel(), f"rows={MNIST_BATCH} vocab={mnist.CLASSES} f32 (MNIST)"
+    scratch = torch.empty_like(logits)
+    rows += [
+        row("cross_entropy_f32", "cross_entropy.cu", "49", shape, errs[0],
+            time_ms(lambda: cross_entropy.cross_entropy_kernel(logits, t), 200, 10),
+            time_ms(lambda: cross_entropy.cross_entropy_plain(logits, t), 200, 10),
+            bound_ms(4 * m + 8 * MNIST_BATCH + 8 * MNIST_BATCH, 4 * m, PEAK_F32),
+            time_ms(lambda: F.cross_entropy(logits, t, reduction="none"), 200, 10),
+            jax_file="mnist.py"),
+        row("cross_entropy_f32_bwd", "cross_entropy.cu", "49", shape, errs[1],
+            time_ms(lambda: cross_entropy.cross_entropy_bwd_kernel(logits, t, lse, grad,
+                                                                   out=scratch), 200, 10),
+            time_ms(lambda: cross_entropy.cross_entropy_bwd_plain(logits, t, lse, grad), 200, 10),
+            bound_ms(2 * 4 * m + 16 * MNIST_BATCH, 4 * m, PEAK_F32),
+            library_bwd_ms(lambda a: F.cross_entropy(a, t), [logits]), jax_file="mnist.py")]
+    params = mnist.init_params(MNIST_HIDDEN, torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = [params[k] for k in mnist.LEAVES]
+    opt, errs = check_optimizer("sgdm", [("mnist", leaves)], gen)
+    n = sum(p.numel() for p in leaves)
+    if n != MNIST_PARAMS:
+        fail(f"mnist: {n} weights, want {MNIST_PARAMS}")
+    lib = torch.optim.SGD(leaves, lr=OPTIM_LR, momentum=0.9, fused=True)
+    rows.append(row("sgdm", "optim.cu", "57", f"MNIST weights: {n} f32 in {len(leaves)} leaves",
+                    max(errs.values()), time_ms(lambda: run_kernel("sgdm", opt), 200, 10),
+                    time_ms(lambda: run_plain("sgdm", opt), 200, 10),
+                    optim_bound("sgdm", opt.table), time_ms(lib.step, 200, 10),
+                    jax_file="mnist.py"))
+    for r in rows:
+        print_row(r)
+    del opt, lib, params, leaves, logits, scratch
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    t0 = time.monotonic()
+    loss, acc = mnist.train()  # JAX's defaults; device: the card
+    train_s = time.monotonic() - t0
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    per_step = {"cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1, "sgdm": 1}
+    for name, got in launches.items():
+        if got != per_step.get(name, 0) * MNIST_STEPS:
+            fail(f"mnist: {name} launched {got} times in {MNIST_STEPS} steps, want "
+                 f"{per_step.get(name, 0)} a step")
+    if not (np.isfinite(loss) and loss < np.log(mnist.CLASSES) and acc >= MNIST_MIN_ACCURACY):
+        fail(f"mnist: final loss {loss} (want below ln 10, a uniform guess's), accuracy {acc} "
+             f"(want >= {MNIST_MIN_ACCURACY})")
+    print(f"mnist (784-256-10, {MNIST_STEPS} SGD steps of batch {MNIST_BATCH}): final loss "
+          f"{loss:.6f} accuracy {acc:.4f} in {train_s:.2f} s, first calls included; "
+          f"launches {({k: v for k, v in launches.items() if v})} on [{card}]", flush=True)
+    return dict(rows=rows, launches=launches, loss=loss, acc=acc, train_s=train_s)
+
+
+# ---------------- the device plane: the orchestrator hands the card to pods
+
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _api(url: str, method: str = "GET", body=None, timeout: float = 30.0):
+    """One apiserver call: the decoded JSON body (the text, for a log)."""
+    req = urllib.request.Request(url, method=method,
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            text = resp.read().decode()
+    except urllib.error.HTTPError as e:
+        err = OSError(f"{method} {url}: {e.code} {e.read()[:1000]!r}")
+        err.code = e.code
+        raise err from e
+    return json.loads(text) if text.startswith(("{", "[")) else text
+
+
+def _wait(what: str, fn, timeout: float = CLUSTER_WAIT_S, every: float = 0.2):
+    """fn()'s first true value, polled; fail after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(every)
+    fail(f"cluster: timed out after {timeout:.0f} s waiting for {what}")
+
+
+def _pod_pids(marker: str) -> dict:
+    """{pid: its environment} of every process whose environment holds
+    KTPU_APISERVER=``marker``: the kubelet sets it in each pod to the
+    apiserver's URL, so these are the pods of that cluster."""
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = dict(kv.split("=", 1) for kv in f.read().decode(errors="replace")
+                           .split("\0") if "=" in kv)
+        except OSError:
+            continue
+        if env.get("KTPU_APISERVER") == marker:
+            out[int(pid)] = env
+    return out
+
+
+def _compute_pids() -> set:
+    """The processes nvidia-smi sees on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+class Cluster:
+    """The orchestrator as child processes of this one: the JAX package's
+    unchanged apiserver, scheduler, controller manager and kubelet (a
+    ProcessRuntime node), and the port's GPU plugin in real mode (no
+    KTPU_FAKE_GPUS) in the node's plugin dir; spoken to over HTTP.  ``stop`` deletes every workload, stops every process and
+    returns the pod processes that survived, killed."""
+
+    def __init__(self, tmp: str):
+        self.tmp, self.procs, self.logs = tmp, [], []
+        self.url = f"http://127.0.0.1:{_free_port()}"
+        self.plugin_dir = f"{tmp}/plugins"
+        self.socket = f"{self.plugin_dir}/nvidia.com/gpu.sock"
+        self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (REPO_ROOT, os.environ.get("PYTHONPATH", "")) if p)}
+        self.env.pop("KTPU_FAKE_GPUS", None)
+        try:
+            self._start("apiserver", ["-m", "kubernetes1_tpu", "apiserver", "--port",
+                                      self.url.rsplit(":", 1)[1]])
+            _wait("the apiserver", self._healthy, 120)
+            server = ["--server", self.url]
+            self._start("scheduler", ["-m", "kubernetes1_tpu", "scheduler", *server,
+                                      "--metrics-port", "-1"])
+            self._start("controller-manager", ["-m", "kubernetes1_tpu", "controller-manager",
+                                               *server])
+            self._start("plugin", ["-m", "kubernetes1_tpu_torch.deviceplugin.gpu_plugin",
+                                   "--plugin-dir", self.plugin_dir])
+            self._start("kubelet", ["-m", "kubernetes1_tpu", "kubelet", *server, "--runtime",
+                                    "process", "--plugin-dir", self.plugin_dir, "--root-dir",
+                                    f"{tmp}/node", "--node-name", CLUSTER_NODE])
+        except BaseException:
+            self.stop()
+            raise
+
+    def _start(self, name: str, args: list):
+        log = open(f"{self.tmp}/{name}.log", "w")
+        self.logs.append((name, log))
+        self.procs.append((name, subprocess.Popen([sys.executable, *args], cwd=REPO_ROOT,
+                                                  env=self.env, stdout=log,
+                                                  stderr=subprocess.STDOUT)))
+
+    def check_alive(self):
+        for name, proc in self.procs:
+            if proc.poll() is not None:
+                fail(f"cluster: {name} exited {proc.returncode}:\n{self.log(name)}")
+
+    def _healthy(self) -> bool:
+        self.check_alive()
+        return self._serving()
+
+    def _serving(self) -> bool:
+        try:
+            return _api(self.url + "/healthz", timeout=2) == {"status": "ok"}
+        except OSError:
+            return False
+
+    def log(self, name: str) -> str:
+        with open(f"{self.tmp}/{name}.log") as f:
+            return f.read()[-4000:]
+
+    def api(self, path: str, method: str = "GET", body=None):
+        return _api(self.url + path, method, body)
+
+    def create(self, obj: dict):
+        """POST a builder's Job or Deployment (the wire form without its
+        kind, which the apiserver's body check wants, as a client adds it)."""
+        group, kind, plural = ("batch/v1", "Job", "jobs") if "completions" in obj["spec"] \
+            else ("apps/v1", "Deployment", "deployments")
+        return self.api(f"/apis/{group}/namespaces/default/{plural}", "POST",
+                        {"kind": kind, "apiVersion": group, **obj})
+
+    def pods(self, selector: str = "") -> list:
+        from urllib.parse import quote
+
+        return self.api("/api/v1/namespaces/default/pods"
+                        + (f"?labelSelector={quote(selector)}" if selector else ""))["items"]
+
+    def events(self, pod: str, reason: str) -> list:
+        return [e.get("message", "") for e in self.api("/api/v1/namespaces/default/events")
+                ["items"] if (e.get("involvedObject") or {}).get("name") == pod
+                and e.get("reason") == reason]
+
+    def job_done(self, name: str):
+        """The Job's pod once the Job succeeded; fails on a failed Job."""
+        self.check_alive()
+        st = self.api(f"/apis/batch/v1/namespaces/default/jobs/{name}").get("status") or {}
+        if any(c.get("type") == "Failed" and c.get("status") == "True"
+               for c in st.get("conditions") or []):
+            fail(f"cluster: Job {name} failed:\n"
+                 + self.pod_logs(f"batch.ktpu.io/job-name={name}"))
+        if (st.get("succeeded") or 0) >= 1:
+            return self.pods(f"batch.ktpu.io/job-name={name}")[0]
+        return None
+
+    def delete_job(self, name: str):
+        """Delete a finished Job and its pod: the scheduler counts a bound
+        pod's cards as held until the pod is gone, Succeeded or not."""
+        self.api(f"/apis/batch/v1/namespaces/default/jobs/{name}", "DELETE")
+        sel = f"batch.ktpu.io/job-name={name}"
+        for p in self.pods(sel):
+            self.delete_pod(p["metadata"]["name"])
+        _wait(f"Job {name}'s pod to go", lambda: not self.pods(sel))
+
+    def delete_pod(self, name: str):
+        """Delete a pod; one already gone (its owner's deletion took it) is fine."""
+        try:
+            self.api(f"/api/v1/namespaces/default/pods/{name}", "DELETE")
+        except OSError as e:
+            if getattr(e, "code", None) != 404:
+                raise
+
+    def pod_log(self, name: str) -> str:
+        try:
+            return self.api(f"/api/v1/namespaces/default/pods/{name}/log")
+        except OSError as e:
+            return f"(no log: {e!r})"
+
+    def pod_logs(self, selector: str) -> str:
+        return "\n".join(f"--- pod {p['metadata']['name']}: {json.dumps(p.get('status'))}\n"
+                         f"{self.pod_log(p['metadata']['name'])[-3000:]}"
+                         for p in self.pods(selector))
+
+    def stop(self) -> list:
+        """Delete the workloads and their pods, wait for the pods to go,
+        stop the components (the kubelet and the plugin first), then kill
+        and return the pod processes that survived."""
+        try:
+            if self._serving():
+                for kind in ("apis/apps/v1/namespaces/default/deployments",
+                             "apis/batch/v1/namespaces/default/jobs"):
+                    for obj in self.api("/" + kind)["items"]:
+                        self.api(f"/{kind}/{obj['metadata']['name']}", "DELETE")
+                for p in self.pods():
+                    self.delete_pod(p["metadata"]["name"])
+                deadline = time.monotonic() + 60
+                while self.pods() and time.monotonic() < deadline:
+                    time.sleep(0.5)
+        finally:
+            for _name, proc in reversed(self.procs):
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=20)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+            for _name, log in self.logs:
+                log.close()
+        survivors = _pod_pids(self.url)
+        for pid in survivors:
+            try:
+                os.killpg(pid, 9)  # each pod leads a process group of its own
+            except OSError:
+                pass
+        return sorted(survivors)
+
+
+def cluster_phase(card: str, rn: dict) -> dict:
+    """The nvidia.com/gpu device plane on the card: the orchestrator in
+    child processes with the port's plugin in real mode.  (a) the node
+    advertises the one card, as torch names it; (b) ResNet-50 through
+    resnet_bench as a Job (payload_job) at 128 x 224^2: scheduled, admitted,
+    the card's UUID injected, its first loss against the in-process run's
+    (``rn``, resnet_phase's); (c) an MNIST Job made while that Job holds the
+    card waits with the scheduler's "insufficient nvidia.com/gpu", then
+    runs once the finished ResNet-50 Job is deleted; (d) the serving Deployment's pod answers with an in-process
+    DecodeServer's tokens; (e) nothing survives teardown."""
+    import shutil
+
+    from kubernetes1_tpu_torch.workloads import specs
+
+    kind = torch.cuda.get_device_name(0)
+    ref_srv = llama.DecodeServer(seed=0)  # what _serve_main serves, in this process
+    ref_srv.start()
+    try:
+        want_tokens = [_post(ref_srv.url, {"tokens": p, "max_new": SERVE_MAX_NEW})
+                       for p in CLUSTER_PROMPTS]
+    finally:
+        ref_srv.stop()
+    del ref_srv
+    free_memory()
+    before = _compute_pids()
+    tmp = tempfile.mkdtemp(prefix="cluster_")
+    cl = Cluster(tmp)
+    res = {}
+    try:
+        # (a) the node advertises exactly the card torch sees
+        def cards():
+            try:
+                node = cl.api(f"/api/v1/nodes/{CLUSTER_NODE}")
+            except OSError:
+                return None
+            return ((node.get("status") or {}).get("extendedResources") or {}).get(
+                "nvidia.com/gpu")
+
+        devs = _wait("the node to advertise nvidia.com/gpu", cards, 120)
+        attrs = devs[0].get("attributes") or {}
+        if len(devs) != 1 or attrs.get("nvidia.com/gpu/model") != kind or \
+                not attrs.get("nvidia.com/gpu/uuid"):
+            fail(f"cluster: the node advertises {devs}, want one {kind} with its UUID\n"
+                 f"{cl.log('plugin')}")
+        card_id, uuid = devs[0]["id"], attrs["nvidia.com/gpu/uuid"]
+        print(f"cluster: {CLUSTER_NODE} advertises {card_id}: {attrs}", flush=True)
+
+        # (b) ResNet-50 as a Job; (c) MNIST made while it holds the card
+        out = f"{tmp}/resnet.json"
+        t0 = time.perf_counter()  # bench.py's clock: from the create
+        cl.create(specs.payload_job(
+            "resnet50-gpu", ["kubernetes1_tpu_torch.workloads.resnet_bench", "--batch",
+                             str(RESNET_BATCH), "--size", str(RESNET_SIZE), "--steps",
+                             str(RESNET_STEPS), "--no-profile"], out=out))
+        sel = "batch.ktpu.io/job-name=resnet50-gpu"
+        _wait("the ResNet-50 pod's node", lambda: any(
+            p["spec"].get("nodeName") for p in cl.pods(sel)), every=0.05)
+        alloc_s = time.perf_counter() - t0
+        _wait("the ResNet-50 pod running", lambda: any(
+            (p.get("status") or {}).get("phase") in ("Running", "Succeeded", "Failed")
+            for p in cl.pods(sel)), every=0.05)
+        start_s = time.perf_counter() - t0
+        seen = _wait("the ResNet-50 pod's process", lambda: _pod_pids(cl.url), every=0.05)
+        visible = {env.get("CUDA_VISIBLE_DEVICES") for env in seen.values()}
+        cl.create(specs.payload_job("mnist-gpu", ["kubernetes1_tpu_torch.workloads.mnist"]))
+        msel = "batch.ktpu.io/job-name=mnist-gpu"
+        mpod = _wait("the MNIST pod", lambda: cl.pods(msel))[0]["metadata"]["name"]
+        why = _wait("the scheduler's reason that the MNIST pod waits", lambda: [
+            m for m in cl.events(mpod, "FailedScheduling") if "insufficient nvidia.com/gpu" in m])
+        if (cl.api("/apis/batch/v1/namespaces/default/jobs/resnet50-gpu").get("status")
+                or {}).get("succeeded") or cl.pods(msel)[0]["spec"].get("nodeName"):
+            fail("cluster: the MNIST pod was not seen waiting while ResNet-50 held the card")
+        pod = _wait("the ResNet-50 Job to succeed", lambda: cl.job_done("resnet50-gpu"),
+                    600, 0.5)
+        with open(out) as f:
+            job = json.load(f)
+        assigned = pod["spec"]["extendedResources"][0].get("assigned")
+        if assigned != [card_id] or visible != {uuid}:
+            fail(f"cluster: the ResNet-50 pod got {assigned} with CUDA_VISIBLE_DEVICES "
+                 f"{visible}, want [{card_id}] and {uuid}")
+        gap = abs(job.get("first_loss", float("nan")) - rn["first_loss"])
+        if (job.get("platform"), job.get("device_kind"), job.get("n_devices")) != \
+                ("gpu", kind, 1) or not gap <= RESNET_LOSS_TOL:
+            fail(f"cluster: the ResNet-50 Job's result {job} (first loss {gap} from the "
+                 f"in-process run's {rn['first_loss']}, tol {RESNET_LOSS_TOL})")
+        cl.delete_job("resnet50-gpu")
+        mdone = _wait("the MNIST Job to succeed", lambda: cl.job_done("mnist-gpu"), 300, 0.5)
+        mlog = cl.pod_log(mdone["metadata"]["name"])
+        cl.delete_job("mnist-gpu")
+        said = re.search(r"acc=([0-9.]+) on (.+)", mlog)
+        if not said or float(said.group(1)) < MNIST_MIN_ACCURACY or \
+                said.group(2).strip() != kind or \
+                mdone["spec"]["extendedResources"][0].get("assigned") != [card_id]:
+            fail(f"cluster: the MNIST Job's pod said {mlog!r}")
+        res.update(chip_alloc_s=alloc_s, pod_start_s=start_s,
+                   job_imgs_per_s=job["imgs_per_sec"], job_step_ms=job["step_time_ms"],
+                   job_first_loss=job["first_loss"], first_loss_gap=gap,
+                   mnist_acc=float(said.group(1)))
+        print(f"cluster: ResNet-50 Job ({RESNET_BATCH} x {RESNET_SIZE}^2, {RESNET_STEPS} steps): "
+              f"chip_alloc_s={alloc_s:.3f} pod_start_s={start_s:.3f} on {assigned} "
+              f"(CUDA_VISIBLE_DEVICES={uuid}); imgs/s {job['imgs_per_sec']} in the pod, "
+              f"{rn['imgs_per_s']} in process; step_ms {job['step_time_ms']} and "
+              f"{rn['step_ms']:.2f}; first loss {job['first_loss']:.6f} and "
+              f"{rn['first_loss']:.6f} (gap {gap:.3e}, tol {RESNET_LOSS_TOL}); the MNIST Job "
+              f"waited ({why[0]!r}), then reached accuracy {said.group(1)} on [{card}]",
+              flush=True)
+
+        # (d) the serving Deployment's pod answers as the in-process server
+        t0 = time.perf_counter()
+        cl.create(llama.serving_deployment(replicas=1))
+        serve = _wait("the serving pod running", lambda: next(
+            (p for p in cl.pods("app=llama-serve")
+             if (p.get("status") or {}).get("phase") == "Running"), None))
+        name = serve["metadata"]["name"]
+        url = _wait("the serving pod's URL in its log", lambda: (re.findall(
+            r"decode server on (http://\S+)", cl.pod_log(name)) or [None])[0], 300, 0.5)
+        ready_s = time.perf_counter() - t0
+        got_tokens = [_post(url, {"tokens": p, "max_new": SERVE_MAX_NEW})
+                      for p in CLUSTER_PROMPTS]
+        if got_tokens != want_tokens or \
+                serve["spec"]["extendedResources"][0].get("assigned") != [card_id]:
+            fail(f"cluster: the serving pod answered {got_tokens}, the in-process server "
+                 f"{want_tokens}")
+        res.update(serve_ready_s=ready_s, serve_tokens=got_tokens)
+        print(f"cluster: the serving Deployment's pod {name} at {url}, ready in {ready_s:.2f} s, "
+              f"answered {len(got_tokens)} requests with the in-process server's tokens "
+              f"{got_tokens}", flush=True)
+    finally:
+        survivors = cl.stop()
+    left = _compute_pids() - before
+    if survivors or left or os.path.exists(cl.socket):
+        fail(f"cluster: after teardown pod processes {survivors} survived, the card holds "
+             f"{sorted(left)}, the plugin socket is "
+             f"{'still there' if os.path.exists(cl.socket) else 'gone'}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cluster: teardown left no pod process, no new process on the card and no plugin "
+          f"socket on [{card}]", flush=True)
+    return res
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -3564,9 +4028,14 @@ def main():
     shard = shard2_phase(card)
     free_memory()
     dryrun_phase()
-    rows += bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
+    free_memory()
+    mn = mnist_phase(card, dev, gen)
+    free_memory()
+    cluster_phase(card, rn)  # last: every kernel is built, and this process holds little
+    rows += (bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
+             + mn["rows"])
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,
-             "llama_bench": bench, "dp": dp, "shard": shard}
+             "llama_bench": bench, "dp": dp, "shard": shard, "mnist": mn}
     for r in rows:
         for path, res in paths.items():
             r[f"launches_{path}"] = res["launches"][r["name"]]

@@ -14,4 +14,15 @@ hand-written CUDA kernels, forward and backward, and the optimizer
 updates (``optim``: AdamW, Adafactor, SGD with momentum) as multi-tensor
 kernels (``kernels``, sources in ``csrc``).  Entry points run on the card unless the caller passes
 ``device="cpu"``.
+
+It also carries the ``nvidia.com/gpu`` device plane, the counterpart of
+the JAX package's ``google.com/tpu`` one: a device plugin
+(``deviceplugin.gpu_plugin``) that speaks the kubelet's plugin protocol
+over its own copy of the wire code (``deviceplugin.api``), advertises
+each card with its model, memory and UUID and hands the card to a pod
+through ``CUDA_VISIBLE_DEVICES``; and the specs a pod that wants a card
+is built from (``workloads.specs``, ``workloads.llama.serving_deployment``),
+in the pod-level ``extendedResources`` form the orchestrator admits.
 """
+
+GPU_RESOURCE = "nvidia.com/gpu"

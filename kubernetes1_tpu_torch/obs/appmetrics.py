@@ -19,6 +19,25 @@ from typing import Dict, Optional
 
 from ..utils.metrics import Counter, Gauge, Histogram, Registry
 
+# The scrape contract, carried on the pod as annotations: the port serving
+# /metrics, its path, and a host in place of the pod IP (in-process
+# clusters, whose pod IPs are synthetic, point the kubelet at loopback).
+SCRAPE_PORT_ANNOTATION = "obs.ktpu.io/scrape-port"
+SCRAPE_PATH_ANNOTATION = "obs.ktpu.io/scrape-path"
+SCRAPE_HOST_ANNOTATION = "obs.ktpu.io/scrape-host"
+DEFAULT_SCRAPE_PATH = "/metrics"
+
+
+def scrape_annotations(port: int, path: str = DEFAULT_SCRAPE_PATH,
+                       host: str = "") -> Dict[str, str]:
+    """The annotations a pod spec carries to have the kubelet scrape it."""
+    out = {SCRAPE_PORT_ANNOTATION: str(int(port))}
+    if path and path != DEFAULT_SCRAPE_PATH:
+        out[SCRAPE_PATH_ANNOTATION] = path
+    if host:
+        out[SCRAPE_HOST_ANNOTATION] = host
+    return out
+
 
 class AppMetrics:
     """One workload process's metric registry and /metrics endpoint.

@@ -820,6 +820,35 @@ class DecodeServer:
         self.metrics.stop()
 
 
+def serving_deployment(name: str = "llama-serve", ns: str = "default",
+                       replicas: int = 1, scrape_port: int = 0,
+                       scrape_host: str = "", cpu: str = "100m") -> dict:
+    """A Deployment of decode-server pods in the wire form (a dict, as
+    ``workloads.specs`` builds them), the counterpart of the JAX package's
+    ``serving_deployment``: its template carries the obs.ktpu.io scrape
+    annotations, so each replica's kubelet lifts its /metrics into
+    PodCustomMetrics (in-process clusters pass the loopback host:port of a
+    live server; a real deployment omits ``scrape_host``).  Each pod runs
+    ``python -m kubernetes1_tpu_torch.workloads.llama --serve`` and asks
+    for one ``nvidia.com/gpu`` in the pod-level form: the port's
+    ``DecodeServer`` raises without a card.  One server a card, a replica
+    each: scale with ``replicas``."""
+    from ..obs.appmetrics import scrape_annotations
+    from .specs import gpu_request
+
+    meta = {"labels": {"app": name}}
+    if scrape_port:
+        meta["annotations"] = scrape_annotations(scrape_port, host=scrape_host)
+    pod_spec = {"containers": [{
+        "name": "decode", "image": "ktpu/llama-decode",
+        "command": ["python", "-m", "kubernetes1_tpu_torch.workloads.llama", "--serve"],
+        "resources": {"requests": {"cpu": cpu}}}]}
+    gpu_request(pod_spec, 1)
+    return {"metadata": {"name": name, "namespace": ns},
+            "spec": {"replicas": replicas, "selector": {"matchLabels": {"app": name}},
+                     "template": {"metadata": meta, "spec": pod_spec}}}
+
+
 def _serve_main():
     srv = DecodeServer().start()
     print(f"decode server on {srv.url}", flush=True)

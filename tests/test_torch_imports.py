@@ -84,7 +84,9 @@ def test_importing_the_port_pulls_in_no_jax():
             "kubernetes1_tpu_torch.workloads.resnet, kubernetes1_tpu_torch.workloads.bert, "
             "kubernetes1_tpu_torch.workloads.ringattention, kubernetes1_tpu_torch.kernels.build, "
             "kubernetes1_tpu_torch.workloads.llama_bench, kubernetes1_tpu_torch.optim, "
-            "kubernetes1_tpu_torch.kernels.optim, kubernetes1_tpu_torch.entry; "
+            "kubernetes1_tpu_torch.kernels.optim, kubernetes1_tpu_torch.entry, "
+            "kubernetes1_tpu_torch.workloads.mnist, kubernetes1_tpu_torch.workloads.specs, "
+            "kubernetes1_tpu_torch.deviceplugin.gpu_plugin; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
