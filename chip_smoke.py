@@ -3679,7 +3679,7 @@ class Cluster:
                                       "--metrics-port", "-1"])
             self._start("controller-manager", ["-m", "kubernetes1_tpu", "controller-manager",
                                                *server])
-            self._start("plugin", ["-m", "kubernetes1_tpu_torch.deviceplugin.gpu_plugin",
+            self._start("plugin", ["-m", "kubernetes1_tpu_torch.deviceplugin",
                                    "--plugin-dir", self.plugin_dir])
             self._start("kubelet", ["-m", "kubernetes1_tpu", "kubelet", *server, "--runtime",
                                     "process", "--plugin-dir", self.plugin_dir, "--root-dir",

@@ -28,8 +28,6 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
 
-from ..utils import faultline
-
 DEFAULT_PLUGIN_DIR = "/var/lib/ktpu/device-plugins"
 
 
@@ -242,7 +240,6 @@ class PluginClient:
         self._next_id = 0
 
     def _connect(self, retry_window: float = 3.0):
-        faultline.check("plugin.dial")
         # the socket file appears at bind(), a beat before listen(): retry
         # a refused dial for a short window
         deadline = time.monotonic() + retry_window
@@ -266,7 +263,6 @@ class PluginClient:
 
     def call(self, method: str, params: Optional[dict] = None):
         with self._lock:  # one request and its response at a time on the socket
-            faultline.check("plugin.rpc")
             self._ensure()
             self._next_id += 1
             rid = self._next_id
@@ -288,7 +284,6 @@ class PluginClient:
 
     def list_and_watch(self) -> Iterator[List[dict]]:
         """Dedicated streaming connection yielding device lists."""
-        faultline.check("plugin.watch")
         conn = self._connect()
         conn.settimeout(None)  # the stream blocks until the plugin pushes
         f = conn.makefile("rwb")
@@ -298,7 +293,6 @@ class PluginClient:
         def gen():
             try:
                 for line in f:
-                    faultline.check("plugin.watch")
                     frame = json.loads(line)
                     yield (frame.get("result") or {}).get("devices") or []
             except (ConnectionResetError, OSError, ValueError):

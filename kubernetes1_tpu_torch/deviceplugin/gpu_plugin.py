@@ -22,24 +22,26 @@ the variables ``torch.distributed``'s ``env://`` start reads (the port's
 and JAX_COORDINATOR_ADDRESS.
 
 Discovery modes:
-- real: walk /dev/nvidia[0-9]* (the reference's legacy GPU manager's walk)
-  and read each card's index, UUID, name, memory and PCI bus with one
-  ``nvidia-smi`` query, paired with the nodes in order; a node without a
-  row is not advertised.  The plugin never
-  initialises CUDA: a context in its process would hold memory on the card
-  that the pod needs.
+- real: one ``nvidia-smi -q -x`` call lists each card with its UUID,
+  name, memory and minor number N, the N of its node /dev/nvidiaN (the
+  legacy GPU manager's /dev/nvidia* walk, keyed by the card's own node); a
+  card is advertised only when its node exists.  A container may show more
+  nodes than cards, and the card need not be the lowest-numbered node.
+  The plugin never initialises CUDA: a context in its process would hold
+  memory on the card that the pod needs.
 - fake: KTPU_FAKE_GPUS="<model>:<count>:<domain>:<host index>[:<memory MiB>]"
   makes an inventory without a card, for tests and hollow nodes.
+
+Run it as ``python -m kubernetes1_tpu_torch.deviceplugin --plugin-dir D``.
 """
 
 from __future__ import annotations
 
-import glob
 import os
-import re
 import signal
 import subprocess
 import threading
+import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional
 
 from .. import GPU_RESOURCE
@@ -70,7 +72,7 @@ ANN_INJECTED = "gpu.ktpu.io/injected"
 
 # The NVIDIA control nodes a CUDA process opens besides its card's.
 CONTROL_NODES = ("/dev/nvidiactl", "/dev/nvidia-uvm", "/dev/nvidia-uvm-tools")
-SMI_QUERY = "index,uuid,name,memory.total,pci.bus_id"
+DEV_DIR = "/dev"
 FAKE_MODEL = "NVIDIA H100 80GB HBM3"
 FAKE_MEMORY_MIB = "81559"
 
@@ -110,36 +112,36 @@ def _fake_devices(spec: str) -> List[dict]:
                     f"GPU-fake-{domain}-h{host}-{i}", domain) for i in range(count)]
 
 
-def _node_number(path: str) -> int:
-    return int(re.search(r"(\d+)$", path).group(1))
-
-
-def smi_rows() -> List[dict]:
-    """One row a card from ``nvidia-smi --query-gpu``, in nvidia-smi's
-    index order; [] when nvidia-smi is missing or fails."""
+def smi_cards() -> List[dict]:
+    """One dict a card from ``nvidia-smi -q -x``, in nvidia-smi's index
+    order: uuid, name, memory (MiB) and minor (the N of /dev/nvidiaN);
+    [] when nvidia-smi is missing or fails."""
     try:
-        out = subprocess.run(
-            ["nvidia-smi", f"--query-gpu={SMI_QUERY}", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, timeout=60, check=True).stdout
-    except (OSError, subprocess.SubprocessError):
+        out = subprocess.run(["nvidia-smi", "-q", "-x"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout
+        root = ET.fromstring(out)
+    except (OSError, subprocess.SubprocessError, ET.ParseError):
         return []
-    keys = SMI_QUERY.split(",")
-    rows = [dict(zip(keys, (f.strip() for f in line.split(","))))
-            for line in out.splitlines() if line.strip()]
-    return sorted(rows, key=lambda r: int(r["index"]))
+    return [{"uuid": gpu.findtext("uuid", "").strip(),
+             "name": gpu.findtext("product_name", "").strip(),
+             "memory": gpu.findtext("fb_memory_usage/total", "").replace("MiB", "").strip(),
+             "minor": gpu.findtext("minor_number", "").strip()}
+            for gpu in root.findall("gpu")]
 
 
 def _real_devices() -> List[dict]:
-    """Walk /dev/nvidia[0-9]* (ref pkg/kubelet/gpu/nvidia/nvidia_gpu_manager.go:
-    the legacy GPU manager's walk); the i-th node by number takes the i-th
-    nvidia-smi row.  A node without a row is no card that nvidia-smi
-    reports (a container may show more nodes than cards) and is not
+    """Each card nvidia-smi reports, at its own node /dev/nvidia<minor>
+    (ref pkg/kubelet/gpu/nvidia/nvidia_gpu_manager.go: the legacy GPU
+    manager's /dev/nvidia* walk); a card whose node is missing here is not
     advertised."""
-    paths = sorted(glob.glob("/dev/nvidia[0-9]*"), key=_node_number)
     hostname = os.uname().nodename
-    return [_device(f"{hostname}-nvidia{_node_number(path)}", int(row["index"]), row["name"],
-                    row["memory.total"], row["uuid"], hostname, path)
-            for path, row in zip(paths, smi_rows())]
+    devices = []
+    for index, card in enumerate(smi_cards()):
+        path = os.path.join(DEV_DIR, f"nvidia{card['minor']}")
+        if card["minor"].isdigit() and os.path.exists(path):
+            devices.append(_device(f"{hostname}-nvidia{card['minor']}", index, card["name"],
+                                   card["memory"], card["uuid"], hostname, path))
+    return devices
 
 
 class GPUDevicePlugin:
@@ -280,10 +282,9 @@ class GPUDevicePlugin:
         return spec
 
 
-def run_plugin(plugin_dir: str, devices: Optional[List[dict]] = None,
-               resource: str = GPU_RESOURCE) -> PluginServer:
-    impl = GPUDevicePlugin(devices=devices)
-    server = PluginServer(impl, plugin_socket_path(plugin_dir, resource))
+def run_plugin(plugin_dir: str) -> PluginServer:
+    impl = GPUDevicePlugin()
+    server = PluginServer(impl, plugin_socket_path(plugin_dir, GPU_RESOURCE))
     server.start()
     return server
 
@@ -306,7 +307,3 @@ def main(argv=None):
         stop.wait()
     finally:
         server.stop()  # unlinks the socket: the kubelet marks the cards unhealthy
-
-
-if __name__ == "__main__":
-    main()

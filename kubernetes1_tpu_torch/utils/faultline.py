@@ -1,26 +1,20 @@
 """A seeded fault seam for the port's device plane.
 
 The port's copy of the part of the JAX package's ``utils/faultline`` that
-the GPU device plugin and its wire code use: a named *site* at an I/O
-boundary calls ``check(site)``, and an injector activated with a seed and
-a spec decides, from a random stream of its own per site, whether that
-operation proceeds, stalls or fails.  The same seed replays the same
-decisions, site by site.
+the GPU device plugin uses: the plugin's health pass calls
+``check("device.health")``, and an injector activated with a seed and a
+spec decides, from a random stream of its own per site, whether that pass
+sees a card die.  The same seed replays the same decisions.
 
     activate(seed, "device.health=drop@0.5")
     check("device.health")   # raises FaultInjected where a fault fires
     deactivate()
 
-Spec grammar: ``rule[;rule...]``, ``rule = <site>=<fault>[|<fault>...]``,
-``fault = <action>[:<param>][@<prob>]``.  Actions: ``drop`` raises
-``FaultInjected`` (a ``ConnectionError``, so the callers' transport
-handlers fire), ``delay:<dur>`` sleeps (``20ms``, ``0.5s`` or seconds)
-and proceeds.  ``prob`` defaults to 1.
-
-Sites: ``device.health`` (``deviceplugin/gpu_plugin.py``: a fault on a
-health pass is a card dying, one healthy card turns unhealthy on the
-ListAndWatch stream); ``plugin.dial``, ``plugin.rpc``, ``plugin.watch``
-(``deviceplugin/api.py``: the client's dial, unary RPCs and stream).
+Spec grammar: ``rule[;rule...]``, ``rule = <site>=drop[@<prob>]``; ``prob``
+defaults to 1.  ``drop`` raises ``FaultInjected`` (a ``ConnectionError``,
+as the JAX package's drop is).  The one site is ``device.health``
+(``deviceplugin/gpu_plugin.py``: a fault on a health pass is a card dying,
+one healthy card turns unhealthy on the ListAndWatch stream).
 
 With no injector active every check is one ``is None`` test.
 """
@@ -29,11 +23,8 @@ from __future__ import annotations
 
 import random
 import threading
-import time
 import zlib
-from typing import Dict, List, Optional, Tuple
-
-ACTIONS = ("drop", "delay")
+from typing import Dict, Optional
 
 
 class FaultInjected(ConnectionError):
@@ -45,65 +36,37 @@ class FaultSpecError(ValueError):
     """A malformed spec, raised at activation."""
 
 
-def _parse_duration(s: str) -> float:
-    s = s.strip()
-    if s.endswith("ms"):
-        return float(s[:-2]) / 1000.0
-    if s.endswith("s"):
-        return float(s[:-1])
-    return float(s)
-
-
 class Injector:
     """The parsed spec and one seeded stream per site, as the JAX
     package's injector seeds them: the same seed and spec give the same
     decisions at each site."""
 
     def __init__(self, seed: int, spec: str):
-        self.seed = seed
-        self._faults: Dict[str, List[Tuple[str, Optional[float], float]]] = {}
+        self._prob: Dict[str, float] = {}
         self._rngs: Dict[str, random.Random] = {}
         self._lock = threading.Lock()
-        for rule in spec.split(";"):
-            rule = rule.strip()
-            if not rule:
-                continue
-            site, sep, faults = rule.partition("=")
-            site = site.strip()
-            if not sep or not site:
-                raise FaultSpecError(f"rule {rule!r} is not <site>=<fault>")
-            self._rngs.setdefault(site, random.Random((seed << 32) ^ zlib.crc32(site.encode())))
-            for f in faults.split("|"):
-                f = f.strip()
-                if not f:
-                    continue
-                body, _, prob_s = f.partition("@")
-                action, _, param_s = body.partition(":")
-                action = action.strip()
-                if action not in ACTIONS:
-                    raise FaultSpecError(f"unknown action {action!r} in rule {rule!r} "
-                                         f"(want one of {ACTIONS})")
-                try:
-                    prob = float(prob_s) if prob_s else 1.0
-                    param = _parse_duration(param_s) if param_s else None
-                except ValueError as e:
-                    raise FaultSpecError(f"bad parameter in fault {f!r}: {e}") from e
-                if not 0.0 <= prob <= 1.0:
-                    raise FaultSpecError(f"probability {prob} not in [0,1]")
-                self._faults.setdefault(site, []).append((action, param, prob))
+        for rule in filter(None, (r.strip() for r in spec.split(";"))):
+            site, _, fault = (p.strip() for p in rule.partition("="))
+            action, _, prob_s = fault.partition("@")
+            if not site or action != "drop":
+                raise FaultSpecError(f"rule {rule!r} is not <site>=drop[@<prob>]")
+            try:
+                prob = float(prob_s) if prob_s else 1.0
+            except ValueError as e:
+                raise FaultSpecError(f"bad probability in rule {rule!r}: {e}") from e
+            if not 0.0 <= prob <= 1.0:
+                raise FaultSpecError(f"probability {prob} not in [0,1]")
+            self._prob[site] = prob
+            self._rngs[site] = random.Random((seed << 32) ^ zlib.crc32(site.encode()))
 
-    def decide(self, site: str) -> Optional[Tuple[str, Optional[float]]]:
-        """(action, param) of the first fault that fires at ``site``, else
-        None: one seeded draw per fault below probability 1."""
-        faults = self._faults.get(site)
-        if not faults:
-            return None
+    def fires(self, site: str) -> bool:
+        """Whether the fault at ``site`` fires: one seeded draw below
+        probability 1."""
+        prob = self._prob.get(site)
+        if prob is None:
+            return False
         with self._lock:
-            rng = self._rngs[site]
-            for action, param, prob in faults:
-                if prob >= 1.0 or rng.random() < prob:
-                    return action, param
-        return None
+            return prob >= 1.0 or self._rngs[site].random() < prob
 
 
 _injector: Optional[Injector] = None
@@ -126,16 +89,8 @@ def deactivate() -> None:
 
 
 def check(site: str) -> None:
-    """Gate one operation at ``site``: nothing when no injector is
-    active; may sleep (delay) or raise FaultInjected (drop)."""
+    """Gate one operation at ``site``: nothing when no injector is active;
+    raises FaultInjected where a drop fires."""
     inj = _injector
-    if inj is None:
-        return
-    d = inj.decide(site)
-    if d is None:
-        return
-    action, param = d
-    if action == "delay":
-        time.sleep(param or 0.0)
-        return
-    raise FaultInjected(f"faultline[{site}]: injected {action}")
+    if inj is not None and inj.fires(site):
+        raise FaultInjected(f"faultline[{site}]: injected drop")

@@ -238,10 +238,10 @@ def test_faultline_seam_is_seeded_and_refuses_bad_specs():
         a, b = decisions(3), decisions(3)
         assert a == b and 0 < sum(a) < 64
         assert decisions(4) != a
-        faultline.activate(1, "device.health=delay:1ms")
-        faultline.check("device.health")  # a delay proceeds
-        faultline.check("plugin.rpc")  # no rule at this site
-        for bad in ("device.health", "device.health=melt", "device.health=drop@2"):
+        faultline.activate(1, "device.health=drop@0")
+        faultline.check("device.health")  # probability 0 never fires
+        for bad in ("device.health", "device.health=melt", "device.health=drop@2",
+                    "device.health=drop@x", "=drop"):
             with pytest.raises(faultline.FaultSpecError):
                 faultline.activate(1, bad)
     finally:
@@ -368,42 +368,65 @@ def test_fake_inventory_spec_and_defaults(monkeypatch):
     assert len(default) == 1 and default[0]["attributes"][gp.ATTR_GPU_MODEL] == H100
 
 
-def test_real_discovery_walks_device_nodes_and_reads_nvidia_smi(tmp_path, monkeypatch):
-    smi = tmp_path / "nvidia-smi"
+def _smi_card(uuid, minor):
+    """One <gpu> of ``nvidia-smi -q -x``, trimmed from an H100's."""
+    return (f"<gpu id=\"\"><product_name>{H100}</product_name><uuid>{uuid}</uuid>"
+            f"<minor_number>{minor}</minor_number><pci><pci_bus_id>N/A</pci_bus_id></pci>"
+            "<fb_memory_usage><total>81559 MiB</total><used>0 MiB</used></fb_memory_usage>"
+            "<bar1_memory_usage><total>131072 MiB</total></bar1_memory_usage></gpu>")
+
+
+def _stand_in_smi(tmp_path, monkeypatch, cards):
+    smi = tmp_path / "bin" / "nvidia-smi"
+    smi.parent.mkdir()
+    (tmp_path / "smi.xml").write_text('<?xml version="1.0" ?><nvidia_smi_log>'
+                                      f"<attached_gpus>{len(cards)}</attached_gpus>"
+                                      + "".join(cards) + "</nvidia_smi_log>")
     smi.write_text("#!/bin/sh\n"
-                   "echo \"$@\" > " + str(tmp_path / "args") + "\n"
-                   "echo '1, GPU-bbb, NVIDIA H100 80GB HBM3, 81559, 00000000:2A:00.0'\n"
-                   "echo '0, GPU-aaa, NVIDIA H100 80GB HBM3, 81559, 00000000:18:00.0'\n")
+                   f"echo \"$@\" > {tmp_path / 'args'}\n"
+                   f"cat {tmp_path / 'smi.xml'}\n")
     smi.chmod(0o755)
-    monkeypatch.setenv("PATH", f"{tmp_path}{os.pathsep}{os.environ['PATH']}")
+    monkeypatch.setenv("PATH", f"{smi.parent}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.delenv("KTPU_FAKE_GPUS", raising=False)
-    # three nodes, two cards: the node without an nvidia-smi row is not advertised
-    monkeypatch.setattr(gp.glob, "glob", lambda pat: ["/dev/nvidia1", "/dev/nvidia10",
-                                                      "/dev/nvidia0"]
-                        if pat == "/dev/nvidia[0-9]*" else [])
+
+
+def test_real_discovery_walks_device_nodes_and_reads_nvidia_smi(tmp_path, monkeypatch):
+    """The chip machine's sandbox shows more nodes than cards, and its one
+    card is not the lowest-numbered node (/dev/nvidia0 and /dev/nvidia3,
+    card minor 3): each card takes the node of its own minor number, and
+    a card whose node is missing is not advertised."""
+    dev = tmp_path / "dev"
+    dev.mkdir()
+    for n in ("nvidia0", "nvidia3", "nvidiactl"):
+        (dev / n).write_text("")
+    monkeypatch.setattr(gp, "DEV_DIR", str(dev))
+    _stand_in_smi(tmp_path, monkeypatch, [_smi_card("GPU-aaa", 3), _smi_card("GPU-bbb", 5)])
     devices = gp.discover_gpu_devices()
     host = os.uname().nodename
-    assert [d["id"] for d in devices] == [f"{host}-nvidia0", f"{host}-nvidia1"]
-    assert devices[1]["attributes"] == {
-        gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559", gp.ATTR_GPU_UUID: "GPU-bbb",
-        gp.ATTR_GPU_NVLINK_DOMAIN: host, gp.ATTR_DEVICE_INDEX: "1",
-        gp.ATTR_DEVICE_PATH: "/dev/nvidia1"}
-    assert (tmp_path / "args").read_text().split() == [
-        "--query-gpu=index,uuid,name,memory.total,pci.bus_id", "--format=csv,noheader,nounits"]
+    assert [d["id"] for d in devices] == [f"{host}-nvidia3"]
+    assert devices[0]["attributes"] == {
+        gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559", gp.ATTR_GPU_UUID: "GPU-aaa",
+        gp.ATTR_GPU_NVLINK_DOMAIN: host, gp.ATTR_DEVICE_INDEX: "0",
+        gp.ATTR_DEVICE_PATH: str(dev / "nvidia3")}
+    assert (tmp_path / "args").read_text().split() == ["-q", "-x"]
+    # what the pod is handed is that card's node and UUID, not /dev/nvidia0
+    spec = gp.GPUDevicePlugin(devices=devices).init_container(
+        {"device_ids": [f"{host}-nvidia3"], "pod_annotations": {}})
+    assert spec.envs["CUDA_VISIBLE_DEVICES"] == "GPU-aaa"
+    assert spec.devices[0].host_path == str(dev / "nvidia3")
 
 
 def test_real_discovery_without_a_card_advertises_none(monkeypatch, tmp_path):
     monkeypatch.delenv("KTPU_FAKE_GPUS", raising=False)
-    monkeypatch.setenv("PATH", str(tmp_path))  # no nvidia-smi either
-    monkeypatch.setattr(gp.glob, "glob", lambda pat: [])
+    monkeypatch.setenv("PATH", str(tmp_path))  # no nvidia-smi
     assert gp.discover_gpu_devices() == []
-    assert gp.smi_rows() == []
+    assert gp.smi_cards() == []
 
 
 def test_plugin_main_registers_and_removes_its_socket_on_sigterm(plugin_dir, tmp_path, manager):
     log = open(tmp_path / "plugin.log", "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin.gpu_plugin",
+        [sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin",
          "--plugin-dir", plugin_dir],
         env={**os.environ, "KTPU_FAKE_GPUS": f"{H100}:2:nv0:0"}, stdout=log,
         stderr=subprocess.STDOUT)
@@ -423,6 +446,7 @@ def test_plugin_main_registers_and_removes_its_socket_on_sigterm(plugin_dir, tmp
         log.close()
     said = (tmp_path / "plugin.log").read_text()
     assert "advertising 2 card(s)" in said and "nv0-h0-gpu1" in said
+    assert "Warning" not in said  # the entry loads the plugin's module once
 
 
 def test_the_plugin_imports_no_torch_and_no_jax():

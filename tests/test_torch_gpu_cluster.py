@@ -227,7 +227,8 @@ def test_mnist_job_from_the_manifest_succeeds_with_the_injected_env(gpu_node):
     # on the CPU: the same code, the plain versions, and the injected env kept
     c.command = [sys.executable, "-c",
                  code.replace("train()", "train(device='cpu')") + "; " + _env_dump(out)]
-    c.env = [t.EnvVar(name="PYTHONPATH", value=specs.pythonpath_env()["value"])]
+    c.env = [t.EnvVar(name="PYTHONPATH", value=specs.pythonpath_env()["value"]),
+             t.EnvVar(name="OMP_NUM_THREADS", value="1")]  # one core beside the suite
     cs.jobs.create(job)
     must_poll_until(lambda: cs.jobs.get("mnist-1gpu", "default").status.succeeded >= 1,
                     timeout=180.0, desc="the MNIST Job succeeded")

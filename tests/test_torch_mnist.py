@@ -96,9 +96,11 @@ def test_init_params_scales_and_card_default(monkeypatch):
 
 def test_main_runs_on_the_cpu_and_refuses_without_a_card():
     run = [sys.executable, "-m", "kubernetes1_tpu_torch.workloads.mnist"]
-    res = subprocess.run(run + ["--device", "cpu"], capture_output=True, text=True, timeout=300)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}  # one core: the suite runs beside it
+    res = subprocess.run(run + ["--device", "cpu"], capture_output=True, text=True, timeout=300,
+                         env=env)
     assert res.returncode == 0, res.stderr
     assert "acc=1.000 on cpu" in res.stdout
     res = subprocess.run(run, capture_output=True, text=True, timeout=300,
-                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+                         env={**env, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0 and "no CUDA device" in res.stderr
