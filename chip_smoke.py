@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. builds the hand-written kernels from kubernetes1_tpu_torch/csrc with nvcc,
-   and prints what ptxas reported for the attention kernels (registers,
+   and beside them the native node binaries from kubernetes1_tpu_torch/native
+   with make, and prints what ptxas reported for the attention kernels (registers,
    spills) beside each one's shared memory and threads, and for the batch
    norm, GELU, LayerNorm, optimizer and RMSNorm kernels (registers, spills,
    shared memory);
@@ -25,7 +26,11 @@
    those on the plain versions, at Llama-3-8B widths with 2 layers;
 5. serves Llama-3-8B (all 32 layers, random weights from a seed) on 8 slots
    through DecodeServer: 12 concurrent HTTP requests, one streamed, and
-   checks the tokens, the /metrics surface and the kernels' launches;
+   checks the tokens, the /metrics surface and the kernels' launches; then
+   puts the port's open-loop LoadGen in front of the same server (Poisson,
+   seed 0, prompt (1, 2, 3), streamed, 20 s at half the closed loop's
+   request rate): no request failed or shed, the launches per engine step,
+   and the TTFT and token-gap percentiles;
 6. trains Llama-3-8B widths cut to 4 layers (1.92 B parameters, f32 master
    weights and AdamW, ~31 GB of state) for 5 steps on one fixed (4, 2049)
    batch through make_train_state / make_train_step, and checks the losses
@@ -152,10 +157,22 @@
    process; after teardown no pod process, no new process on the card and
    no plugin socket may remain.  It prints chip_alloc_s and pod_start_s
    (bench.py's names) and the Job's imgs/s beside the in-process run's.
-   The pods' launches happen in their own processes: no launches column.
+   The native GPU metrics exporter runs beside the components, scraped
+   before the ResNet-50 Job and every 0.5 s while it runs: the Job's window
+   must show utilization above 0 and memory above the idle reading.  The
+   serving pod then takes LoadGen's open-loop traffic (Poisson, seed 1,
+   20 QPS for 10 s, streamed) with no request failed or shed.
+   The pods' launches happen in their own processes: no launches column;
+25. (the native node components, before 24.) runs ktpu-gpu-plugin in real
+   mode: its inventory, read through the port's PluginClient, equals the
+   Python plugin's, its injection names the card by UUID, and SIGTERM
+   takes its socket; ktpu-gpu-metrics-exporter reports the card with
+   nvidia-smi's memory.total and power.limit; then the orchestrator of 24.
+   with ktpu-gpu-plugin in the plugin dir runs the MNIST Job on the card.
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.  The kernels' rows
-carry their launches on each main path (``launches_<path>``; ``dp`` is
+carry their launches on each main path (``launches_<path>``; ``serving``
+is 5.'s closed and open-loop legs, ``dp`` is
 18.'s runs and rank 0's steps in 19., ``shard`` rank 0's steps in 21.,
 ``mnist`` 23.'s training) and in all.
 
@@ -171,6 +188,8 @@ import gc
 import json
 import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -178,19 +197,20 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubernetes1_tpu_torch import optim
+from kubernetes1_tpu_torch import native, optim
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
                                            layernorm, rmsnorm, rope, swiglu)
 from kubernetes1_tpu_torch.kernels import optim as optim_kernels
 from kubernetes1_tpu_torch.kernels import ringattention as ring_kernels
-from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, mnist, resnet,
-                                             resnet_bench, ringattention)
+from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, loadgen, mnist,
+                                             resnet, resnet_bench, ringattention)
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
 SPIN_CYCLES = 50_000_000
@@ -249,6 +269,9 @@ TRAIN_GRAD_REL_L2_TOL = 5e-2
 SERVE_SLOTS = 8
 SERVE_REQUESTS = 12
 SERVE_MAX_NEW = 8
+# serving_phase's open-loop leg: LoadGen's Poisson arrivals for this long, at
+# half the request rate that the closed-loop leg sustained.
+SERVE_OPEN_S = 20.0
 
 TRAIN_LAYERS = 4        # Llama-3-8B widths; 32 layers of f32 + AdamW state do not fit
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # llama_bench.py's defaults; tokens are (4, 2049)
@@ -451,6 +474,13 @@ CLUSTER_WAIT_S = 120.0
 # Sent one at a time to the serving pod and to a DecodeServer in this process
 # (the tiny config that `llama --serve` serves), whose tokens must be the same.
 CLUSTER_PROMPTS = ([1, 2, 3], [9, 8], [42, 7, 100, 3, 250], list(range(1, 40)))
+# LoadGen in front of the serving pod: Poisson arrivals at this rate for this
+# long, JAX's defaults otherwise.
+CLUSTER_LOADGEN_QPS, CLUSTER_LOADGEN_S = 20.0, 10.0
+# The GPU metrics exporter: scraped this often while the ResNet-50 Job runs;
+# its power limit against nvidia-smi's, within this many watts.
+EXPORTER_EVERY_S = 0.5
+POWER_LIMIT_TOL_W = 1.0
 
 BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
                 "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
@@ -993,16 +1023,13 @@ def serving_phase(card: str) -> dict:
             if (not isinstance(out, list) or len(out) != SERVE_MAX_NEW
                     or not all(0 <= t < cfg.vocab for t in out)):
                 fail(f"serving: request {i} (prompt {lengths[i]}) returned {out!r}")
-        per_step = serve_launches_per_step(cfg.n_layers)
-        for name, n in launches.items():
-            if n != per_step.get(name, 0) * steps or (name in per_step and n == 0):
-                fail(f"serving: {name} launched {n} times in {steps} steps, "
-                     f"want {per_step.get(name, 0)} per step")
+        check_serve_launches("serving", launches, steps, cfg.n_layers)
         metrics = _get(srv.url + "/metrics")
         if f"ktpu_llama_slots_total {float(SERVE_SLOTS)}" not in metrics.splitlines():
             fail("serving: /metrics lacks ktpu_llama_slots_total 8")
         if json.loads(_get(srv.url + "/healthz")) != {"status": "ok"}:
             fail("serving: /healthz")
+        open_loop = open_loop_leg(srv, 0.5 * SERVE_REQUESTS / wall, card)
         # one engine step at the engine's smallest bucket and at this run's
         # largest, for the share of a step that the kernels take
         forward_ms = {}
@@ -1016,7 +1043,8 @@ def serving_phase(card: str) -> dict:
         srv.stop()
     res = dict(requests=SERVE_REQUESTS, steps=steps, tokens=toks, wall_s=wall,
                step_ms=wall / steps * 1e3, tokens_per_s=toks / wall,
-               peak_mem_gib=peak / 2 ** 30, launches=launches)
+               peak_mem_gib=peak / 2 ** 30, open_loop=open_loop,
+               launches={k: n + open_loop["launches"][k] for k, n in launches.items()})
     print(f"serving (Llama-3-8B, {SERVE_SLOTS} slots, {SERVE_REQUESTS} requests x "
           f"{SERVE_MAX_NEW} tokens, prompts 5-1000): steps={steps} tokens={toks} "
           f"wall_s={wall:.3f} step_ms={res['step_ms']:.2f} "
@@ -1024,6 +1052,41 @@ def serving_phase(card: str) -> dict:
           f"forward_ms(8x8)={forward_ms[8]:.2f} forward_ms(8x1024)={forward_ms[1024]:.2f} "
           f"launches={launches} on [{card}]", flush=True)
     return res
+
+
+def check_serve_launches(tag: str, launches: dict, steps: int, L: int):
+    """Each serving kernel launched its count per engine step, in every step."""
+    per_step = serve_launches_per_step(L)
+    for name, n in launches.items():
+        if n != per_step.get(name, 0) * steps or (name in per_step and n == 0):
+            fail(f"{tag}: {name} launched {n} times in {steps} steps, "
+                 f"want {per_step.get(name, 0)} per step")
+
+
+def open_loop_leg(srv, qps: float, card: str) -> dict:
+    """serving_phase's open-loop leg: LoadGen's Poisson arrivals (seed 0,
+    prompt (1, 2, 3), streamed) at ``qps`` for SERVE_OPEN_S against the
+    same server; no request may fail or be shed, and every engine step of
+    the leg must launch the serving kernels' counts."""
+    engine = srv.engine
+    for kern in KERNELS.values():
+        kern.launches = 0
+    steps0 = engine.steps
+    lg = loadgen.LoadGen(srv.url, qps=qps, arrival="poisson", seed=0, tokens=(1, 2, 3),
+                         max_new=SERVE_MAX_NEW, stream=True).run(SERVE_OPEN_S)
+    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    steps = engine.steps - steps0
+    s = lg.summary()
+    check_loadgen("serving open loop", s)
+    check_serve_launches("serving open loop", launches, steps, srv.cfg.n_layers)
+    print(f"serving open loop (Llama-3-8B, {SERVE_SLOTS} slots, LoadGen poisson seed 0, prompt "
+          f"(1, 2, 3) x {SERVE_MAX_NEW} tokens streamed, {SERVE_OPEN_S:.0f} s): offered_qps="
+          f"{s['offered_qps']} achieved_qps={s['achieved_qps']} (asked {qps:.3f}) issued="
+          f"{s['issued']} acked={s['acked']} failed={s['failed']} shed={s['shed']} "
+          f"ttft_p50_s={s['ttft_p50_s']} ttft_p99_s={s['ttft_p99_s']} token_p50_s="
+          f"{s['token_p50_s']} token_p99_s={s['token_p99_s']} request_p99_s="
+          f"{s['request_p99_s']} steps={steps} on [{card}]", flush=True)
+    return dict(summary=s, qps=qps, steps=steps, launches=launches)
 
 
 def train_check_phase(dev):
@@ -3655,14 +3718,19 @@ def _compute_pids() -> set:
     return {int(x) for x in out.split() if x.strip().isdigit()}
 
 
+PYTHON_PLUGIN = (sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin")
+
+
 class Cluster:
     """The orchestrator as child processes of this one: the JAX package's
     unchanged apiserver, scheduler, controller manager and kubelet (a
-    ProcessRuntime node), and the port's GPU plugin in real mode (no
-    KTPU_FAKE_GPUS) in the node's plugin dir; spoken to over HTTP.  ``stop`` deletes every workload, stops every process and
-    returns the pod processes that survived, killed."""
+    ProcessRuntime node), and a GPU plugin in real mode (no KTPU_FAKE_GPUS)
+    in the node's plugin dir: ``plugin``, its command before
+    ``--plugin-dir``, the port's Python plugin unless another is given.
+    Spoken to over HTTP.  ``stop`` deletes every workload, stops every
+    process and returns the pod processes that survived, killed."""
 
-    def __init__(self, tmp: str):
+    def __init__(self, tmp: str, plugin=PYTHON_PLUGIN):
         self.tmp, self.procs, self.logs = tmp, [], []
         self.url = f"http://127.0.0.1:{_free_port()}"
         self.plugin_dir = f"{tmp}/plugins"
@@ -3671,28 +3739,25 @@ class Cluster:
             p for p in (REPO_ROOT, os.environ.get("PYTHONPATH", "")) if p)}
         self.env.pop("KTPU_FAKE_GPUS", None)
         try:
-            self._start("apiserver", ["-m", "kubernetes1_tpu", "apiserver", "--port",
+            component = [sys.executable, "-m", "kubernetes1_tpu"]
+            self._start("apiserver", [*component, "apiserver", "--port",
                                       self.url.rsplit(":", 1)[1]])
             _wait("the apiserver", self._healthy, 120)
             server = ["--server", self.url]
-            self._start("scheduler", ["-m", "kubernetes1_tpu", "scheduler", *server,
-                                      "--metrics-port", "-1"])
-            self._start("controller-manager", ["-m", "kubernetes1_tpu", "controller-manager",
-                                               *server])
-            self._start("plugin", ["-m", "kubernetes1_tpu_torch.deviceplugin",
-                                   "--plugin-dir", self.plugin_dir])
-            self._start("kubelet", ["-m", "kubernetes1_tpu", "kubelet", *server, "--runtime",
-                                    "process", "--plugin-dir", self.plugin_dir, "--root-dir",
+            self._start("scheduler", [*component, "scheduler", *server, "--metrics-port", "-1"])
+            self._start("controller-manager", [*component, "controller-manager", *server])
+            self._start("plugin", [*plugin, "--plugin-dir", self.plugin_dir])
+            self._start("kubelet", [*component, "kubelet", *server, "--runtime", "process",
+                                    "--plugin-dir", self.plugin_dir, "--root-dir",
                                     f"{tmp}/node", "--node-name", CLUSTER_NODE])
         except BaseException:
             self.stop()
             raise
 
-    def _start(self, name: str, args: list):
+    def _start(self, name: str, argv: list):
         log = open(f"{self.tmp}/{name}.log", "w")
         self.logs.append((name, log))
-        self.procs.append((name, subprocess.Popen([sys.executable, *args], cwd=REPO_ROOT,
-                                                  env=self.env, stdout=log,
+        self.procs.append((name, subprocess.Popen(argv, cwd=REPO_ROOT, env=self.env, stdout=log,
                                                   stderr=subprocess.STDOUT)))
 
     def check_alive(self):
@@ -3716,6 +3781,39 @@ class Cluster:
 
     def api(self, path: str, method: str = "GET", body=None):
         return _api(self.url + path, method, body)
+
+    def advertised(self) -> list:
+        """The node's nvidia.com/gpu devices once it advertises them; fails
+        unless they are the one card torch sees, with its UUID."""
+        def cards():
+            try:
+                node = self.api(f"/api/v1/nodes/{CLUSTER_NODE}")
+            except OSError:
+                return None
+            return ((node.get("status") or {}).get("extendedResources") or {}).get(
+                "nvidia.com/gpu")
+
+        devs = _wait("the node to advertise nvidia.com/gpu", cards, 120)
+        attrs = devs[0].get("attributes") or {}
+        if len(devs) != 1 or attrs.get("nvidia.com/gpu/model") != \
+                torch.cuda.get_device_name(0) or not attrs.get("nvidia.com/gpu/uuid"):
+            fail(f"cluster: the node advertises {devs}, want one "
+                 f"{torch.cuda.get_device_name(0)} with its UUID\n{self.log('plugin')}")
+        return devs
+
+    def job_started(self, sel: str, t0: float) -> tuple:
+        """(chip_alloc_s, pod_start_s, the CUDA_VISIBLE_DEVICES its process
+        got) of the Job pod behind ``sel``, created at perf_counter ``t0``:
+        bench.py's names, from the create to the pod's node and to Running."""
+        _wait("the pod's node", lambda: any(p["spec"].get("nodeName") for p in self.pods(sel)),
+              every=0.05)
+        alloc_s = time.perf_counter() - t0
+        _wait("the pod running", lambda: any(
+            (p.get("status") or {}).get("phase") in ("Running", "Succeeded", "Failed")
+            for p in self.pods(sel)), every=0.05)
+        start_s = time.perf_counter() - t0
+        seen = _wait("the pod's process", lambda: _pod_pids(self.url), every=0.05)
+        return alloc_s, start_s, {env.get("CUDA_VISIBLE_DEVICES") for env in seen.values()}
 
     def create(self, obj: dict):
         """POST a builder's Job or Deployment (the wire form without its
@@ -3811,7 +3909,184 @@ class Cluster:
         return sorted(survivors)
 
 
-def cluster_phase(card: str, rn: dict) -> dict:
+def _without_fake_gpus() -> dict:
+    """This process's environment without KTPU_FAKE_GPUS: real mode."""
+    return {k: v for k, v in os.environ.items() if k != "KTPU_FAKE_GPUS"}
+
+
+class Exporter:
+    """ktpu-gpu-metrics-exporter in real mode on a free loopback port."""
+
+    def __init__(self, binary: str, log_path: str):
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen([binary, "--port", "0"], env=_without_fake_gpus(),
+                                     stdout=subprocess.PIPE, stderr=self.log, text=True)
+        said = re.search(r"listening on (\S+)", self.proc.stdout.readline())
+        if not said:
+            self.stop()
+            with open(log_path) as f:
+                fail(f"exporter: no listening line; exit {self.proc.returncode}: {f.read()}")
+        self.url = f"http://{said.group(1)}"
+
+    def scrape(self) -> dict:
+        """{metric: (labels, value)} of /metrics, a sample a metric (one card)."""
+        out = {}
+        for line in _get(self.url + "/metrics").splitlines():
+            m = re.match(r"^(\w+)\{([^}]*)\} (\S+)$", line)
+            if m:
+                out[m.group(1)] = (dict(re.findall(r'(\w+)="([^"]*)"', m.group(2))),
+                                   float(m.group(3)))
+        return out
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        self.proc.wait(timeout=20)
+        self.proc.stdout.close()
+        self.log.close()
+
+
+def smi_query(fields: str) -> list:
+    """nvidia-smi's values of ``fields`` for the one card, without units."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [v.strip() for v in out.splitlines()[0].split(",")]
+
+
+def check_loadgen(tag: str, s: dict):
+    """An open-loop run's outcome: every request issued, none shed, none failed."""
+    if s["failed"] or s["shed"] or s["acked"] != s["issued"] or not s["acked"]:
+        fail(f"{tag}: LoadGen {s}")
+
+
+def native_phase(card: str, bins: dict) -> dict:
+    """The native node components in real mode on the card.  (a)
+    ktpu-gpu-plugin's ListAndWatch inventory, read through the port's
+    PluginClient, equals the Python GPUDevicePlugin's device for device,
+    its injection names the card by UUID with gpu.ktpu.io/plugin: native,
+    and SIGTERM takes its socket; (b) ktpu-gpu-metrics-exporter reports
+    the one card with its UUID, nvidia-smi's memory.total and power.limit
+    (within POWER_LIMIT_TOL_W); (c) the orchestrator as in cluster_phase
+    with ktpu-gpu-plugin in the plugin dir runs the MNIST Job on the card
+    it advertises, under its UUID, and leaves nothing behind."""
+    from kubernetes1_tpu_torch.deviceplugin import GPUDevicePlugin, PluginClient
+    from kubernetes1_tpu_torch.workloads import specs
+
+    kind = torch.cuda.get_device_name(0)
+    tmp = tempfile.mkdtemp(prefix="native_")
+    plugin_dir = f"{tmp}/plugins"
+    sock = f"{plugin_dir}/nvidia.com/gpu.sock"
+    res = {}
+
+    # (a) the inventory, beside the Python plugin's
+    t0 = time.perf_counter()
+    want = GPUDevicePlugin().list_devices()  # real mode: one nvidia-smi -q -x call
+    res["python_discovery_s"] = time.perf_counter() - t0
+    log = open(f"{tmp}/plugin.log", "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([bins[native.PLUGIN], "--plugin-dir", plugin_dir],
+                            env=_without_fake_gpus(), stdout=log, stderr=subprocess.STDOUT)
+    try:
+        _wait("the native plugin's socket", lambda: os.path.exists(sock) or proc.poll() is not None,
+              30, 0.005)
+        res["native_serving_s"] = time.perf_counter() - t0
+        if proc.poll() is not None:
+            fail(f"native: ktpu-gpu-plugin exited {proc.returncode}")
+        client = PluginClient(sock)
+        stream = client.list_and_watch()
+        got = next(stream, None)
+        stream.close()
+        info = client.call("GetPluginInfo")
+        inject = client.call("InitContainer", {"device_ids": [d["id"] for d in got or []]})
+        client.close()
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=20)
+        log.close()
+    with open(f"{tmp}/plugin.log") as f:
+        said = f.read()
+    if got != want or len(want) != 1 or want[0]["attributes"]["nvidia.com/gpu/model"] != kind:
+        fail(f"native: ktpu-gpu-plugin advertises {got}, the Python plugin {want}\n{said}")
+    if info != {**GPUDevicePlugin(devices=want).get_plugin_info(), "native": True}:
+        fail(f"native: GetPluginInfo {info}")
+    attrs = want[0]["attributes"]
+    uuid, path = attrs["nvidia.com/gpu/uuid"], attrs["ktpu.io/device-path"]
+    if inject["envs"].get("CUDA_VISIBLE_DEVICES") != uuid or \
+            inject["annotations"].get("gpu.ktpu.io/plugin") != "native" or \
+            path not in [d["host_path"] for d in inject["devices"]]:
+        fail(f"native: InitContainer {inject}")
+    if rc != 0 or os.path.exists(sock):
+        fail(f"native: after SIGTERM ktpu-gpu-plugin exited {rc}, its socket "
+             f"{'is still there' if os.path.exists(sock) else 'is gone'}\n{said}")
+    print(f"native: ktpu-gpu-plugin advertises {got[0]['id']} ({attrs['nvidia.com/gpu/model']}, "
+          f"{attrs['nvidia.com/gpu/memory']} MiB, {uuid}, {path}) as the Python plugin does; "
+          f"serving {res['native_serving_s']:.4f} s after its start (the Python plugin's "
+          f"discovery alone {res['python_discovery_s']:.4f} s); SIGTERM: exit 0, socket gone "
+          f"on [{card}]", flush=True)
+
+    # (b) the exporter against nvidia-smi
+    exporter = Exporter(bins[native.EXPORTER], f"{tmp}/exporter.log")
+    try:
+        m = exporter.scrape()
+    finally:
+        exporter.stop()
+    smi_total_mib, smi_limit_w = smi_query("memory.total,power.limit")
+    total, limit = m["ktpu_gpu_memory_total_bytes"][1], m["ktpu_gpu_power_limit_watts"][1]
+    if m["ktpu_gpu_cards"][1] != 1 or m["ktpu_gpu_card_healthy"][0].get("uuid") != uuid or \
+            m["ktpu_gpu_card_healthy"][1] != 1 or total // 2 ** 20 != int(smi_total_mib) or \
+            not abs(limit - float(smi_limit_w)) <= POWER_LIMIT_TOL_W:
+        fail(f"native: the exporter says {m}; nvidia-smi memory.total {smi_total_mib} MiB, "
+             f"power.limit {smi_limit_w} W")
+    res.update(exporter_idle={k: v for k, (_, v) in m.items()})
+    print(f"native: ktpu-gpu-metrics-exporter: cards {m['ktpu_gpu_cards'][1]:.0f} ({uuid}), "
+          f"memory total {total:.0f} B ({smi_total_mib} MiB by nvidia-smi), used "
+          f"{m['ktpu_gpu_memory_used_bytes'][1]:.0f} B, utilization "
+          f"{m['ktpu_gpu_utilization_ratio'][1]}, power {m['ktpu_gpu_power_watts'][1]} W of "
+          f"{limit} W (nvidia-smi {smi_limit_w} W), {m['ktpu_gpu_temperature_celsius'][1]:.0f} C "
+          f"on [{card}]", flush=True)
+
+    # (c) the MNIST Job through the native plugin
+    free_memory()
+    before = _compute_pids()
+    os.makedirs(f"{tmp}/cluster")
+    cl = Cluster(f"{tmp}/cluster", plugin=[bins[native.PLUGIN]])
+    try:
+        devs = cl.advertised()
+        if devs[0]["id"] != want[0]["id"]:
+            fail(f"native: the node advertises {devs}, the plugin {want}")
+        t0 = time.perf_counter()
+        cl.create(specs.payload_job("mnist-native", ["kubernetes1_tpu_torch.workloads.mnist"]))
+        sel = "batch.ktpu.io/job-name=mnist-native"
+        alloc_s, start_s, visible = cl.job_started(sel, t0)
+        injected = PluginClient(cl.socket).call("InitContainer", {"device_ids": [want[0]["id"]]})
+        done = _wait("the MNIST Job to succeed", lambda: cl.job_done("mnist-native"), 300, 0.5)
+        mlog = cl.pod_log(done["metadata"]["name"])
+        cl.delete_job("mnist-native")
+    finally:
+        survivors = cl.stop()
+    left = _compute_pids() - before
+    acc = re.search(r"acc=([0-9.]+) on (.+)", mlog)
+    if done["spec"]["extendedResources"][0].get("assigned") != [want[0]["id"]] or \
+            visible != {uuid} or injected["annotations"].get("gpu.ktpu.io/plugin") != "native":
+        fail(f"native: the MNIST pod got {done['spec']['extendedResources']} with "
+             f"CUDA_VISIBLE_DEVICES {visible}; the plugin injects {injected}")
+    if not acc or float(acc.group(1)) < MNIST_MIN_ACCURACY or acc.group(2).strip() != kind:
+        fail(f"native: the MNIST Job's pod said {mlog!r}")
+    if survivors or left or os.path.exists(cl.socket):
+        fail(f"native: after teardown pod processes {survivors} survived, the card holds "
+             f"{sorted(left)}, the plugin socket is "
+             f"{'still there' if os.path.exists(cl.socket) else 'gone'}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    res.update(chip_alloc_s=alloc_s, pod_start_s=start_s, mnist_acc=float(acc.group(1)))
+    print(f"native: the MNIST Job through ktpu-gpu-plugin: chip_alloc_s={alloc_s:.3f} "
+          f"pod_start_s={start_s:.3f} on {want[0]['id']} (CUDA_VISIBLE_DEVICES={uuid}, "
+          f"gpu.ktpu.io/plugin: native), accuracy {acc.group(1)}; teardown left no pod process, "
+          f"no new process on the card and no plugin socket on [{card}]", flush=True)
+    return res
+
+
+def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     """The nvidia.com/gpu device plane on the card: the orchestrator in
     child processes with the port's plugin in real mode.  (a) the node
     advertises the one card, as torch names it; (b) ResNet-50 through
@@ -3819,10 +4094,11 @@ def cluster_phase(card: str, rn: dict) -> dict:
     the card's UUID injected, its first loss against the in-process run's
     (``rn``, resnet_phase's); (c) an MNIST Job made while that Job holds the
     card waits with the scheduler's "insufficient nvidia.com/gpu", then
-    runs once the finished ResNet-50 Job is deleted; (d) the serving Deployment's pod answers with an in-process
-    DecodeServer's tokens; (e) nothing survives teardown."""
-    import shutil
-
+    runs once the finished ResNet-50 Job is deleted, while the GPU metrics
+    exporter beside the components shows the Job's utilization and memory;
+    (d) the serving Deployment's pod answers with an in-process
+    DecodeServer's tokens, then takes LoadGen's open-loop traffic with no
+    request failed or shed; (e) nothing survives teardown."""
     from kubernetes1_tpu_torch.workloads import specs
 
     kind = torch.cuda.get_device_name(0)
@@ -3838,43 +4114,34 @@ def cluster_phase(card: str, rn: dict) -> dict:
     before = _compute_pids()
     tmp = tempfile.mkdtemp(prefix="cluster_")
     cl = Cluster(tmp)
+    exporter = None
     res = {}
     try:
+        exporter = Exporter(bins[native.EXPORTER], f"{tmp}/exporter.log")
         # (a) the node advertises exactly the card torch sees
-        def cards():
-            try:
-                node = cl.api(f"/api/v1/nodes/{CLUSTER_NODE}")
-            except OSError:
-                return None
-            return ((node.get("status") or {}).get("extendedResources") or {}).get(
-                "nvidia.com/gpu")
-
-        devs = _wait("the node to advertise nvidia.com/gpu", cards, 120)
-        attrs = devs[0].get("attributes") or {}
-        if len(devs) != 1 or attrs.get("nvidia.com/gpu/model") != kind or \
-                not attrs.get("nvidia.com/gpu/uuid"):
-            fail(f"cluster: the node advertises {devs}, want one {kind} with its UUID\n"
-                 f"{cl.log('plugin')}")
+        devs = cl.advertised()
+        attrs = devs[0]["attributes"]
         card_id, uuid = devs[0]["id"], attrs["nvidia.com/gpu/uuid"]
         print(f"cluster: {CLUSTER_NODE} advertises {card_id}: {attrs}", flush=True)
 
-        # (b) ResNet-50 as a Job; (c) MNIST made while it holds the card
+        # (b) ResNet-50 as a Job, the exporter scraped all along; (c) MNIST
+        # made while it holds the card
+        idle = exporter.scrape()
+        samples, sampled = [], threading.Event()
+
+        def sample():
+            while not sampled.wait(EXPORTER_EVERY_S):
+                samples.append(exporter.scrape())
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
         out = f"{tmp}/resnet.json"
         t0 = time.perf_counter()  # bench.py's clock: from the create
         cl.create(specs.payload_job(
             "resnet50-gpu", ["kubernetes1_tpu_torch.workloads.resnet_bench", "--batch",
                              str(RESNET_BATCH), "--size", str(RESNET_SIZE), "--steps",
                              str(RESNET_STEPS), "--no-profile"], out=out))
-        sel = "batch.ktpu.io/job-name=resnet50-gpu"
-        _wait("the ResNet-50 pod's node", lambda: any(
-            p["spec"].get("nodeName") for p in cl.pods(sel)), every=0.05)
-        alloc_s = time.perf_counter() - t0
-        _wait("the ResNet-50 pod running", lambda: any(
-            (p.get("status") or {}).get("phase") in ("Running", "Succeeded", "Failed")
-            for p in cl.pods(sel)), every=0.05)
-        start_s = time.perf_counter() - t0
-        seen = _wait("the ResNet-50 pod's process", lambda: _pod_pids(cl.url), every=0.05)
-        visible = {env.get("CUDA_VISIBLE_DEVICES") for env in seen.values()}
+        alloc_s, start_s, visible = cl.job_started("batch.ktpu.io/job-name=resnet50-gpu", t0)
         cl.create(specs.payload_job("mnist-gpu", ["kubernetes1_tpu_torch.workloads.mnist"]))
         msel = "batch.ktpu.io/job-name=mnist-gpu"
         mpod = _wait("the MNIST pod", lambda: cl.pods(msel))[0]["metadata"]["name"]
@@ -3885,6 +4152,23 @@ def cluster_phase(card: str, rn: dict) -> dict:
             fail("cluster: the MNIST pod was not seen waiting while ResNet-50 held the card")
         pod = _wait("the ResNet-50 Job to succeed", lambda: cl.job_done("resnet50-gpu"),
                     600, 0.5)
+        sampled.set()
+        sampler.join(timeout=30)
+        peak = {k: max((m[k][1] for m in samples), default=None) for k in (
+            "ktpu_gpu_utilization_ratio", "ktpu_gpu_memory_used_bytes", "ktpu_gpu_power_watts")}
+        idle_used = idle["ktpu_gpu_memory_used_bytes"][1]
+        if sampler.is_alive() or not samples or not peak["ktpu_gpu_utilization_ratio"] or \
+                not peak["ktpu_gpu_memory_used_bytes"] > idle_used:
+            fail(f"cluster: over the ResNet-50 Job the exporter read {len(samples)} samples, "
+                 f"peaks {peak}, idle memory {idle_used}")
+        res.update(exporter_samples=len(samples), exporter_peak=peak,
+                   exporter_idle={k: v for k, (_, v) in idle.items()})
+        print(f"cluster: the GPU metrics exporter over the ResNet-50 Job ({len(samples)} scrapes, "
+              f"every {EXPORTER_EVERY_S} s): peak utilization "
+              f"{peak['ktpu_gpu_utilization_ratio']}, peak memory used "
+              f"{peak['ktpu_gpu_memory_used_bytes']:.0f} B (idle {idle_used:.0f} B), peak power "
+              f"{peak['ktpu_gpu_power_watts']} W (idle {idle['ktpu_gpu_power_watts'][1]} W) of "
+              f"{idle['ktpu_gpu_power_limit_watts'][1]} W on [{card}]", flush=True)
         with open(out) as f:
             job = json.load(f)
         assigned = pod["spec"]["extendedResources"][0].get("assigned")
@@ -3938,7 +4222,16 @@ def cluster_phase(card: str, rn: dict) -> dict:
         print(f"cluster: the serving Deployment's pod {name} at {url}, ready in {ready_s:.2f} s, "
               f"answered {len(got_tokens)} requests with the in-process server's tokens "
               f"{got_tokens}", flush=True)
+        s = loadgen.LoadGen(url, qps=CLUSTER_LOADGEN_QPS, arrival="poisson", seed=1,
+                            stream=True).run(CLUSTER_LOADGEN_S).summary()
+        check_loadgen("cluster: the serving pod", s)
+        res.update(serve_loadgen=s)
+        print(f"cluster: LoadGen against the serving pod (poisson seed 1, "
+              f"{CLUSTER_LOADGEN_QPS:.0f} QPS asked, {CLUSTER_LOADGEN_S:.0f} s, streamed): "
+              f"{json.dumps(s)} on [{card}]", flush=True)
     finally:
+        if exporter is not None:
+            exporter.stop()
         survivors = cl.stop()
     left = _compute_pids() - before
     if survivors or left or os.path.exists(cl.socket):
@@ -3977,8 +4270,12 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.monotonic()
-    libs = build.build_all()
-    print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(1) as pool:  # g++ beside nvcc
+        native_build = pool.submit(native.build)
+        libs = build.build_all()
+        bins = native_build.result()
+    print(f"build: {sorted(libs)} and {sorted(bins)} in {time.monotonic() - t0:.1f} s",
+          flush=True)
     attention_build_report()
     for source in ("batchnorm", "gelu", "layernorm", "optim", "rmsnorm"):
         ptxas_report(source)
@@ -4031,7 +4328,8 @@ def main():
     free_memory()
     mn = mnist_phase(card, dev, gen)
     free_memory()
-    cluster_phase(card, rn)  # last: every kernel is built, and this process holds little
+    native_phase(card, bins)
+    cluster_phase(card, rn, bins)  # last: every kernel is built, and this process holds little
     rows += (bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
              + mn["rows"])
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,

@@ -20,13 +20,14 @@ from __future__ import annotations
 
 import json
 import os
-import random
 import socket
 import threading
 import time
 import traceback
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
+
+from ..utils.retry import Backoff
 
 DEFAULT_PLUGIN_DIR = "/var/lib/ktpu/device-plugins"
 
@@ -90,26 +91,6 @@ class ContainerSpec:
             devices=[DeviceSpec(**x) for x in d.get("devices") or []],
             annotations=d.get("annotations") or {},
         )
-
-
-class Backoff:
-    """Capped exponential backoff with full jitter: attempt n sleeps
-    ~ U(0, min(cap, base * factor**n)) (the JAX package's
-    ``client/retry.Backoff``, without its seeded chaos stream)."""
-
-    def __init__(self, base: float = 0.02, factor: float = 2.0, cap: float = 1.0):
-        self.base = base
-        self.factor = factor
-        self.cap = cap
-        self._n = 0
-
-    def next(self) -> float:
-        d = random.uniform(0.0, min(self.cap, self.base * self.factor ** self._n))
-        self._n += 1
-        return d
-
-    def sleep(self) -> None:
-        time.sleep(self.next())
 
 
 # ------------------------------------------------------------------- server

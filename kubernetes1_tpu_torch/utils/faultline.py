@@ -1,20 +1,26 @@
-"""A seeded fault seam for the port's device plane.
+"""A seeded fault seam for the port's device plane and serving client.
 
 The port's copy of the part of the JAX package's ``utils/faultline`` that
-the GPU device plugin uses: the plugin's health pass calls
-``check("device.health")``, and an injector activated with a seed and a
-spec decides, from a random stream of its own per site, whether that pass
-sees a card die.  The same seed replays the same decisions.
+the port's boundaries use: a boundary calls ``check(<site>)``, and an
+injector activated with a seed and a spec decides, from a random stream of
+its own per site, whether the fault fires there.  The same seed replays
+the same decisions at each site.
 
-    activate(seed, "device.health=drop@0.5")
+    activate(seed, "device.health=drop@0.5;loadgen.request=drop@0.3")
     check("device.health")   # raises FaultInjected where a fault fires
+    stats()                  # {site: faults fired}
     deactivate()
 
 Spec grammar: ``rule[;rule...]``, ``rule = <site>=drop[@<prob>]``; ``prob``
 defaults to 1.  ``drop`` raises ``FaultInjected`` (a ``ConnectionError``,
-as the JAX package's drop is).  The one site is ``device.health``
-(``deviceplugin/gpu_plugin.py``: a fault on a health pass is a card dying,
-one healthy card turns unhealthy on the ListAndWatch stream).
+as the JAX package's drop is).  The sites:
+
+- ``device.health`` (``deviceplugin/gpu_plugin.py``): a fault on a health
+  pass is a card dying, one healthy card turns unhealthy on the
+  ListAndWatch stream;
+- ``loadgen.request`` (``workloads/loadgen.py``): a fault before a
+  request's attempt is a transport error, which ``LoadGen`` retries and
+  counts as failed once its retries are spent.
 
 With no injector active every check is one ``is None`` test.
 """
@@ -44,6 +50,7 @@ class Injector:
     def __init__(self, seed: int, spec: str):
         self._prob: Dict[str, float] = {}
         self._rngs: Dict[str, random.Random] = {}
+        self._fired: Dict[str, int] = {}
         self._lock = threading.Lock()
         for rule in filter(None, (r.strip() for r in spec.split(";"))):
             site, _, fault = (p.strip() for p in rule.partition("="))
@@ -66,7 +73,14 @@ class Injector:
         if prob is None:
             return False
         with self._lock:
-            return prob >= 1.0 or self._rngs[site].random() < prob
+            fired = prob >= 1.0 or self._rngs[site].random() < prob
+            if fired:
+                self._fired[site] = self._fired.get(site, 0) + 1
+            return fired
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._fired)
 
 
 _injector: Optional[Injector] = None
@@ -86,6 +100,13 @@ def activate(seed: int, spec: str) -> Injector:
 def deactivate() -> None:
     global _injector
     _injector = None
+
+
+def stats() -> Dict[str, int]:
+    """{site: faults fired} of the active injector (empty when none is):
+    the proof that a run exercised its sites."""
+    inj = _injector
+    return inj.stats() if inj is not None else {}
 
 
 def check(site: str) -> None:

@@ -12,7 +12,9 @@ limit on nvidia.com/gpu is refused by ResourceV2 admission (a kept
 deviation: the pod-level form is the way in); the MNIST Job of
 ``examples/gpu-mnist-single-card.yaml`` runs on the CPU with its command
 overridden, and ``examples/gpu-resnet50-h100.yaml`` reaches Running on a
-hollow node.
+hollow node.  The card, the waiting pod and the MNIST Job also run with the
+native plugin (``ktpu-gpu-plugin``, built once per test run with make) in
+the plugin dir in place of the Python one.
 
 The kubelets read no eviction signals: these tests are about devices, and
 a pod must not be evicted because the host's disk is nearly full.
@@ -21,7 +23,9 @@ a pod must not be evicted because the host's disk is nearly full.
 import io
 import json
 import os
+import subprocess
 import sys
+import time
 
 import pytest
 import yaml
@@ -36,7 +40,7 @@ from kubernetes1_tpu.machinery import Invalid, NotFound
 from kubernetes1_tpu.machinery.scheme import from_dict
 from kubernetes1_tpu.scheduler import Scheduler
 from kubernetes1_tpu.utils.waitutil import must_poll_until
-from kubernetes1_tpu_torch import GPU_RESOURCE
+from kubernetes1_tpu_torch import GPU_RESOURCE, native
 from kubernetes1_tpu_torch.deviceplugin import api as tapi
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.workloads import specs
@@ -50,6 +54,32 @@ INJECTED = ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER
 def _plugin(plugin_dir, fake_spec):
     impl = gp.GPUDevicePlugin(devices=gp._fake_devices(fake_spec), health_check_interval=0.2)
     return tapi.PluginServer(impl, tapi.plugin_socket_path(plugin_dir, GPU_RESOURCE)).start()
+
+
+class _NativePlugin:
+    """``ktpu-gpu-plugin`` in fake mode, stopped as a PluginServer is."""
+
+    def __init__(self, binary, plugin_dir, fake_spec):
+        env = {**os.environ, "KTPU_FAKE_GPUS": fake_spec}
+        self.proc = subprocess.Popen([binary, "--plugin-dir", plugin_dir], env=env,
+                                     stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        sock = tapi.plugin_socket_path(plugin_dir, GPU_RESOURCE)
+        deadline = time.monotonic() + 10
+        while not os.path.exists(sock):
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.stop()
+                raise RuntimeError(f"the native plugin did not serve {sock}")
+            time.sleep(0.02)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        self.proc.wait(timeout=10)
+
+
+@pytest.fixture(scope="session")
+def native_bins(tmp_path_factory):
+    return native.build(str(tmp_path_factory.mktemp("native-bin")))
 
 
 def _kubelet(cs, name, runtime, plugin_dir):
@@ -75,11 +105,16 @@ def control_plane():
 
 
 @pytest.fixture()
-def gpu_node(control_plane, tmp_path):
-    """One ProcessRuntime node with one fake H100 behind the port's plugin."""
+def gpu_node(request, control_plane, tmp_path):
+    """One ProcessRuntime node with one fake H100 behind the port's plugin:
+    the Python one, or with the parameter ``native``, ``ktpu-gpu-plugin``."""
     master, cs = control_plane
     plugin_dir = str(tmp_path / "plugins")
-    plugin = _plugin(plugin_dir, f"{H100}:1:nv0:0")
+    if getattr(request, "param", "python") == "native":
+        binary = request.getfixturevalue("native_bins")[native.PLUGIN]
+        plugin = _NativePlugin(binary, plugin_dir, f"{H100}:1:nv0:0")
+    else:
+        plugin = _plugin(plugin_dir, f"{H100}:1:nv0:0")
     runtime = ProcessRuntime(root_dir=str(tmp_path / "ktpu"))
     kubelet = _kubelet(cs, "gpu-node-0", runtime, plugin_dir)
     kubelet.start()
@@ -107,6 +142,9 @@ def hollow_nodes(control_plane, tmp_path):
     for kubelet, plugin in nodes:
         kubelet.stop()
         plugin.stop()
+
+
+BOTH_PLUGINS = pytest.mark.parametrize("gpu_node", ["python", "native"], indirect=True)
 
 
 def _cards(cs, node):
@@ -146,6 +184,7 @@ def _failed_scheduling(cs, pod):
             if e.involved_object.name == pod and e.reason == "FailedScheduling"]
 
 
+@BOTH_PLUGINS
 def test_node_advertises_the_card_and_a_pod_gets_it(gpu_node):
     cs, tmp = gpu_node["cs"], gpu_node["tmp"]
     (card,) = _cards(cs, "gpu-node-0")
@@ -166,6 +205,7 @@ def test_node_advertises_the_card_and_a_pod_gets_it(gpu_node):
                                            "CUDA_DEVICE_ORDER": "PCI_BUS_ID"}
 
 
+@BOTH_PLUGINS
 def test_second_pod_waits_with_insufficient_gpu_until_the_card_is_free(gpu_node):
     cs = gpu_node["cs"]
     cs.pods.create(_pod("holder", "import time; time.sleep(300)"))
@@ -215,6 +255,7 @@ def test_gpu_container_limit_is_refused_by_resource_v2(gpu_node):
         cs.pods.get("limited", "default")
 
 
+@BOTH_PLUGINS
 def test_mnist_job_from_the_manifest_succeeds_with_the_injected_env(gpu_node):
     cs, tmp = gpu_node["cs"], gpu_node["tmp"]
     with open(os.path.join(EXAMPLES, "gpu-mnist-single-card.yaml")) as f:

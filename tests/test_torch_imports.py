@@ -2,7 +2,8 @@
 
 The port (``kubernetes1_tpu_torch/``) and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package, relative imports that
-climb out of the package included.  Each kernel wrapper, handed a CUDA
+climb out of the package included, and the port's C++ sources include no
+file outside ``kubernetes1_tpu_torch/native/``.  Each kernel wrapper, handed a CUDA
 tensor while its library cannot be built, raises instead of running its
 plain version; the loader builds one library per source with nvcc for
 sm_90a and counts only launches that succeeded.
@@ -10,6 +11,7 @@ sm_90a and counts only launches that succeeded.
 
 import ast
 import os
+import re
 import stat
 import sys
 import types
@@ -28,6 +30,9 @@ PKG = REPO / "kubernetes1_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "kubernetes1_tpu"}
 PORT_FILES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts) + [
     REPO / "chip_smoke.py"]
+NATIVE = PKG / "native"
+NATIVE_SOURCES = sorted(p for ext in ("*.cc", "*.hpp") for p in NATIVE.glob(ext))
+INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
 
 
 def _imported_modules(path: Path):
@@ -64,6 +69,32 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def native_includes(path: Path):
+    """(quoted, name) of every #include in a C++ source."""
+    return [(m.group(1) == '"', m.group(2)) for m in INCLUDE.finditer(path.read_text())]
+
+
+@pytest.mark.parametrize("path", NATIVE_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_native_sources_include_nothing_outside_the_ports_native_dir(path):
+    """A quoted include names a file beside the source; a system include
+    names no project header (the Makefile adds no include path)."""
+    for quoted, name in native_includes(path):
+        if quoted:
+            target = (path.parent / name).resolve()
+            assert target.parent == NATIVE.resolve() and target.is_file(), (path.name, name)
+        else:
+            assert not re.search(r"ktpu|kubernetes1_tpu|\.\.|\.hpp$", name), (path.name, name)
+
+
+def test_native_include_check_sees_an_escape(tmp_path):
+    src = tmp_path / "x.cc"
+    src.write_text('#include <stdio.h>\n  # include "../../kubernetes1_tpu/native/json.hpp"\n')
+    assert native_includes(src) == [(False, "stdio.h"),
+                                    (True, "../../kubernetes1_tpu/native/json.hpp")]
+    assert NATIVE_SOURCES and {p.name for p in NATIVE_SOURCES} >= {
+        "gpu_plugin.cc", "metrics_exporter.cc", "json.hpp", "nvml.hpp"}
+
+
 def test_import_walker_catches_relative_escape(tmp_path, monkeypatch):
     """The walker itself: `from ...x import y` at depth 2 climbs out."""
     pkg = tmp_path / "kubernetes1_tpu_torch" / "workloads"
@@ -86,7 +117,8 @@ def test_importing_the_port_pulls_in_no_jax():
             "kubernetes1_tpu_torch.workloads.llama_bench, kubernetes1_tpu_torch.optim, "
             "kubernetes1_tpu_torch.kernels.optim, kubernetes1_tpu_torch.entry, "
             "kubernetes1_tpu_torch.workloads.mnist, kubernetes1_tpu_torch.workloads.specs, "
-            "kubernetes1_tpu_torch.deviceplugin.gpu_plugin; "
+            "kubernetes1_tpu_torch.deviceplugin.gpu_plugin, kubernetes1_tpu_torch.native, "
+            "kubernetes1_tpu_torch.workloads.loadgen, kubernetes1_tpu_torch.utils.retry; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

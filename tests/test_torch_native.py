@@ -1,0 +1,210 @@
+"""The port's native node components against the Python plugin.
+
+``ktpu-gpu-plugin`` (``kubernetes1_tpu_torch/native/gpu_plugin.cc``) must
+speak the 4-RPC protocol to the port's ``PluginClient`` and give, in fake
+mode, the inventory, admission and injection of the Python
+``GPUDevicePlugin`` (plus the ``gpu.ktpu.io/plugin: native`` annotation);
+SIGTERM or SIGINT must take its socket with it.  Both binaries must refuse
+real mode on a host without NVML, and ``ktpu-gpu-metrics-exporter`` must
+serve the GPU forms of the TPU exporter's metrics, with no reading in fake
+mode.  The binaries are built once per test run, with make, into a
+temporary directory of their own.
+"""
+
+import ctypes.util
+import os
+import re
+import signal
+import subprocess
+import time
+import urllib.error
+import urllib.request
+from contextlib import contextmanager
+
+import pytest
+
+from kubernetes1_tpu_torch import GPU_RESOURCE, native
+from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
+from kubernetes1_tpu_torch.deviceplugin.api import PluginClient, plugin_socket_path
+
+H100 = "NVIDIA H100 80GB HBM3"
+NATIVE_ANNOTATION = "gpu.ktpu.io/plugin"
+HAS_NVML = ctypes.util.find_library("nvidia-ml") is not None
+
+
+@pytest.fixture(scope="session")
+def native_bins(tmp_path_factory):
+    bins = native.build(str(tmp_path_factory.mktemp("native-bin")))
+    assert all(os.access(path, os.X_OK) for path in bins.values()), bins
+    return bins
+
+
+def _fake_env(fake):
+    env = {k: v for k, v in os.environ.items() if k != "KTPU_FAKE_GPUS"}
+    if fake is not None:
+        env["KTPU_FAKE_GPUS"] = fake
+    return env
+
+
+@contextmanager
+def native_plugin(binary, plugin_dir, fake):
+    """The native plugin in fake mode, with a client on its socket."""
+    proc = subprocess.Popen([binary, "--plugin-dir", str(plugin_dir)], env=_fake_env(fake),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    sock = plugin_socket_path(str(plugin_dir), GPU_RESOURCE)
+    client = PluginClient(sock)
+    try:
+        deadline = time.monotonic() + 10
+        while not os.path.exists(sock):
+            assert proc.poll() is None, f"the plugin exited {proc.returncode}"
+            assert time.monotonic() < deadline, "the plugin's socket never appeared"
+            time.sleep(0.02)
+        yield client, proc
+    finally:
+        client.close()
+        if proc.poll() is None:
+            proc.terminate()
+        proc.wait(timeout=10)
+
+
+def first_inventory(client):
+    stream = client.list_and_watch()
+    try:
+        return next(stream)
+    finally:
+        stream.close()
+
+
+def test_four_rpcs_over_the_ports_plugin_client(native_bins, tmp_path):
+    with native_plugin(native_bins[native.PLUGIN], tmp_path, f"{H100}:4:nvZ:1") as (client, _):
+        assert client.call("GetPluginInfo") == {"name": GPU_RESOURCE, "version": "v1",
+                                                "device_count": 4, "native": True}
+        devices = first_inventory(client)
+        assert [d["id"] for d in devices] == [f"nvZ-h1-gpu{i}" for i in range(4)]
+        assert all(d["health"] == gp.DEVICE_HEALTHY for d in devices)
+        ok = client.call("AdmitPod", {"pod_uid": "u1",
+                                      "assignments": {"req": ["nvZ-h1-gpu0", "nvZ-h1-gpu3"]}})
+        assert ok == {"allowed": True}
+        spec = client.call("InitContainer", {"device_ids": ["nvZ-h1-gpu2", "nvZ-h1-gpu0"]})
+        assert spec["envs"]["CUDA_VISIBLE_DEVICES"] == "2,0"
+        assert spec["annotations"] == {gp.ANN_INJECTED: "true", NATIVE_ANNOTATION: "native"}
+        with pytest.raises(RuntimeError, match="unknown method"):
+            client.call("Bogus")
+
+
+@pytest.mark.parametrize("fake", [
+    "::::",                                   # every field at the Python default
+    f"{H100}:1:nv0:0",
+    "NVIDIA A100-SXM4-40GB:2:nva:3:40960",   # the memory field
+    f"{H100}:8:nvlink-7:2",
+], ids=["defaults", "one-card", "memory-field", "eight-cards"])
+def test_fake_inventory_equals_the_python_plugins(native_bins, tmp_path, fake):
+    with native_plugin(native_bins[native.PLUGIN], tmp_path, fake) as (client, _):
+        devices = first_inventory(client)
+        info = client.call("GetPluginInfo")
+    want = gp.GPUDevicePlugin(devices=gp._fake_devices(fake))
+    assert devices == want.list_devices()
+    assert info == {**want.get_plugin_info(), "native": True}
+
+
+INIT_PARAMS = {
+    "no-annotations": {"device_ids": ["nv0-h0-gpu1", "nv0-h0-gpu0"]},
+    "worker-coordinator-hostnames": {
+        "device_ids": ["nv0-h0-gpu1"],
+        "pod_annotations": {gp.ANN_WORKER_ID: "5", gp.ANN_COORDINATOR: "host0:29500",
+                            gp.ANN_WORKER_HOSTNAMES: "host0,host1,,host2"}},
+    "coordinator-without-port": {
+        "device_ids": ["nv0-h0-gpu0"],
+        "pod_annotations": {gp.ANN_COORDINATOR: "host0", gp.ANN_WORKER_HOSTNAMES: ""}},
+    "unknown-id": {"device_ids": ["ghost", "nv0-h0-gpu1"]},
+}
+
+
+@pytest.mark.parametrize("params", INIT_PARAMS.values(), ids=INIT_PARAMS.keys())
+def test_init_container_equals_the_python_plugins(native_bins, tmp_path, params):
+    fake = f"{H100}:2:nv0:0"
+    with native_plugin(native_bins[native.PLUGIN], tmp_path, fake) as (client, _):
+        got = client.call("InitContainer", params)
+    assert got["annotations"].pop(NATIVE_ANNOTATION) == "native"
+    want = gp.GPUDevicePlugin(devices=gp._fake_devices(fake)).init_container(params).to_dict()
+    assert got == want
+
+
+def test_admit_pod_refuses_an_id_not_on_the_node(native_bins, tmp_path):
+    fake = f"{H100}:2:nv0:0"
+    params = {"pod_uid": "u2", "assignments": {"req": ["nv0-h0-gpu0", "ghost"]}}
+    with native_plugin(native_bins[native.PLUGIN], tmp_path, fake) as (client, _):
+        got = client.call("AdmitPod", params)
+    assert got == {"allowed": False, "reason": "device ghost not on this node"}
+    assert got == gp.GPUDevicePlugin(devices=gp._fake_devices(fake)).admit_pod(params)
+
+
+@pytest.mark.parametrize("signum", [signal.SIGTERM, signal.SIGINT], ids=["SIGTERM", "SIGINT"])
+def test_a_stop_signal_removes_the_socket_and_exits_0(native_bins, tmp_path, signum):
+    sock = plugin_socket_path(str(tmp_path), GPU_RESOURCE)
+    with native_plugin(native_bins[native.PLUGIN], tmp_path, f"{H100}:1:nv0:0") as (client,
+                                                                                   proc):
+        assert client.call("GetPluginInfo")["device_count"] == 1
+        client.close()
+        proc.send_signal(signum)
+        assert proc.wait(timeout=10) == 0
+        assert not os.path.exists(sock)
+
+
+@pytest.mark.skipif(HAS_NVML, reason="this host has NVML: real mode would find its cards")
+@pytest.mark.parametrize("binary", [native.PLUGIN, native.EXPORTER])
+def test_real_mode_without_nvml_exits_non_zero_with_the_reason(native_bins, tmp_path, binary):
+    res = subprocess.run([native_bins[binary], "--plugin-dir", str(tmp_path), "--port", "0"],
+                         env=_fake_env(None), capture_output=True, text=True, timeout=30)
+    assert res.returncode != 0
+    assert "real mode needs NVML" in res.stderr and "libnvidia-ml.so.1" in res.stderr
+    assert res.stdout == ""
+    assert not os.path.exists(plugin_socket_path(str(tmp_path), GPU_RESOURCE))
+
+
+SAMPLE = re.compile(r'^(\w+)\{((?:\w+="[^"]*",?)*)\} (\S+)$')
+CARD_METRICS = {"ktpu_gpu_cards", "ktpu_gpu_card_healthy", "ktpu_gpu_cards_healthy"}
+
+
+def _fetch(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+        return resp.read().decode()
+
+
+def test_exporter_fake_mode_exposition(native_bins):
+    fake = "NVIDIA A100-SXM4-40GB:3:nvq:2"
+    proc = subprocess.Popen([native_bins[native.EXPORTER], "--port", "0"], env=_fake_env(fake),
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        port = int(proc.stdout.readline().strip().rsplit(":", 1)[1])
+        text = _fetch(port, "/metrics")
+        healthz = _fetch(port, "/healthz")
+        with pytest.raises(urllib.error.HTTPError) as missing:
+            _fetch(port, "/nowhere")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+        proc.stdout.close()
+    missing.value.close()
+    assert healthz == "ok\n" and missing.value.code == 404
+    samples, described = [], set()
+    for line in text.splitlines():
+        if line.startswith("# "):
+            kind, name = line.split()[1:3]
+            assert kind in ("HELP", "TYPE")
+            described.add(name)
+            continue
+        m = SAMPLE.match(line)
+        assert m, f"not a sample line: {line!r}"
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(2)))
+        samples.append((m.group(1), labels, float(m.group(3))))
+    assert described == CARD_METRICS  # no reading in fake mode, not even its HELP
+    host = os.uname().nodename
+    want_cards = gp._fake_devices(fake)
+    assert samples == [
+        ("ktpu_gpu_cards", {"host": host}, 3.0),
+        *[("ktpu_gpu_card_healthy",
+           {"host": host, "card": d["id"], "uuid": d["attributes"][gp.ATTR_GPU_UUID],
+            "model": "NVIDIA A100-SXM4-40GB"}, 1.0) for d in want_cards],
+        ("ktpu_gpu_cards_healthy", {"host": host}, 3.0),
+    ]
