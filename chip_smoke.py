@@ -162,19 +162,36 @@
    must show utilization above 0 and memory above the idle reading.  The
    serving pod then takes LoadGen's open-loop traffic (Poisson, seed 1,
    20 QPS for 10 s, streamed) with no request failed or shed.
-   The pods' launches happen in their own processes: no launches column;
+   The pods' launches happen in their own processes: no launches column
+   (the fleet of 26. decodes in this process: ``fleet``);
 25. (the native node components, before 24.) runs ktpu-gpu-plugin in real
    mode: its inventory, read through the port's PluginClient, equals the
    Python plugin's, its injection names the card by UUID, and SIGTERM
    takes its socket; ktpu-gpu-metrics-exporter reports the card with
    nvidia-smi's memory.total and power.limit; then the orchestrator of 24.
    with ktpu-gpu-plugin in the plugin dir runs the MNIST Job on the card.
+26. (RL and ServeFleet, within 24., on its control plane, which the
+   port's apiserver client (kubernetes1_tpu_torch/client) speaks to) runs
+   rl_actor's learner Job on the card (one gang-scheduled worker with one
+   nvidia.com/gpu: the card's ID, its UUID, its name in the learner's log)
+   while the port's ChurnDriver recycles 4 CPU actor pods at 4 ops/s for
+   20 s, the actors posting experience to the learner: no create or delete
+   error, the actors' Endpoints converged, the fleet drained, the learner's
+   batches equal to its ingest counter and its policy ranking arm 7 above
+   arm 0; then servefleet's ServeFleet gives each Running pod of a 2-replica
+   Deployment of waiting CPU pods a Llama-3-8B DecodeServer in this process
+   on one set of weights drawn from seed 0, whose tokens, before and after
+   the port's rolling_update (PDB minAvailable 1), must be the tokens of
+   those weights decoded here; the card's memory must come back once the
+   fleet stops.  It prints the churn's ops/s and actor-restart p50/p99, the
+   learner's batches, the backends' start times, the rollout's duration and
+   the peak memory.
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.  The kernels' rows
 carry their launches on each main path (``launches_<path>``; ``serving``
 is 5.'s closed and open-loop legs, ``dp`` is
 18.'s runs and rank 0's steps in 19., ``shard`` rank 0's steps in 21.,
-``mnist`` 23.'s training) and in all.
+``mnist`` 23.'s training, ``fleet`` 26.'s backends) and in all.
 
 It exits non-zero, with no result line, when there is no CUDA device or a
 phase fails.  The line before the last is the kernels' JSON; the last line
@@ -195,7 +212,6 @@ import sys
 import tempfile
 import threading
 import time
-import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -205,12 +221,16 @@ import torch
 import torch.nn.functional as F
 
 from kubernetes1_tpu_torch import native, optim
+from kubernetes1_tpu_torch.client.errors import ApiError, NotFound
+from kubernetes1_tpu_torch.client.informer import InformerFactory
+from kubernetes1_tpu_torch.client.rest import Client
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
                                            layernorm, rmsnorm, rope, swiglu)
 from kubernetes1_tpu_torch.kernels import optim as optim_kernels
 from kubernetes1_tpu_torch.kernels import ringattention as ring_kernels
 from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, loadgen, mnist,
-                                             resnet, resnet_bench, ringattention)
+                                             resnet, resnet_bench, ringattention, rl_actor,
+                                             servefleet)
 
 # A spin of ~25 ms at the H100's 1.98 GHz boost clock (time_ms).
 SPIN_CYCLES = 50_000_000
@@ -481,6 +501,17 @@ CLUSTER_LOADGEN_QPS, CLUSTER_LOADGEN_S = 20.0, 10.0
 # its power limit against nvidia-smi's, within this many watts.
 EXPORTER_EVERY_S = 0.5
 POWER_LIMIT_TOL_W = 1.0
+# The RL leg (rl_leg): the port's ChurnDriver recycles this many CPU actor
+# pods at this many creates and deletes a second for this long, against the
+# learner Job on the card; the actors' Service Endpoints must then converge
+# to the Ready actors within RL_CONVERGE_S.
+RL_ACTORS, RL_RATE, RL_CHURN_S, RL_CONVERGE_S = 4, 4.0, 20.0, 30.0
+# The fleet leg (fleet_leg): a Deployment of this many waiting CPU pods, a
+# Llama-3-8B DecodeServer in this process for each, rolled once; after the
+# fleet stops, the card's memory must come back to its value before the
+# leg, plus the shared weights, within FLEET_MEMORY_TOL bytes.
+FLEET_APP, FLEET_REPLICAS = "fleet-serve", 2
+FLEET_MEMORY_TOL = 64 << 20
 
 BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
                 "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
@@ -3666,21 +3697,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _api(url: str, method: str = "GET", body=None, timeout: float = 30.0):
-    """One apiserver call: the decoded JSON body (the text, for a log)."""
-    req = urllib.request.Request(url, method=method,
-                                 data=None if body is None else json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            text = resp.read().decode()
-    except urllib.error.HTTPError as e:
-        err = OSError(f"{method} {url}: {e.code} {e.read()[:1000]!r}")
-        err.code = e.code
-        raise err from e
-    return json.loads(text) if text.startswith(("{", "[")) else text
-
-
 def _wait(what: str, fn, timeout: float = CLUSTER_WAIT_S, every: float = 0.2):
     """fn()'s first true value, polled; fail after ``timeout`` seconds."""
     deadline = time.monotonic() + timeout
@@ -3733,6 +3749,7 @@ class Cluster:
     def __init__(self, tmp: str, plugin=PYTHON_PLUGIN):
         self.tmp, self.procs, self.logs = tmp, [], []
         self.url = f"http://127.0.0.1:{_free_port()}"
+        self.client = Client(self.url)
         self.plugin_dir = f"{tmp}/plugins"
         self.socket = f"{self.plugin_dir}/nvidia.com/gpu.sock"
         self.env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -3770,25 +3787,19 @@ class Cluster:
         return self._serving()
 
     def _serving(self) -> bool:
-        try:
-            return _api(self.url + "/healthz", timeout=2) == {"status": "ok"}
-        except OSError:
-            return False
+        return self.client.healthz()
 
     def log(self, name: str) -> str:
         with open(f"{self.tmp}/{name}.log") as f:
             return f.read()[-4000:]
-
-    def api(self, path: str, method: str = "GET", body=None):
-        return _api(self.url + path, method, body)
 
     def advertised(self) -> list:
         """The node's nvidia.com/gpu devices once it advertises them; fails
         unless they are the one card torch sees, with its UUID."""
         def cards():
             try:
-                node = self.api(f"/api/v1/nodes/{CLUSTER_NODE}")
-            except OSError:
+                node = self.client.nodes.get(CLUSTER_NODE)
+            except (ApiError, OSError):
                 return None
             return ((node.get("status") or {}).get("extendedResources") or {}).get(
                 "nvidia.com/gpu")
@@ -3816,28 +3827,22 @@ class Cluster:
         return alloc_s, start_s, {env.get("CUDA_VISIBLE_DEVICES") for env in seen.values()}
 
     def create(self, obj: dict):
-        """POST a builder's Job or Deployment (the wire form without its
-        kind, which the apiserver's body check wants, as a client adds it)."""
-        group, kind, plural = ("batch/v1", "Job", "jobs") if "completions" in obj["spec"] \
-            else ("apps/v1", "Deployment", "deployments")
-        return self.api(f"/apis/{group}/namespaces/default/{plural}", "POST",
-                        {"kind": kind, "apiVersion": group, **obj})
+        """Create a builder's Job or Deployment."""
+        rc = self.client.jobs if "completions" in obj["spec"] else self.client.deployments
+        return rc.create(obj)
 
     def pods(self, selector: str = "") -> list:
-        from urllib.parse import quote
-
-        return self.api("/api/v1/namespaces/default/pods"
-                        + (f"?labelSelector={quote(selector)}" if selector else ""))["items"]
+        return self.client.pods.list("default", selector)[0]
 
     def events(self, pod: str, reason: str) -> list:
-        return [e.get("message", "") for e in self.api("/api/v1/namespaces/default/events")
-                ["items"] if (e.get("involvedObject") or {}).get("name") == pod
+        return [e.get("message", "") for e in self.client.events.list("default")[0]
+                if (e.get("involvedObject") or {}).get("name") == pod
                 and e.get("reason") == reason]
 
     def job_done(self, name: str):
         """The Job's pod once the Job succeeded; fails on a failed Job."""
         self.check_alive()
-        st = self.api(f"/apis/batch/v1/namespaces/default/jobs/{name}").get("status") or {}
+        st = self.client.jobs.get(name).get("status") or {}
         if any(c.get("type") == "Failed" and c.get("status") == "True"
                for c in st.get("conditions") or []):
             fail(f"cluster: Job {name} failed:\n"
@@ -3849,7 +3854,7 @@ class Cluster:
     def delete_job(self, name: str):
         """Delete a finished Job and its pod: the scheduler counts a bound
         pod's cards as held until the pod is gone, Succeeded or not."""
-        self.api(f"/apis/batch/v1/namespaces/default/jobs/{name}", "DELETE")
+        self.client.jobs.delete(name)
         sel = f"batch.ktpu.io/job-name={name}"
         for p in self.pods(sel):
             self.delete_pod(p["metadata"]["name"])
@@ -3858,15 +3863,14 @@ class Cluster:
     def delete_pod(self, name: str):
         """Delete a pod; one already gone (its owner's deletion took it) is fine."""
         try:
-            self.api(f"/api/v1/namespaces/default/pods/{name}", "DELETE")
-        except OSError as e:
-            if getattr(e, "code", None) != 404:
-                raise
+            self.client.pods.delete(name)
+        except NotFound:
+            pass
 
     def pod_log(self, name: str) -> str:
         try:
-            return self.api(f"/api/v1/namespaces/default/pods/{name}/log")
-        except OSError as e:
+            return self.client.pod_log(name)
+        except (ApiError, OSError) as e:
             return f"(no log: {e!r})"
 
     def pod_logs(self, selector: str) -> str:
@@ -3880,10 +3884,9 @@ class Cluster:
         and return the pod processes that survived."""
         try:
             if self._serving():
-                for kind in ("apis/apps/v1/namespaces/default/deployments",
-                             "apis/batch/v1/namespaces/default/jobs"):
-                    for obj in self.api("/" + kind)["items"]:
-                        self.api(f"/{kind}/{obj['metadata']['name']}", "DELETE")
+                for rc in (self.client.deployments, self.client.jobs):
+                    for obj in rc.list("default")[0]:
+                        rc.delete(obj["metadata"]["name"])
                 for p in self.pods():
                     self.delete_pod(p["metadata"]["name"])
                 deadline = time.monotonic() + 60
@@ -3900,6 +3903,7 @@ class Cluster:
                         proc.wait()
             for _name, log in self.logs:
                 log.close()
+            self.client.close()
         survivors = _pod_pids(self.url)
         for pid in survivors:
             try:
@@ -4086,6 +4090,204 @@ def native_phase(card: str, bins: dict) -> dict:
     return res
 
 
+def _refused(port: int) -> bool:
+    """True when nothing listens on the loopback ``port``."""
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(2)
+        return s.connect_ex(("127.0.0.1", port)) != 0
+
+
+def _metric_value(text: str, name: str):
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def rl_leg(cl: "Cluster", card: str, card_id: str, uuid: str) -> dict:
+    """(e) The RL workload on the device plane: the port's learner Job (one
+    gang-scheduled worker with one nvidia.com/gpu) must get the card by its
+    ID and UUID and name it in its log; then the port's ChurnDriver, over
+    the port's apiserver client, recycles RL_ACTORS CPU actor pods at
+    RL_RATE ops/s for RL_CHURN_S, the actors streaming experience to the
+    learner: no create or delete error, restarts completed, the actors'
+    Service Endpoints converged to the Ready actors, the fleet drained with
+    no actor left, the learner's /stats batches equal to its
+    ktpu_rl_ingest_total, and its policy ranking arm 7 above arm 0."""
+    kind = torch.cuda.get_device_name(0)
+    client = cl.client
+    t0 = time.perf_counter()
+    cl.create(rl_actor.learner_job(workers=1, gpus_per_worker=1, gang=True))
+    client.services.create(rl_actor.fleet_service("rl-actors"))
+    sel = "batch.ktpu.io/job-name=rl-learner"
+    alloc_s, start_s, visible = cl.job_started(sel, t0)
+    pod = cl.pods(sel)[0]
+    name = pod["metadata"]["name"]
+    said = _wait("the learner's serving line", lambda: re.findall(
+        r"learner serving on (http://\S+) on (.+)", cl.pod_log(name)), CLUSTER_WAIT_S, 0.5)
+    url, where = said[0][0], said[0][1].strip()
+    learner_s = time.perf_counter() - t0
+    assigned = pod["spec"]["extendedResources"][0].get("assigned")
+    if assigned != [card_id] or visible != {uuid} or where != kind:
+        fail(f"rl: the learner pod got {assigned} with CUDA_VISIBLE_DEVICES {visible} and "
+             f"serves on {where!r}; want [{card_id}], {uuid} and {kind}")
+    driver = rl_actor.ChurnDriver(client, actors=RL_ACTORS, rate=RL_RATE, use_batch=True,
+                                  grace_seconds=0, learner_addr=url)
+    try:
+        driver.start()
+        churn = driver.run(duration=RL_CHURN_S)
+        t1 = time.perf_counter()
+        live = eps = None
+        while time.perf_counter() - t1 < RL_CONVERGE_S:
+            live = rl_actor.ready_fleet_ips(client)
+            eps = rl_actor.service_endpoint_ips(client, "rl-actors")
+            if live is not None and eps == live:
+                break
+            time.sleep(0.2)
+        converge_s = time.perf_counter() - t1
+        drained = driver.drain()
+        left = cl.pods(f"app={rl_actor.ACTOR_APP_LABEL}")
+    finally:
+        driver.stop()
+    if churn["create_errors"] or churn["delete_errors"] or not churn["recycles_completed"] \
+            or live is None or eps != live or not drained or left:
+        fail(f"rl: churn {churn}; Endpoints {eps} against the Ready actors {live} after "
+             f"{converge_s:.1f} s; drained {drained}, actors left {left}")
+    _wait("the actor processes to go", lambda: not any(
+        "KTPU_LEARNER_ADDR" in env for env in _pod_pids(cl.url).values()), 60)
+
+    def settled():  # the learner counts a batch, then its ingest counter
+        stats = json.loads(_get(url + "/stats"))
+        ingested = _metric_value(_get(url + "/metrics"), "ktpu_rl_ingest_total")
+        return (stats, ingested) if ingested == stats["batches"] else None
+
+    stats, ingested = _wait("the learner's batches to equal its ingest counter", settled, 30)
+    weights = json.loads(_get(url + "/weights"))["weights"]
+    if not stats["batches"] or not weights[7] > weights[0]:
+        fail(f"rl: the learner took {stats['batches']} batches, weights {weights}")
+    cl.delete_job("rl-learner")
+    res = dict(churn=churn, converge_s=converge_s, learner_alloc_s=alloc_s,
+               learner_pod_start_s=start_s, learner_serving_s=learner_s, learner=stats,
+               ingest_total=ingested, learner_port=int(url.rsplit(":", 1)[1]))
+    print(f"rl: the learner Job's pod {name} got {assigned} (CUDA_VISIBLE_DEVICES={uuid}) and "
+          f"served on {kind} {learner_s:.2f} s after its create (chip_alloc_s={alloc_s:.3f} "
+          f"pod_start_s={start_s:.3f}); ChurnDriver ({RL_ACTORS} actors, {RL_RATE} ops/s asked, "
+          f"{RL_CHURN_S:.0f} s, batched deletes): ops_per_s={churn['ops_per_s']} "
+          f"ops={churn['ops']} recycles={churn['recycles_completed']} actor_restart_p50_s="
+          f"{churn['actor_restart_p50_s']} actor_restart_p99_s={churn['actor_restart_p99_s']} "
+          f"starved_ticks={churn['starved_ticks']}, no create or delete error; Endpoints "
+          f"converged in {converge_s:.2f} s; drained; learner batches={stats['batches']} "
+          f"(= ktpu_rl_ingest_total) frames={stats['frames']} mean_reward="
+          f"{stats['mean_reward']} weights={stats['weights']} on [{card}]", flush=True)
+    return res
+
+
+def fleet_leg(cl: "Cluster", card: str) -> dict:
+    """(f) ServeFleet on the device plane: one Llama-3-8B parameter set on
+    the card (seed 0, what DecodeServer(seed=0) draws), a Deployment of
+    FLEET_REPLICAS waiting CPU pods behind a PDB of minAvailable 1, and the
+    port's ServeFleet making an 8B DecodeServer in this process on those
+    weights for each Running pod: every backend must answer CLUSTER_PROMPTS
+    with the tokens of the same weights decoded here, before and after the
+    port's rolling_update, which must complete without a Ready pod short of
+    one; every backend but the new pods' stops, and once the fleet stops the
+    card's memory is back to its value before the leg plus the weights
+    (FLEET_MEMORY_TOL).  The backends' launches are the fleet path's, held
+    to the serving kernels' counts per engine step."""
+    cfg = llama.llama_3_8b()
+    release_gemm_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shared = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    weight_bytes = sum(p.numel() * p.element_size() for p in llama.param_leaves(shared))
+    ref = llama.DecodeServer(cfg=cfg, params=shared, slots=SERVE_SLOTS)
+    try:
+        want = [ref.generate(p, max_new=SERVE_MAX_NEW) for p in CLUSTER_PROMPTS]
+    finally:
+        ref.stop()
+    del ref
+    draw_s = time.perf_counter() - t0
+    made, start_s = [], []
+
+    def backend(pod):
+        t = time.perf_counter()
+        srv = llama.DecodeServer(cfg=cfg, params=shared, slots=SERVE_SLOTS).start()
+        start_s.append(time.perf_counter() - t)
+        made.append(srv)
+        return srv
+
+    def answers(tag, addrs):
+        for host, port in addrs:
+            got = [_post(f"http://{host}:{port}", {"tokens": p, "max_new": SERVE_MAX_NEW})
+                   for p in CLUSTER_PROMPTS]
+            if got != want:
+                fail(f"fleet: the backend at {port} ({tag}) answered {got}, the weights "
+                     f"decoded in this process {want}")
+
+    client = cl.client
+    factory = InformerFactory(client)
+    fleet = servefleet.ServeFleet(client, factory, FLEET_APP, backend_factory=backend)
+    for kern in KERNELS.values():
+        kern.launches = 0
+    try:
+        client.poddisruptionbudgets.create({
+            "metadata": {"name": f"{FLEET_APP}-pdb", "namespace": "default"},
+            "spec": {"selector": {"matchLabels": {"app": FLEET_APP}}, "minAvailable": 1}})
+        cl.create({"metadata": {"name": FLEET_APP, "namespace": "default"}, "spec": {
+            "replicas": FLEET_REPLICAS, "selector": {"matchLabels": {"app": FLEET_APP}},
+            "template": {"metadata": {"labels": {"app": FLEET_APP}}, "spec": {"containers": [{
+                "name": "wait", "image": "ktpu/wait", "resources": {"requests": {"cpu": "10m"}},
+                "command": [sys.executable, "-c", "import time; time.sleep(86400)"]}]}}}})
+        factory.start_all()
+        if not factory.wait_for_sync(30) or \
+                fleet.wait_backends(FLEET_REPLICAS, CLUSTER_WAIT_S) != FLEET_REPLICAS:
+            fail(f"fleet: {len(fleet.backends())} backends, want {FLEET_REPLICAS}")
+        old = set(fleet.backends())
+        answers("before the rollout", old)
+        ru = servefleet.rolling_update(client, FLEET_APP, timeout=CLUSTER_WAIT_S)
+        if not ru["completed"] or ru["min_ready_observed"] < 1:
+            fail(f"fleet: rolling_update {ru}")
+        new = _wait("the fleet to settle on the new pods", lambda: fleet.settled(
+            FLEET_REPLICAS, old), CLUSTER_WAIT_S, 0.05)
+        answers("after the rollout", new)
+        started, stopped = fleet.started, fleet.stopped
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
+        steps = sum(srv.engine.steps for srv in made)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        factory.stop_all()
+        fleet.stop()
+    check_serve_launches("fleet", launches, steps, cfg.n_layers)
+    ports = [srv.port for srv in made]
+    del made, backend, fleet
+    free_memory()
+    held = torch.cuda.memory_allocated()
+    release_gemm_memory()
+    after = torch.cuda.memory_allocated()
+    if started < 2 * FLEET_REPLICAS or not abs(after - base - weight_bytes) <= FLEET_MEMORY_TOL:
+        fail(f"fleet: {started} backends started; {after} B allocated after the fleet, "
+             f"{base} B before it and {weight_bytes} B of weights (tol {FLEET_MEMORY_TOL} B)")
+    del shared
+    free_memory()
+    res = dict(rollout=ru, backend_start_s=start_s, started=started, stopped=stopped,
+               weights_s=draw_s, peak_bytes=peak, cublas_workspace_bytes=held - after,
+               weight_bytes=weight_bytes, memory_after_bytes=after - base, steps=steps,
+               launches=launches, ports=ports)
+    print(f"fleet: Llama-3-8B weights ({weight_bytes} B) drawn and decoded in {draw_s:.2f} s; "
+          f"{started} backends started in {[round(x, 4) for x in start_s]} s ({stopped} "
+          f"stopped after the rollout), each "
+          f"answering {len(CLUSTER_PROMPTS)} prompts with this process's tokens before and "
+          f"after rolling_update (completed in {ru['duration_s']} s, min_ready_observed="
+          f"{ru['min_ready_observed']} of {ru['replicas']}); peak memory {peak} B "
+          f"({peak / 2 ** 30:.2f} GiB); after the fleet {after - base} B above its start "
+          f"(weights {weight_bytes} B), once the GEMM threads' cuBLAS workspaces "
+          f"({held - after} B) went; {steps} engine steps, launches {launches} on [{card}]",
+          flush=True)
+    return res
+
+
+
 def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     """The nvidia.com/gpu device plane on the card: the orchestrator in
     child processes with the port's plugin in real mode.  (a) the node
@@ -4147,7 +4349,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         mpod = _wait("the MNIST pod", lambda: cl.pods(msel))[0]["metadata"]["name"]
         why = _wait("the scheduler's reason that the MNIST pod waits", lambda: [
             m for m in cl.events(mpod, "FailedScheduling") if "insufficient nvidia.com/gpu" in m])
-        if (cl.api("/apis/batch/v1/namespaces/default/jobs/resnet50-gpu").get("status")
+        if (cl.client.jobs.get("resnet50-gpu").get("status")
                 or {}).get("succeeded") or cl.pods(msel)[0]["spec"].get("nodeName"):
             fail("cluster: the MNIST pod was not seen waiting while ResNet-50 held the card")
         pod = _wait("the ResNet-50 Job to succeed", lambda: cl.job_done("resnet50-gpu"),
@@ -4229,18 +4431,26 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         print(f"cluster: LoadGen against the serving pod (poisson seed 1, "
               f"{CLUSTER_LOADGEN_QPS:.0f} QPS asked, {CLUSTER_LOADGEN_S:.0f} s, streamed): "
               f"{json.dumps(s)} on [{card}]", flush=True)
+        cl.client.deployments.delete("llama-serve")
+        _wait("the serving pod to go", lambda: not cl.pods("app=llama-serve"))
+
+        # (e) the RL learner on the card under actor churn; (f) the 8B fleet
+        res.update(rl=rl_leg(cl, card, card_id, uuid))
+        res["fleet"] = fleet_leg(cl, card)
     finally:
         if exporter is not None:
             exporter.stop()
         survivors = cl.stop()
     left = _compute_pids() - before
-    if survivors or left or os.path.exists(cl.socket):
+    listening = [p for p in [res["rl"]["learner_port"]] + res["fleet"]["ports"] if not _refused(p)]
+    if survivors or left or os.path.exists(cl.socket) or listening:
         fail(f"cluster: after teardown pod processes {survivors} survived, the card holds "
              f"{sorted(left)}, the plugin socket is "
-             f"{'still there' if os.path.exists(cl.socket) else 'gone'}")
+             f"{'still there' if os.path.exists(cl.socket) else 'gone'}, ports {listening} "
+             f"of the learner and the fleet's backends still listen")
     shutil.rmtree(tmp, ignore_errors=True)
-    print(f"cluster: teardown left no pod process, no new process on the card and no plugin "
-          f"socket on [{card}]", flush=True)
+    print(f"cluster: teardown left no pod process (no actor, no learner), no new process on "
+          f"the card, no plugin socket and no fleet backend on [{card}]", flush=True)
     return res
 
 
@@ -4248,6 +4458,15 @@ def free_memory():
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def release_gemm_memory():
+    """free_memory, and the cuBLAS workspaces: each thread that ran a GEMM
+    holds one from the caching allocator (one per handle and stream,
+    handles pooled across threads), the library's memory, not a tensor of
+    the caller's."""
+    free_memory()
+    torch._C._cuda_clearCublasWorkspaces()
 
 
 def train_kernel_ms(rows: list, attn_train_ms: float) -> dict:
@@ -4329,11 +4548,11 @@ def main():
     mn = mnist_phase(card, dev, gen)
     free_memory()
     native_phase(card, bins)
-    cluster_phase(card, rn, bins)  # last: every kernel is built, and this process holds little
+    cluster = cluster_phase(card, rn, bins)  # last: every kernel is built; this process holds little
     rows += (bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
              + mn["rows"])
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,
-             "llama_bench": bench, "dp": dp, "shard": shard, "mnist": mn}
+             "llama_bench": bench, "dp": dp, "shard": shard, "mnist": mn, "fleet": cluster["fleet"]}
     for r in rows:
         for path, res in paths.items():
             r[f"launches_{path}"] = res["launches"][r["name"]]

@@ -23,6 +23,12 @@ each card with its model, memory and UUID and hands the card to a pod
 through ``CUDA_VISIBLE_DEVICES``; and the specs a pod that wants a card
 is built from (``workloads.specs``, ``workloads.llama.serving_deployment``),
 in the pod-level ``extendedResources`` form the orchestrator admits.
+
+It speaks to the orchestrator's apiserver through a client of its own
+(``client``: REST calls and a list+watch informer over wire-form dicts),
+on which run the RL actor/learner workload and its churn driver
+(``workloads.rl_actor``) and the serving fleet with its rolling update
+(``workloads.servefleet``).
 """
 
 GPU_RESOURCE = "nvidia.com/gpu"

@@ -2,11 +2,13 @@
 full jitter, and a loop that retries transient failures.
 
 The port's copy of the JAX package's ``client/retry.Backoff`` and
-``call_with_retries``, without what no caller of the port uses: the
-seeded jitter stream and the retry counter of the JAX package's chaos
-runner, and the Retry-After floor of its REST client.  Used by the plugin
-client's dial (``deviceplugin/api.py``) and by ``LoadGen``
-(``workloads/loadgen.py``), which classifies its own failures.
+``call_with_retries``, without what no caller of the port uses: the seeded
+jitter stream and the retry counter of the JAX package's chaos runner, and
+the Retry-After floor of its REST client.  Used by the plugin client's dial
+(``deviceplugin/api.py``), ``LoadGen`` (``workloads/loadgen.py``), which
+classifies its own failures, the apiserver client and its informer
+(``client/``, which keeps the apiserver's ``retry_on_conflict``) and
+``servefleet``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ class Backoff:
         self._n += 1
         return d
 
+    def reset(self) -> None:
+        self._n = 0
+
     def sleep(self) -> None:
         time.sleep(self.next())
 
@@ -56,3 +61,4 @@ def call_with_retries(
                 raise
             bo.sleep()
     raise AssertionError("unreachable")  # pragma: no cover
+

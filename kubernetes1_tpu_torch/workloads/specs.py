@@ -21,6 +21,16 @@ from .. import GPU_RESOURCE
 REPO_ROOT = str(Path(__file__).resolve().parents[2])
 
 
+def pod_ready(pod: dict) -> bool:
+    """Running, not terminating, and Ready: what a Service's Endpoints
+    list among its ready addresses."""
+    st = pod.get("status") or {}
+    return (st.get("phase") == "Running"
+            and not (pod.get("metadata") or {}).get("deletionTimestamp")
+            and any(c.get("type") == "Ready" and c.get("status") == "True"
+                    for c in st.get("conditions") or []))
+
+
 def gpu_request(pod_spec: dict, n: int = 1, name: str = "gpu",
                 affinity: Optional[List[dict]] = None) -> dict:
     """Ask for ``n`` cards in the pod-level form: a PodExtendedResource

@@ -118,7 +118,9 @@ def test_importing_the_port_pulls_in_no_jax():
             "kubernetes1_tpu_torch.kernels.optim, kubernetes1_tpu_torch.entry, "
             "kubernetes1_tpu_torch.workloads.mnist, kubernetes1_tpu_torch.workloads.specs, "
             "kubernetes1_tpu_torch.deviceplugin.gpu_plugin, kubernetes1_tpu_torch.native, "
-            "kubernetes1_tpu_torch.workloads.loadgen, kubernetes1_tpu_torch.utils.retry; "
+            "kubernetes1_tpu_torch.workloads.loadgen, kubernetes1_tpu_torch.utils.retry, "
+            "kubernetes1_tpu_torch.client.rest, kubernetes1_tpu_torch.client.informer, "
+            "kubernetes1_tpu_torch.workloads.rl_actor, kubernetes1_tpu_torch.workloads.servefleet; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
