@@ -186,6 +186,17 @@
    fleet stops.  It prints the churn's ops/s and actor-restart p50/p99, the
    learner's batches, the backends' start times, the rollout's duration and
    the peak memory.
+27. (config 4's multi-card Job, within 24., between the RL leg and the
+   fleet, while no other pod holds the node's CPUs) loads
+   examples/gpu-bert-large-4x8-h100.yaml, scales it to 1 worker x 1 card and
+   runs BERT-large at 8 x 512 for 3 steps as the manifest starts it: the
+   pod launcher (kubernetes1_tpu_torch.workloads.launch) from the env that
+   the plugin injected from the Job controller's annotations, torchrun,
+   NCCL at world 1.  The card must be an NVLink domain of its own, the pod
+   must get it by ID and UUID, the launcher's line must read rank 0, world
+   1, k 1 and port 8476, and the Job's mlm-loss must be an in-process
+   train_demo's within 5e-2.  It prints the bind, launcher-line,
+   rendezvous and total seconds and the loss gap.
 The optimizer kernels are also the updates of phases 6, 9 and 12 (AdamW,
 SGD, AdamW), whose launches per step are checked there.  The kernels' rows
 carry their launches on each main path (``launches_<path>``; ``serving``
@@ -512,6 +523,16 @@ RL_ACTORS, RL_RATE, RL_CHURN_S, RL_CONVERGE_S = 4, 4.0, 20.0, 30.0
 # leg, plus the shared weights, within FLEET_MEMORY_TOL bytes.
 FLEET_APP, FLEET_REPLICAS = "fleet-serve", 2
 FLEET_MEMORY_TOL = 64 << 20
+# The multi-card leg (multicard_leg): BASELINE config 4's manifest, scaled
+# to the one card, runs BERT-large (full width and depth) at this batch,
+# sequence and step count through the pod launcher and torchrun; its loss
+# must be an in-process train_demo's within MULTICARD_LOSS_TOL (the JAX
+# suite's bf16 loss bar, tests/test_workloads.py:81).  The coordinator's
+# port is the Job controller's.
+MULTICARD_YAML = "examples/gpu-bert-large-4x8-h100.yaml"
+MULTICARD_BATCH, MULTICARD_SEQ, MULTICARD_STEPS = 8, 512, 3
+MULTICARD_LOSS_TOL = 5e-2
+COORDINATOR_PORT = 8476
 
 BERT_KERNELS = ("attention_noncausal", "attention_noncausal_bwd", "layernorm", "layernorm_bwd",
                 "gelu", "gelu_bwd", "cross_entropy_f32", "cross_entropy_f32_bwd")
@@ -4288,6 +4309,102 @@ def fleet_leg(cl: "Cluster", card: str) -> dict:
 
 
 
+def _set_flags(argv: list, flags: dict) -> list:
+    """``argv`` with each ``--flag`` given its value: replaced where the
+    flag is there, appended where it is not."""
+    argv = list(argv)
+    for flag, value in flags.items():
+        if flag in argv:
+            argv[argv.index(flag) + 1] = value
+        else:
+            argv += [flag, value]
+    return argv
+
+
+def multicard_leg(cl: "Cluster", card: str, devs: list) -> dict:
+    """(g) BASELINE config 4 on the card: examples/gpu-bert-large-4x8-h100.yaml
+    scaled to 1 worker x 1 card, BERT-large at MULTICARD_BATCH x
+    MULTICARD_SEQ for MULTICARD_STEPS steps, started as the manifest says
+    (the pod launcher, torchrun, NCCL at world 1) from the env that the
+    plugin injected from the Job controller's annotations.  The node's card
+    must be an NVLink domain of its own (``<host>-nvl<minor>``, not the
+    host); the pod must get the card by ID and UUID; the launcher's line
+    must read rank 0, world 1, k 1, port COORDINATOR_PORT and an address;
+    the printed mlm-loss must be an in-process train_demo's on the same
+    batch within MULTICARD_LOSS_TOL.  Prints the pod's bind s, the time from
+    the create to the launcher's line, the rendezvous s (the launcher's line
+    to the world formed) and the total s."""
+    import yaml
+
+    card_id, attrs = devs[0]["id"], devs[0]["attributes"]
+    uuid, host = attrs["nvidia.com/gpu/uuid"], os.uname().nodename
+    minor = attrs["ktpu.io/device-path"].rsplit("nvidia", 1)[1]
+    domain = attrs["nvidia.com/gpu/nvlink-domain"]
+    if domain != f"{host}-nvl{minor}":
+        fail(f"multicard: the card's NVLink domain is {domain!r}, want {host}-nvl{minor}")
+    t = time.perf_counter()
+    want = bert.train_demo(bert.bert_large(), batch=MULTICARD_BATCH, seq=MULTICARD_SEQ,
+                           steps=MULTICARD_STEPS)
+    ref_s = time.perf_counter() - t
+    release_gemm_memory()  # the card is the pod's
+    with open(os.path.join(REPO_ROOT, MULTICARD_YAML)) as f:
+        doc = yaml.safe_load(f)
+    job = {k: v for k, v in doc.items() if k not in ("kind", "apiVersion")}
+    name = job["metadata"]["name"]
+    job["spec"]["completions"] = job["spec"]["parallelism"] = 1
+    pod_spec = job["spec"]["template"]["spec"]
+    pod_spec["extendedResources"][0]["quantity"] = 1
+    c = pod_spec["containers"][0]
+    # this checkout's interpreter and PYTHONPATH, as every Job of this phase
+    c["command"] = [sys.executable] + _set_flags(c["command"][1:], {
+        "--batch": str(MULTICARD_BATCH), "--seq": str(MULTICARD_SEQ),
+        "--steps": str(MULTICARD_STEPS)})
+    c["env"] = [{"name": "PYTHONPATH", "value": cl.env["PYTHONPATH"]}]
+    _wait(f"port {COORDINATOR_PORT} to be free (the learner's, earlier)",
+          lambda: _refused(COORDINATOR_PORT), 60)
+    sel = f"batch.ktpu.io/job-name={name}"
+    t0 = time.perf_counter()
+    cl.create(job)
+    bind_s, start_s, visible = cl.job_started(sel, t0)
+    pname = f"{name}-0"
+    said = _wait("the launcher's line", lambda: re.findall(
+        r"launch: rank (\d+) world (\d+) k (\d+) coordinator (\S+) port (\d+) address (\S+) "
+        r"\((.+)\)", cl.pod_log(pname)), CLUSTER_WAIT_S, 0.05)[0]
+    line_s = time.perf_counter() - t0
+    _wait("the world to form", lambda: "world 1 formed (nccl)" in cl.pod_log(pname),
+          CLUSTER_WAIT_S, 0.05)
+    world_s = time.perf_counter() - t0
+    pod = _wait(f"Job {name} to succeed", lambda: cl.job_done(name), 300, 0.2)
+    total_s = time.perf_counter() - t0
+    log = cl.pod_log(pname)
+    cl.delete_job(name)
+    rank, world, k, coord, port, address, how = said
+    losses = re.findall(r"^mlm-loss (\S+)$", log, re.M)
+    assigned = pod["spec"]["extendedResources"][0].get("assigned")
+    if (rank, world, k, port) != ("0", "1", "1", str(COORDINATOR_PORT)) or not address or \
+            coord != f"{name}-0.default" or assigned != [card_id] or visible != {uuid} or \
+            len(losses) != 1:
+        fail(f"multicard: the pod got {assigned} with CUDA_VISIBLE_DEVICES {visible}, want "
+             f"[{card_id}] and {uuid}; the launcher said {said}; the log:\n{log[-3000:]}")
+    gap = abs(float(losses[0]) - want)
+    if not gap <= MULTICARD_LOSS_TOL:
+        fail(f"multicard: the Job's mlm-loss {losses[0]}, in process {want} (gap {gap}, tol "
+             f"{MULTICARD_LOSS_TOL})")
+    res = dict(bind_s=bind_s, pod_start_s=start_s, launcher_line_s=line_s,
+               rendezvous_s=world_s - line_s, total_s=total_s, loss=float(losses[0]),
+               loss_in_process=want, loss_gap=gap, reference_s=ref_s, address=address,
+               how=how, nvlink_domain=domain)
+    print(f"multicard: config 4 ({MULTICARD_YAML} at 1 worker x 1 card, BERT-large "
+          f"{MULTICARD_BATCH} x {MULTICARD_SEQ}, {MULTICARD_STEPS} steps) through the launcher "
+          f"and torchrun: the pod got {assigned} (CUDA_VISIBLE_DEVICES={uuid}, NVLink domain "
+          f"{domain}); launcher: rank {rank} world {world} k {k} coordinator {coord}:{port} "
+          f"address {address} ({how}); bind_s={bind_s:.3f} pod_start_s={start_s:.3f} "
+          f"launcher_line_s={line_s:.3f} rendezvous_s={world_s - line_s:.3f} "
+          f"total_s={total_s:.3f}; mlm-loss {losses[0]} against {want!r} in process "
+          f"({ref_s:.2f} s; gap {gap:.3e}, tol {MULTICARD_LOSS_TOL}) on [{card}]", flush=True)
+    return res
+
+
 def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     """The nvidia.com/gpu device plane on the card: the orchestrator in
     child processes with the port's plugin in real mode.  (a) the node
@@ -4300,7 +4417,9 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     exporter beside the components shows the Job's utilization and memory;
     (d) the serving Deployment's pod answers with an in-process
     DecodeServer's tokens, then takes LoadGen's open-loop traffic with no
-    request failed or shed; (e) nothing survives teardown."""
+    request failed or shed; (e) the RL learner under churn (rl_leg); (f)
+    the 8B fleet (fleet_leg); (g) config 4's multi-card Job at one card
+    (multicard_leg); nothing survives teardown."""
     from kubernetes1_tpu_torch.workloads import specs
 
     kind = torch.cuda.get_device_name(0)
@@ -4434,8 +4553,11 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         cl.client.deployments.delete("llama-serve")
         _wait("the serving pod to go", lambda: not cl.pods("app=llama-serve"))
 
-        # (e) the RL learner on the card under actor churn; (f) the 8B fleet
+        # (e) the RL learner on the card under actor churn; (g) config 4's
+        # multi-card Job at one card, while no other pod holds the node's
+        # CPUs (its worker asks for 8, the chip machine's all); (f) the 8B fleet
         res.update(rl=rl_leg(cl, card, card_id, uuid))
+        res["multicard"] = multicard_leg(cl, card, devs)
         res["fleet"] = fleet_leg(cl, card)
     finally:
         if exporter is not None:

@@ -22,7 +22,10 @@ over its own copy of the wire code (``deviceplugin.api``), advertises
 each card with its model, memory and UUID and hands the card to a pod
 through ``CUDA_VISIBLE_DEVICES``; and the specs a pod that wants a card
 is built from (``workloads.specs``, ``workloads.llama.serving_deployment``),
-in the pod-level ``extendedResources`` form the orchestrator admits.
+in the pod-level ``extendedResources`` form the orchestrator admits; and
+the pod launcher (``workloads.launch``) that starts a multi-card pod of
+an Indexed Job as one process a card under torchrun, from the rank,
+world and coordinator the plugin injects.
 
 It speaks to the orchestrator's apiserver through a client of its own
 (``client``: REST calls and a list+watch informer over wire-form dicts),

@@ -10,12 +10,18 @@ kubelet discovers it, admits pods against it and merges what it injects:
   NVIDIA_VISIBLE_DEVICES   (a card with a node on this host), else their
                            indices (fake mode)
   CUDA_DEVICE_ORDER        PCI_BUS_ID
-  RANK, LOCAL_RANK         a multi-host Job's worker index (from the pod's
-                           gpu.ktpu.io/worker-id annotation); one process
-                           a pod, so LOCAL_RANK is 0
-  MASTER_ADDR, MASTER_PORT the coordinator (gpu.ktpu.io/coordinator-address,
-                           "host:port")
-  WORLD_SIZE               the number of gpu.ktpu.io/worker-hostnames
+  RANK, LOCAL_RANK         a multi-host Job's worker index (the pod's
+                           worker-id annotation); one process a pod, so
+                           LOCAL_RANK is 0
+  MASTER_ADDR, MASTER_PORT the coordinator (coordinator-address,
+                           "host:port", split at the last colon)
+  WORLD_SIZE               the number of worker-hostnames
+
+from the annotations that the Job controller stamps on each pod of an
+Indexed Job (tpu.ktpu.io/worker-id, /coordinator-address,
+/worker-hostnames: the completion index, ``<job>-0.<ns>:8476`` and every
+worker's name) or, taking precedence key by key, the gpu.ktpu.io/ keys of
+the same names,
 
 the variables ``torch.distributed``'s ``env://`` start reads (the port's
 ``sharding.init_from_env``), in place of the TPU plugin's TPU_WORKER_ID
@@ -27,8 +33,13 @@ Discovery modes:
   legacy GPU manager's /dev/nvidia* walk, keyed by the card's own node); a
   card is advertised only when its node exists.  A container may show more
   nodes than cards, and the card need not be the lowest-numbered node.
-  The plugin never initialises CUDA: a context in its process would hold
-  memory on the card that the pod needs.
+  One ``nvidia-smi topo -m`` call gives the NVLink peer graph: a card's
+  NVLink domain is the connected component that holds it, named
+  ``<host>-nvl<lowest minor in it>`` (the 8 cards on one NVSwitch board
+  are one domain; PCIe cards bridged in pairs are a domain a pair); a
+  card with no NVLink peer, or with ``topo -m`` failing, is a domain of
+  its own.  The plugin never initialises CUDA: a context in its process
+  would hold memory on the card that the pod needs.
 - fake: KTPU_FAKE_GPUS="<model>:<count>:<domain>:<host index>[:<memory MiB>]"
   makes an inventory without a card, for tests and hollow nodes.
 
@@ -38,6 +49,7 @@ Run it as ``python -m kubernetes1_tpu_torch.deviceplugin --plugin-dir D``.
 from __future__ import annotations
 
 import os
+import re
 import signal
 import subprocess
 import threading
@@ -64,15 +76,21 @@ ATTR_GPU_NVLINK_DOMAIN = "nvidia.com/gpu/nvlink-domain"
 ATTR_DEVICE_INDEX = "ktpu.io/device-index"
 ATTR_DEVICE_PATH = "ktpu.io/device-path"
 
-# Pod annotations the plugin consumes (set by the Job's author or controller).
+# Pod annotations the plugin consumes: the gpu.ktpu.io keys (set by a
+# Job's author), else the keys of the same names that the Job controller
+# stamps on each pod of an Indexed Job (tpu.ktpu.io, the JAX package's
+# strings, copied).
 ANN_WORKER_ID = "gpu.ktpu.io/worker-id"
 ANN_COORDINATOR = "gpu.ktpu.io/coordinator-address"
 ANN_WORKER_HOSTNAMES = "gpu.ktpu.io/worker-hostnames"
+JOB_ANN_WORKER_ID = "tpu.ktpu.io/worker-id"
+JOB_ANN_COORDINATOR = "tpu.ktpu.io/coordinator-address"
+JOB_ANN_WORKER_HOSTNAMES = "tpu.ktpu.io/worker-hostnames"
 ANN_INJECTED = "gpu.ktpu.io/injected"
 
 # The NVIDIA control nodes a CUDA process opens besides its card's.
 CONTROL_NODES = ("/dev/nvidiactl", "/dev/nvidia-uvm", "/dev/nvidia-uvm-tools")
-DEV_DIR = "/dev"
+DEV_DIR = "/dev"  # the card nodes' directory; KTPU_DEV_DIR overrides it (tests)
 FAKE_MODEL = "NVIDIA H100 80GB HBM3"
 FAKE_MEMORY_MIB = "81559"
 
@@ -129,18 +147,71 @@ def smi_cards() -> List[dict]:
             for gpu in root.findall("gpu")]
 
 
+_ANSI = re.compile(r"\x1b\[[0-9;]*m")
+
+
+def smi_nvlinks() -> List[tuple]:
+    """The NVLink peer pairs (i, j), i < j, in nvidia-smi's card indices,
+    from one ``nvidia-smi topo -m`` call: an ``NV<n>`` cell (a bonded set
+    of n links) between two cards; [] when nvidia-smi fails."""
+    try:
+        out = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    rows = [_ANSI.sub("", line).split() for line in out.splitlines()]
+    header = next((r for r in rows if r and r[0] == "GPU0"), [])
+    cols = [int(c[3:]) for c in header if re.fullmatch(r"GPU\d+", c)]
+    pairs = set()
+    for r in rows:
+        if r is header or not r or not re.fullmatch(r"GPU\d+", r[0]):
+            continue
+        i = int(r[0][3:])
+        for j, cell in zip(cols, r[1:]):
+            if re.fullmatch(r"NV\d+", cell) and i != j:
+                pairs.add((min(i, j), max(i, j)))
+    return sorted(pairs)
+
+
+def nvlink_domains(minors: List[int], links: List[tuple], host: str) -> List[str]:
+    """Each card's NVLink domain: the connected component of the peer
+    graph (``links``, pairs of positions in ``minors``) that holds it,
+    named ``<host>-nvl<lowest minor in it>``."""
+    root = list(range(len(minors)))
+
+    def find(i):
+        while root[i] != i:
+            root[i] = root[root[i]]
+            i = root[i]
+        return i
+
+    for i, j in links:
+        root[find(i)] = find(j)
+    low: Dict[int, int] = {}
+    for i, m in enumerate(minors):
+        low[find(i)] = min(low.get(find(i), m), m)
+    return [f"{host}-nvl{low[find(i)]}" for i in range(len(minors))]
+
+
 def _real_devices() -> List[dict]:
     """Each card nvidia-smi reports, at its own node /dev/nvidia<minor>
     (ref pkg/kubelet/gpu/nvidia/nvidia_gpu_manager.go: the legacy GPU
-    manager's /dev/nvidia* walk); a card whose node is missing here is not
-    advertised."""
+    manager's /dev/nvidia* walk), in its NVLink domain; a card whose node
+    is missing here is not advertised."""
     hostname = os.uname().nodename
+    dev_dir = os.environ.get("KTPU_DEV_DIR") or DEV_DIR
+    cards = [(index, card) for index, card in enumerate(smi_cards()) if card["minor"].isdigit()]
+    if not cards:
+        return []
+    at = {index: k for k, (index, _) in enumerate(cards)}
+    links = [(at[i], at[j]) for i, j in smi_nvlinks() if i in at and j in at]
+    domains = nvlink_domains([int(card["minor"]) for _, card in cards], links, hostname)
     devices = []
-    for index, card in enumerate(smi_cards()):
-        path = os.path.join(DEV_DIR, f"nvidia{card['minor']}")
-        if card["minor"].isdigit() and os.path.exists(path):
+    for (index, card), domain in zip(cards, domains):
+        path = os.path.join(dev_dir, f"nvidia{card['minor']}")
+        if os.path.exists(path):
             devices.append(_device(f"{hostname}-nvidia{card['minor']}", index, card["name"],
-                                   card["memory"], card["uuid"], hostname, path))
+                                   card["memory"], card["uuid"], domain, path))
     return devices
 
 
@@ -268,15 +339,19 @@ class GPUDevicePlugin:
         spec.envs["CUDA_VISIBLE_DEVICES"] = ",".join(visible)
         spec.envs["NVIDIA_VISIBLE_DEVICES"] = ",".join(visible)
         spec.envs["CUDA_DEVICE_ORDER"] = "PCI_BUS_ID"
-        if ANN_WORKER_ID in annotations:
-            spec.envs["RANK"] = annotations[ANN_WORKER_ID]
+        worker_id, coordinator, hostnames = (
+            annotations.get(key, annotations.get(job_key)) for key, job_key in (
+                (ANN_WORKER_ID, JOB_ANN_WORKER_ID), (ANN_COORDINATOR, JOB_ANN_COORDINATOR),
+                (ANN_WORKER_HOSTNAMES, JOB_ANN_WORKER_HOSTNAMES)))
+        if worker_id is not None:
+            spec.envs["RANK"] = worker_id
             spec.envs["LOCAL_RANK"] = "0"
-        if ANN_COORDINATOR in annotations:
-            host, _, port = annotations[ANN_COORDINATOR].rpartition(":")
+        if coordinator is not None:
+            host, _, port = coordinator.rpartition(":")
             spec.envs["MASTER_ADDR"] = host
             spec.envs["MASTER_PORT"] = port
-        if ANN_WORKER_HOSTNAMES in annotations:
-            hosts = [h for h in annotations[ANN_WORKER_HOSTNAMES].split(",") if h]
+        if hostnames is not None:
+            hosts = [h for h in hostnames.split(",") if h]
             spec.envs["WORLD_SIZE"] = str(len(hosts))
         spec.annotations[ANN_INJECTED] = "true"
         return spec

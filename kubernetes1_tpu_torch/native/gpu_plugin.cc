@@ -6,9 +6,11 @@
 // has the semantics of the Python GPUDevicePlugin
 // (deviceplugin/gpu_plugin.py): the same inventory (gpus.hpp), the same
 // admission and the same injection (CUDA_VISIBLE_DEVICES and the card's
-// /dev/nvidia* nodes, the torch.distributed env from the gpu.ktpu.io/*
-// annotations), plus the annotation gpu.ktpu.io/plugin: native; no Python
-// runtime is needed on the node.  In real mode it exits non-zero when NVML
+// /dev/nvidia* nodes, the torch.distributed env from the worker-id,
+// coordinator-address and worker-hostnames annotations: the gpu.ktpu.io/
+// keys, else the tpu.ktpu.io/ keys the Job controller stamps), plus the
+// annotation gpu.ktpu.io/plugin: native; no Python runtime is needed on
+// the node.  In real mode it exits non-zero when NVML
 // cannot be used, rather than advertise nothing.  SIGTERM or SIGINT
 // unlinks the socket and exits 0.
 //
@@ -57,6 +59,11 @@ constexpr const char* kAttrDevicePath = "ktpu.io/device-path";
 constexpr const char* kAnnWorkerId = "gpu.ktpu.io/worker-id";
 constexpr const char* kAnnCoordinator = "gpu.ktpu.io/coordinator-address";
 constexpr const char* kAnnWorkerHostnames = "gpu.ktpu.io/worker-hostnames";
+// what the Job controller stamps on each pod of an Indexed Job (the JAX
+// package's strings, copied); the gpu.ktpu.io keys take precedence
+constexpr const char* kJobAnnWorkerId = "tpu.ktpu.io/worker-id";
+constexpr const char* kJobAnnCoordinator = "tpu.ktpu.io/coordinator-address";
+constexpr const char* kJobAnnWorkerHostnames = "tpu.ktpu.io/worker-hostnames";
 
 // The NVIDIA control nodes a CUDA process opens besides its card's.
 const char* const kControlNodes[] = {"/dev/nvidiactl", "/dev/nvidia-uvm",
@@ -187,22 +194,27 @@ class GPUPlugin {
     envs["CUDA_DEVICE_ORDER"] = Json("PCI_BUS_ID");
     const Json& anns = params["pod_annotations"];
     if (anns.is_object()) {
-      if (anns[kAnnWorkerId].is_string()) {
-        envs["RANK"] = anns[kAnnWorkerId];
+      // the annotation under ``key``, else under ``job_key``; null when neither is a string
+      auto either = [&](const char* key, const char* job_key) -> const Json* {
+        if (anns[key].is_string()) return &anns[key];
+        if (anns[job_key].is_string()) return &anns[job_key];
+        return nullptr;
+      };
+      if (const Json* id = either(kAnnWorkerId, kJobAnnWorkerId)) {
+        envs["RANK"] = *id;
         envs["LOCAL_RANK"] = Json("0");
       }
-      if (anns[kAnnCoordinator].is_string()) {
+      if (const Json* coord = either(kAnnCoordinator, kJobAnnCoordinator)) {
         // "host:port", split at the last colon
-        const std::string& addr = anns[kAnnCoordinator].as_string();
+        const std::string& addr = coord->as_string();
         size_t colon = addr.rfind(':');
         envs["MASTER_ADDR"] = Json(colon == std::string::npos ? "" : addr.substr(0, colon));
         envs["MASTER_PORT"] =
             Json(colon == std::string::npos ? addr : addr.substr(colon + 1));
       }
-      if (anns[kAnnWorkerHostnames].is_string()) {
+      if (const Json* names = either(kAnnWorkerHostnames, kJobAnnWorkerHostnames)) {
         int64_t hosts = 0;
-        for (const auto& h : ktpu::split(anns[kAnnWorkerHostnames].as_string(), ','))
-          hosts += !h.empty();
+        for (const auto& h : ktpu::split(names->as_string(), ',')) hosts += !h.empty();
         envs["WORLD_SIZE"] = Json(std::to_string(hosts));
       }
     }

@@ -7,13 +7,19 @@
 //              (the Python plugin's defaults for each empty field);
 //   real mode: every card NVML reports, at its own node /dev/nvidia<minor>
 //              (the minor from NVML, never from the order of /dev
-//              entries), advertised only where that node exists.
+//              entries; KTPU_DEV_DIR in place of /dev, for tests),
+//              advertised only where that node exists, in its NVLink
+//              domain: the connected component of the NVLink peer graph
+//              (nvmlDeviceGetP2PStatus) that holds it, named
+//              <host>-nvl<lowest minor in it>; a card alone, or every
+//              card where the call is missing, is a domain of its own.
 #pragma once
 
 #include <stdlib.h>
 #include <sys/stat.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <string>
 #include <vector>
 
@@ -29,7 +35,7 @@ struct Card {
   std::string model;
   std::string memory_mib;
   std::string uuid;
-  std::string domain;  // the NVLink domain: the host name in real mode
+  std::string domain;  // the NVLink domain
   std::string index;   // NVML's index, or the position in fake mode
   std::string path;    // /dev/nvidia<minor>; empty in fake mode
   nvml::nvmlDevice_t handle = nullptr;  // real mode
@@ -89,19 +95,42 @@ inline std::vector<Card> fake_cards(const std::string& spec) {
   return cards;
 }
 
+// Each card's NVLink domain, by union-find over the cards' NVLink pairs.
+inline void nvlink_domains(nvml::Library& lib, const std::string& host,
+                           const std::vector<unsigned int>& minors, std::vector<Card>* cards) {
+  size_t n = cards->size();
+  std::vector<size_t> root(n);
+  for (size_t i = 0; i < n; ++i) root[i] = i;
+  auto find = [&](size_t i) {
+    while (root[i] != i) i = root[i] = root[root[i]];
+    return i;
+  };
+  for (size_t i = 0; i < n && lib.DeviceGetP2PStatus != nullptr; ++i)
+    for (size_t j = i + 1; j < n; ++j) {
+      int status = -1;
+      if (lib.DeviceGetP2PStatus((*cards)[i].handle, (*cards)[j].handle,
+                                 nvml::kP2PCapsIndexNvlink, &status) == nvml::kSuccess &&
+          status == nvml::kP2PStatusOk)
+        root[find(i)] = find(j);
+    }
+  std::vector<unsigned int> low(n, ~0u);
+  for (size_t i = 0; i < n; ++i) low[find(i)] = std::min(low[find(i)], minors[i]);
+  for (size_t i = 0; i < n; ++i) (*cards)[i].domain = host + "-nvl" + std::to_string(low[find(i)]);
+}
+
 inline std::vector<Card> real_cards(nvml::Library& lib) {
   std::vector<Card> cards;
+  std::vector<unsigned int> minors;
   unsigned int count = 0;
   if (lib.DeviceGetCount(&count) != nvml::kSuccess) return cards;
-  std::string host = host_name();
+  std::string host = host_name(), dev_dir = getenv_or("KTPU_DEV_DIR", "/dev");
   for (unsigned int i = 0; i < count; ++i) {
     Card c;
     unsigned int minor = 0;
     if (lib.DeviceGetHandleByIndex(i, &c.handle) != nvml::kSuccess ||
         lib.DeviceGetMinorNumber(c.handle, &minor) != nvml::kSuccess)
       continue;
-    c.path = "/dev/nvidia" + std::to_string(minor);
-    if (!node_exists(c.path)) continue;
+    c.path = dev_dir + "/nvidia" + std::to_string(minor);
     char buf[nvml::kStringBuffer] = "";
     if (lib.DeviceGetUUID(c.handle, buf, sizeof buf) == nvml::kSuccess) c.uuid = buf;
     buf[0] = 0;
@@ -110,11 +139,17 @@ inline std::vector<Card> real_cards(nvml::Library& lib) {
     if (lib.DeviceGetMemoryInfo(c.handle, &mem) == nvml::kSuccess)
       c.memory_mib = std::to_string(mem.total / (1024ull * 1024ull));
     c.id = host + "-nvidia" + std::to_string(minor);
-    c.domain = host;
     c.index = std::to_string(i);
     cards.push_back(c);
+    minors.push_back(minor);
   }
-  return cards;
+  // the domains span every card NVML reports; only those with a node here
+  // are advertised
+  nvlink_domains(lib, host, minors, &cards);
+  std::vector<Card> present;
+  for (const auto& c : cards)
+    if (node_exists(c.path)) present.push_back(c);
+  return present;
 }
 
 // The node's cards: fake mode when KTPU_FAKE_GPUS is set, else NVML's.

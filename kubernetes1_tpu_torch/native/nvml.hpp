@@ -28,6 +28,8 @@ struct nvmlUtilization_t {
 };
 
 constexpr nvmlReturn_t kSuccess = 0;
+constexpr int kP2PCapsIndexNvlink = 2;  // NVML_P2P_CAPS_INDEX_NVLINK
+constexpr int kP2PStatusOk = 0;         // NVML_P2P_STATUS_OK
 constexpr int kTemperatureGpu = 0;        // NVML_TEMPERATURE_GPU
 constexpr unsigned int kStringBuffer = 96;  // NVML_DEVICE_{UUID,NAME}_V2_BUFFER_SIZE
 
@@ -49,6 +51,10 @@ class Library {
   nvmlReturn_t (*DeviceGetPowerUsage)(nvmlDevice_t, unsigned int*) = nullptr;  // mW
   nvmlReturn_t (*DeviceGetEnforcedPowerLimit)(nvmlDevice_t, unsigned int*) = nullptr;  // mW
   nvmlReturn_t (*DeviceGetTemperature)(nvmlDevice_t, int, unsigned int*) = nullptr;  // C
+  // whether two cards reach each other over NVLink (caps index
+  // kP2PCapsIndexNvlink, status kP2PStatusOk); optional: null when the
+  // library lacks it, and then every card is an NVLink domain of its own
+  nvmlReturn_t (*DeviceGetP2PStatus)(nvmlDevice_t, nvmlDevice_t, int, int*) = nullptr;
 
   Library() = default;
   Library(const Library&) = delete;
@@ -78,6 +84,8 @@ class Library {
               resolve(&DeviceGetEnforcedPowerLimit, "nvmlDeviceGetEnforcedPowerLimit", why) &&
               resolve(&DeviceGetTemperature, "nvmlDeviceGetTemperature", why);
     if (!ok) return false;
+    DeviceGetP2PStatus =
+        reinterpret_cast<decltype(DeviceGetP2PStatus)>(dlsym(handle_, "nvmlDeviceGetP2PStatus"));
     nvmlReturn_t rc = Init();
     if (rc != kSuccess) {
       *why = "nvmlInit_v2 failed with NVML error " + std::to_string(rc);

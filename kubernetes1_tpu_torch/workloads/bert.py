@@ -401,3 +401,17 @@ def train_demo(cfg: Optional[BertConfig] = None, steps: int = 3, batch: int = 8,
     for _ in range(steps):
         loss = step(tokens, mask)
     return float(loss)
+
+
+CONFIGS = {"tiny": tiny, "bert_large": bert_large}
+
+
+def main(argv=None):
+    """``python -m kubernetes1_tpu_torch.workloads.bert [--config tiny|bert_large]
+    [--steps N] [--batch B] [--seq S] [--device cpu]``: ``train_demo``,
+    rank 0 printing ``mlm-loss <x>`` (``sharding.demo_main``)."""
+    sharding.demo_main(train_demo, CONFIGS, "mlm-loss", argv)
+
+
+if __name__ == "__main__":
+    main()

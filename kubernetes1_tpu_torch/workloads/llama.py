@@ -859,10 +859,13 @@ def _serve_main():
         srv.stop()
 
 
+CONFIGS = {"tiny": tiny, "llama_3_8b": llama_3_8b}
+
+
 if __name__ == "__main__":
     import sys
 
     if "--serve" in sys.argv[1:]:
         _serve_main()
-    else:
-        print("final loss:", train_demo())
+    else:  # [--config tiny|llama_3_8b] [--steps N] [--batch B] [--seq S] [--device cpu]
+        sharding.demo_main(train_demo, CONFIGS, "loss")

@@ -93,7 +93,10 @@ def init_from_env(device_type: Optional[str] = None):
     """Make the default process group from the launcher's environment,
     unless one exists: NCCL on the card (after ``torch.cuda.set_device(
     LOCAL_RANK)``: a kernel launches only on the current card), gloo on
-    the CPU.  Raises when there is neither a group nor that environment."""
+    the CPU.  Raises when there is neither a group nor that environment,
+    and on the card when the environment is the device plugin's (no
+    ``LOCAL_WORLD_SIZE``, which torchrun sets) while more than one card is
+    visible: the pod's command must go through ``workloads.launch``."""
     if dist.is_initialized():
         return
     if not launcher_env():
@@ -101,6 +104,15 @@ def init_from_env(device_type: Optional[str] = None):
                            "`torchrun --nproc-per-node=N`, or call "
                            "torch.distributed.init_process_group before making the mesh")
     device_type = _device_type(device_type)
+    if device_type == "cuda" and "LOCAL_WORLD_SIZE" not in os.environ \
+            and torch.cuda.device_count() > 1:
+        # the device plugin's RANK and WORLD_SIZE (a worker of an Indexed
+        # Job), not torchrun's: one process of a pod that holds more cards
+        raise RuntimeError(
+            f"RANK and WORLD_SIZE are set without torchrun's LOCAL_WORLD_SIZE, and "
+            f"{torch.cuda.device_count()} cards are visible: this process would use one of "
+            f"them.  Start the pod's command through the launcher, one process a card: "
+            f"python -m kubernetes1_tpu_torch.workloads.launch -m <module> <args...>")
     if device_type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
@@ -153,6 +165,44 @@ def end_process_group():
     point's last act, after its last collective."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def demo_main(train_demo: Callable[..., float], configs: dict, label: str,
+              argv: Optional[List[str]] = None):
+    """The ``python -m`` main of a model's ``train_demo``, the command of
+    its manifests: ``--config`` (a key of ``configs``), ``--steps``,
+    ``--batch`` (global), ``--seq`` and ``--device`` (the card unless
+    ``cpu``), each left at ``train_demo``'s default when not given.  On
+    the card the model computes in its config's dtype (bf16, the kernels'
+    activation type); on the CPU, where the plain versions run, in f32, so
+    that a run over any world meets the one-process loss within f32
+    rounding.  Under a launcher rank 0 says once the world has formed
+    (``world <n> formed (<backend>)``); rank 0 alone prints ``<label>
+    <loss>``, after the process group has ended."""
+    import argparse
+    import dataclasses
+
+    ap = argparse.ArgumentParser(description=f"train_demo; rank 0 prints '{label} <loss>'")
+    ap.add_argument("--config", choices=sorted(configs), default="tiny")
+    ap.add_argument("--steps", type=int)
+    ap.add_argument("--batch", type=int)
+    ap.add_argument("--seq", type=int)
+    ap.add_argument("--device")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = configs[args.config]()
+    if dev.type == "cpu":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    mesh = launched_mesh(dev)
+    if mesh is not None and is_rank0():
+        print(f"world {dist.get_world_size()} formed ({dist.get_backend()})", flush=True)
+    given = {k: getattr(args, k) for k in ("steps", "batch", "seq")
+             if getattr(args, k) is not None}
+    loss = train_demo(cfg, device=dev, mesh=mesh, **given)
+    rank0 = is_rank0()
+    end_process_group()
+    if rank0:
+        print(label, loss, flush=True)
 
 
 def is_rank0() -> bool:

@@ -63,8 +63,11 @@ def payload_job(name: str, argv: List[str], gpus: int = 1, out: Optional[str] = 
     given: one completion, ``restartPolicy: Never`` and ``backoffLimit: 0``
     (the first crash is final), the repo root first on PYTHONPATH.  The
     counterpart of the Job the JAX package's ``bench.py`` builds for its
-    payloads, with the card in the pod-level form."""
-    command = [sys.executable, "-m", *argv] + (["--out", out] if out else [])
+    payloads, with the card in the pod-level form.  With more than one
+    card the module runs through the pod launcher (``workloads.launch``),
+    one process a card under torchrun."""
+    launch = ["kubernetes1_tpu_torch.workloads.launch", "-m"] if gpus > 1 else []
+    command = [sys.executable, "-m", *launch, *argv] + (["--out", out] if out else [])
     pod_spec = {"containers": [{"name": "train", "image": "ktpu/torch-workload",
                                 "command": command, "env": [pythonpath_env()]}],
                 "restartPolicy": "Never"}

@@ -331,6 +331,60 @@ def test_init_container_fake_mode_env_with_multi_host_annotations():
     assert spec.annotations == {"gpu.ktpu.io/injected": "true"}
 
 
+# What the JAX Job controller stamps on index 1 of a 2-worker Indexed Job
+# named bert in namespace default (kubernetes1_tpu/controllers/job.py).
+JOB_ANNOTATIONS = {
+    "tpu.ktpu.io/worker-id": "1",
+    "tpu.ktpu.io/coordinator-address": "bert-0.default:8476",
+    "tpu.ktpu.io/worker-hostnames": "bert-0.default,bert-1.default",
+}
+
+
+def test_job_controller_keys_are_the_jax_packages():
+    from kubernetes1_tpu.controllers.job import COORDINATOR_PORT
+    from kubernetes1_tpu.deviceplugin import tpu_plugin as jtp
+
+    assert (gp.JOB_ANN_WORKER_ID, gp.JOB_ANN_COORDINATOR, gp.JOB_ANN_WORKER_HOSTNAMES) == (
+        jtp.ANN_WORKER_ID, jtp.ANN_COORDINATOR, jtp.ANN_WORKER_HOSTNAMES)
+    assert set(JOB_ANNOTATIONS) == {jtp.ANN_WORKER_ID, jtp.ANN_COORDINATOR,
+                                    jtp.ANN_WORKER_HOSTNAMES}
+    assert COORDINATOR_PORT == 8476
+
+
+def test_init_container_reads_the_job_controllers_annotations():
+    """An Indexed Job's worker gets its rank, world and coordinator from
+    the keys the Job controller writes, with no gpu.ktpu.io key."""
+    impl = gp.GPUDevicePlugin(devices=gp._fake_devices(f"{H100}:2:nv0:0"))
+    spec = impl.init_container({"device_ids": ["nv0-h0-gpu0", "nv0-h0-gpu1"],
+                                "pod_annotations": JOB_ANNOTATIONS})
+    assert spec.envs == {
+        "CUDA_VISIBLE_DEVICES": "0,1", "NVIDIA_VISIBLE_DEVICES": "0,1",
+        "CUDA_DEVICE_ORDER": "PCI_BUS_ID", "RANK": "1", "LOCAL_RANK": "0",
+        "MASTER_ADDR": "bert-0.default", "MASTER_PORT": "8476", "WORLD_SIZE": "2"}
+
+
+GPU_OVERRIDES = {
+    "worker-id": ({gp.ANN_WORKER_ID: "3"}, {"RANK": "3"}),
+    "coordinator": ({gp.ANN_COORDINATOR: "10.0.0.7:29500"},
+                    {"MASTER_ADDR": "10.0.0.7", "MASTER_PORT": "29500"}),
+    "hostnames": ({gp.ANN_WORKER_HOSTNAMES: "a,b,c,d"}, {"WORLD_SIZE": "4"}),
+}
+
+
+@pytest.mark.parametrize("key", sorted(GPU_OVERRIDES))
+def test_gpu_annotations_take_precedence_over_the_job_controllers(key):
+    """Key by key: a gpu.ktpu.io key beside the Job controller's wins, and
+    the other two still come from the Job controller's."""
+    impl = gp.GPUDevicePlugin(devices=gp._fake_devices(f"{H100}:1:nv0:0"))
+    gpu_ann, want = GPU_OVERRIDES[key]
+    spec = impl.init_container({"device_ids": ["nv0-h0-gpu0"],
+                                "pod_annotations": {**JOB_ANNOTATIONS, **gpu_ann}})
+    job_env = {"RANK": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "bert-0.default",
+               "MASTER_PORT": "8476", "WORLD_SIZE": "2"}
+    assert spec.envs == {"CUDA_VISIBLE_DEVICES": "0", "NVIDIA_VISIBLE_DEVICES": "0",
+                         "CUDA_DEVICE_ORDER": "PCI_BUS_ID", **job_env, **want}
+
+
 def test_init_container_real_mode_names_cards_by_uuid_with_their_nodes(tmp_path, monkeypatch):
     nodes = {name: tmp_path / name for name in ("nvidia0", "nvidia1", "nvidiactl", "nvidia-uvm")}
     for n in nodes.values():
@@ -376,15 +430,43 @@ def _smi_card(uuid, minor):
             "<bar1_memory_usage><total>131072 MiB</total></bar1_memory_usage></gpu>")
 
 
-def _stand_in_smi(tmp_path, monkeypatch, cards):
+def topo_m(n, links, link="NV18"):
+    """``nvidia-smi topo -m`` for n cards with NVLink between the index
+    pairs ``links`` (every other pair over PCIe), as nvidia-smi prints it:
+    the header underlined with escape codes, a NIC column, the affinity
+    columns and the legends."""
+    linked = {frozenset(p) for p in links}
+    gpus = [f"GPU{i}" for i in range(n)]
+    lines = ["\t\x1b[4m" + "\t".join(gpus + ["NIC0", "CPU Affinity", "NUMA Affinity",
+                                             "GPU NUMA ID"]) + "\x1b[0m"]
+    for i in range(n):
+        cells = [" X " if i == j else (link if frozenset((i, j)) in linked else "SYS")
+                 for j in range(n)]
+        lines.append("\t".join([f"GPU{i}", *cells, "PXB", "0-47", "0", "", "N/A"]))
+    lines.append("\t".join(["NIC0", *["PXB"] * n, " X "]))
+    lines += ["", "Legend:", "", "  X    = Self",
+              "  SYS  = Connection traversing PCIe as well as the SMP interconnect",
+              "  NV#  = Connection traversing a bonded set of # NVLinks", "",
+              "NIC Legend:", "", "  NIC0: mlx5_0", ""]
+    return "\n".join(lines)
+
+
+def stand_in_smi(tmp_path, monkeypatch, cards, topo=None):
+    """A stand-in nvidia-smi first on PATH: ``-q -x`` prints ``cards``
+    (``_smi_card`` elements), ``topo -m`` prints ``topo`` (or fails when it
+    is None); each call's arguments are appended to tmp_path/args."""
     smi = tmp_path / "bin" / "nvidia-smi"
     smi.parent.mkdir()
     (tmp_path / "smi.xml").write_text('<?xml version="1.0" ?><nvidia_smi_log>'
                                       f"<attached_gpus>{len(cards)}</attached_gpus>"
                                       + "".join(cards) + "</nvidia_smi_log>")
+    topo_case = "topo) echo 'topo: not supported' >&2; exit 3;;"
+    if topo is not None:
+        (tmp_path / "topo.txt").write_text(topo)
+        topo_case = f"topo) cat {tmp_path / 'topo.txt'};;"
     smi.write_text("#!/bin/sh\n"
-                   f"echo \"$@\" > {tmp_path / 'args'}\n"
-                   f"cat {tmp_path / 'smi.xml'}\n")
+                   f"echo \"$@\" >> {tmp_path / 'args'}\n"
+                   f"case \"$1\" in\n  {topo_case}\n  *) cat {tmp_path / 'smi.xml'};;\nesac\n")
     smi.chmod(0o755)
     monkeypatch.setenv("PATH", f"{smi.parent}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.delenv("KTPU_FAKE_GPUS", raising=False)
@@ -394,26 +476,93 @@ def test_real_discovery_walks_device_nodes_and_reads_nvidia_smi(tmp_path, monkey
     """The chip machine's sandbox shows more nodes than cards, and its one
     card is not the lowest-numbered node (/dev/nvidia0 and /dev/nvidia3,
     card minor 3): each card takes the node of its own minor number, and
-    a card whose node is missing is not advertised."""
+    a card whose node is missing is not advertised.  A card with no
+    NVLink peer is an NVLink domain of its own, named by its minor, not
+    the host."""
     dev = tmp_path / "dev"
     dev.mkdir()
     for n in ("nvidia0", "nvidia3", "nvidiactl"):
         (dev / n).write_text("")
     monkeypatch.setattr(gp, "DEV_DIR", str(dev))
-    _stand_in_smi(tmp_path, monkeypatch, [_smi_card("GPU-aaa", 3), _smi_card("GPU-bbb", 5)])
+    monkeypatch.delenv("KTPU_DEV_DIR", raising=False)
+    stand_in_smi(tmp_path, monkeypatch, [_smi_card("GPU-aaa", 3), _smi_card("GPU-bbb", 5)],
+                 topo_m(2, []))
     devices = gp.discover_gpu_devices()
     host = os.uname().nodename
     assert [d["id"] for d in devices] == [f"{host}-nvidia3"]
     assert devices[0]["attributes"] == {
         gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559", gp.ATTR_GPU_UUID: "GPU-aaa",
-        gp.ATTR_GPU_NVLINK_DOMAIN: host, gp.ATTR_DEVICE_INDEX: "0",
+        gp.ATTR_GPU_NVLINK_DOMAIN: f"{host}-nvl3", gp.ATTR_DEVICE_INDEX: "0",
         gp.ATTR_DEVICE_PATH: str(dev / "nvidia3")}
-    assert (tmp_path / "args").read_text().split() == ["-q", "-x"]
+    assert (tmp_path / "args").read_text().splitlines() == ["-q -x", "topo -m"]
     # what the pod is handed is that card's node and UUID, not /dev/nvidia0
     spec = gp.GPUDevicePlugin(devices=devices).init_container(
         {"device_ids": [f"{host}-nvidia3"], "pod_annotations": {}})
     assert spec.envs["CUDA_VISIBLE_DEVICES"] == "GPU-aaa"
     assert spec.devices[0].host_path == str(dev / "nvidia3")
+
+
+# Boards for the NVLink domain: (minors in nvidia-smi's order, NVLink pairs
+# of indices, each card's domain by its minor).
+BOARDS = {
+    # HGX H100: 8 cards on one NVSwitch, every pair NV18
+    "nvswitch-8": (list(range(8)), [(i, j) for i in range(8) for j in range(i + 1, 8)],
+                   ["nvl0"] * 8),
+    # PCIe cards bridged in pairs (0-1, 2-3); minors out of index order
+    "bridged-pairs": ([4, 1, 2, 7], [(0, 1), (2, 3)], ["nvl1", "nvl1", "nvl2", "nvl2"]),
+    # a chain 0-1-2 is one domain; the fourth card has no peer
+    "chain-and-one-alone": ([0, 1, 2, 3], [(0, 1), (1, 2)], ["nvl0", "nvl0", "nvl0", "nvl3"]),
+    "one-card": ([3], [], ["nvl3"]),
+}
+
+
+def board_devices(tmp_path, monkeypatch, board, topo=True):
+    """The Python plugin's real-mode discovery of ``board`` behind a
+    stand-in nvidia-smi, with KTPU_DEV_DIR holding every card's node."""
+    minors, links, _ = BOARDS[board]
+    dev = tmp_path / "dev"
+    dev.mkdir()
+    for m in minors:
+        (dev / f"nvidia{m}").write_text("")
+    monkeypatch.setenv("KTPU_DEV_DIR", str(dev))
+    stand_in_smi(tmp_path, monkeypatch, [_smi_card(f"GPU-{m:04d}", m) for m in minors],
+                 topo_m(len(minors), links) if topo else None)
+    return gp.discover_gpu_devices()
+
+
+@pytest.mark.parametrize("board", sorted(BOARDS))
+def test_nvlink_domain_is_the_connected_component_of_the_links(tmp_path, monkeypatch, board):
+    host = os.uname().nodename
+    devices = board_devices(tmp_path, monkeypatch, board)
+    assert [d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] for d in devices] == [
+        f"{host}-{name}" for name in BOARDS[board][2]]
+    assert [d["attributes"][gp.ATTR_DEVICE_INDEX] for d in devices] == [
+        str(i) for i in range(len(BOARDS[board][0]))]
+
+
+def test_nvlink_domain_without_topo_is_a_card_of_its_own(tmp_path, monkeypatch):
+    """``topo -m`` failing: no card takes the host name, each keeps a
+    domain of its own."""
+    host = os.uname().nodename
+    devices = board_devices(tmp_path, monkeypatch, "nvswitch-8", topo=False)
+    assert [d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] for d in devices] == [
+        f"{host}-nvl{m}" for m in range(8)]
+    assert (tmp_path / "args").read_text().splitlines() == ["-q -x", "topo -m"]
+
+
+def test_nvlink_domains_span_cards_whose_node_is_missing(tmp_path, monkeypatch):
+    """The peer graph is every card's: a card bridged through one whose
+    node is missing here stays in that card's domain."""
+    host = os.uname().nodename
+    dev = tmp_path / "dev"
+    dev.mkdir()
+    (dev / "nvidia5").write_text("")
+    monkeypatch.setenv("KTPU_DEV_DIR", str(dev))
+    stand_in_smi(tmp_path, monkeypatch, [_smi_card("GPU-a", 2), _smi_card("GPU-b", 5)],
+                 topo_m(2, [(0, 1)], link="NV4"))
+    (d,) = gp.discover_gpu_devices()
+    assert d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] == f"{host}-nvl2"
+    assert d["attributes"][gp.ATTR_DEVICE_INDEX] == "1"
 
 
 def test_real_discovery_without_a_card_advertises_none(monkeypatch, tmp_path):

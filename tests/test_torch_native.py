@@ -4,8 +4,10 @@
 speak the 4-RPC protocol to the port's ``PluginClient`` and give, in fake
 mode, the inventory, admission and injection of the Python
 ``GPUDevicePlugin`` (plus the ``gpu.ktpu.io/plugin: native`` annotation);
-SIGTERM or SIGINT must take its socket with it.  Both binaries must refuse
-real mode on a host without NVML, and ``ktpu-gpu-metrics-exporter`` must
+SIGTERM or SIGINT must take its socket with it.  In real mode over a
+stand-in ``libnvidia-ml.so.1`` (built here with g++), its inventory,
+NVLink domains included, must equal the Python plugin's over a stand-in
+``nvidia-smi``.  Both binaries must refuse real mode on a host without NVML, and ``ktpu-gpu-metrics-exporter`` must
 serve the GPU forms of the TPU exporter's metrics, with no reading in fake
 mode.  The binaries are built once per test run, with make, into a
 temporary directory of their own.
@@ -26,6 +28,7 @@ import pytest
 from kubernetes1_tpu_torch import GPU_RESOURCE, native
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.deviceplugin.api import PluginClient, plugin_socket_path
+from tests.test_torch_deviceplugin import BOARDS, board_devices
 
 H100 = "NVIDIA H100 80GB HBM3"
 NATIVE_ANNOTATION = "gpu.ktpu.io/plugin"
@@ -117,6 +120,19 @@ INIT_PARAMS = {
         "device_ids": ["nv0-h0-gpu0"],
         "pod_annotations": {gp.ANN_COORDINATOR: "host0", gp.ANN_WORKER_HOSTNAMES: ""}},
     "unknown-id": {"device_ids": ["ghost", "nv0-h0-gpu1"]},
+    # the keys the Job controller stamps on an Indexed Job's pod
+    "job-controller-keys": {
+        "device_ids": ["nv0-h0-gpu0", "nv0-h0-gpu1"],
+        "pod_annotations": {"tpu.ktpu.io/worker-id": "1",
+                            "tpu.ktpu.io/coordinator-address": "bert-0.default:8476",
+                            "tpu.ktpu.io/worker-hostnames": "bert-0.default,bert-1.default"}},
+    # a gpu.ktpu.io key beside the Job controller's wins, key by key
+    "gpu-keys-over-job-keys": {
+        "device_ids": ["nv0-h0-gpu1"],
+        "pod_annotations": {"tpu.ktpu.io/worker-id": "1",
+                            "tpu.ktpu.io/coordinator-address": "bert-0.default:8476",
+                            "tpu.ktpu.io/worker-hostnames": "bert-0.default,bert-1.default",
+                            gp.ANN_WORKER_ID: "3", gp.ANN_WORKER_HOSTNAMES: "a,b,c,d"}},
 }
 
 
@@ -208,3 +224,137 @@ def test_exporter_fake_mode_exposition(native_bins):
             "model": "NVIDIA A100-SXM4-40GB"}, 1.0) for d in want_cards],
         ("ktpu_gpu_cards_healthy", {"host": host}, 3.0),
     ]
+
+
+# ------------------------------------------------ real mode over a stand-in NVML
+
+# A stand-in libnvidia-ml.so.1: the thirteen calls the binaries resolve,
+# over cards given by the environment (STANDIN_NVML_MINORS "4,1,2,7": the
+# cards' minors in index order; STANDIN_NVML_LINKS "0-1,2-3": NVLink pairs
+# of indices).  Built without nvmlDeviceGetP2PStatus under -DNO_P2P.
+STANDIN_NVML = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <stdint.h>
+struct Mem { unsigned long long total, free, used; };
+struct Util { unsigned int gpu, memory; };
+static unsigned minors(unsigned* out) {
+  const char* s = getenv("STANDIN_NVML_MINORS");
+  unsigned n = 0;
+  while (s && *s) { out[n++] = strtoul(s, (char**)&s, 10); if (*s == ',') ++s; }
+  return n;
+}
+static unsigned idx(void* h) { return (unsigned)(uintptr_t)h - 1; }
+extern "C" {
+int nvmlInit_v2() { return 0; }
+int nvmlShutdown() { return 0; }
+int nvmlDeviceGetCount_v2(unsigned* n) { unsigned m[64]; *n = minors(m); return 0; }
+int nvmlDeviceGetHandleByIndex_v2(unsigned i, void** h) { *h = (void*)(uintptr_t)(i + 1); return 0; }
+int nvmlDeviceGetMinorNumber(void* h, unsigned* minor) {
+  unsigned m[64]; minors(m); *minor = m[idx(h)]; return 0;
+}
+int nvmlDeviceGetUUID(void* h, char* buf, unsigned len) {
+  unsigned m[64]; minors(m); snprintf(buf, len, "GPU-%04u", m[idx(h)]); return 0;
+}
+int nvmlDeviceGetName(void*, char* buf, unsigned len) {
+  snprintf(buf, len, "NVIDIA H100 80GB HBM3"); return 0;
+}
+int nvmlDeviceGetMemoryInfo(void*, Mem* mem) {
+  mem->total = 81559ull << 20; mem->free = mem->total; mem->used = 0; return 0;
+}
+int nvmlDeviceGetUtilizationRates(void*, Util* u) { u->gpu = u->memory = 0; return 0; }
+int nvmlDeviceGetPowerUsage(void*, unsigned* mw) { *mw = 70000; return 0; }
+int nvmlDeviceGetEnforcedPowerLimit(void*, unsigned* mw) { *mw = 700000; return 0; }
+int nvmlDeviceGetTemperature(void*, int, unsigned* c) { *c = 30; return 0; }
+#ifndef NO_P2P
+int nvmlDeviceGetP2PStatus(void* a, void* b, int caps, int* status) {
+  unsigned i = idx(a), j = idx(b), x, y;
+  const char* s = getenv("STANDIN_NVML_LINKS");
+  *status = 5;  // NVML_P2P_STATUS_NOT_SUPPORTED
+  while (caps == 2 && s && sscanf(s, "%u-%u", &x, &y) == 2) {
+    if ((x == i && y == j) || (x == j && y == i)) *status = 0;
+    s = strchr(s, ',');
+    if (s) ++s;
+  }
+  return 0;
+}
+#endif
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def standin_nvml(tmp_path_factory):
+    """{"p2p": dir, "no-p2p": dir}, each holding a stand-in libnvidia-ml.so.1."""
+    root = tmp_path_factory.mktemp("standin-nvml")
+    src = root / "nvml.cc"
+    src.write_text(STANDIN_NVML)
+    dirs = {}
+    for name, flags in (("p2p", []), ("no-p2p", ["-DNO_P2P"])):
+        (root / name).mkdir()
+        subprocess.run(["g++", "-shared", "-fPIC", "-O1", *flags, "-o",
+                        str(root / name / "libnvidia-ml.so.1"), str(src)], check=True,
+                       timeout=120)
+        dirs[name] = str(root / name)
+    return dirs
+
+
+@pytest.mark.parametrize("board", sorted(BOARDS))
+def test_real_mode_inventory_over_nvml_equals_the_python_plugins(
+        native_bins, standin_nvml, tmp_path, monkeypatch, board):
+    """The native plugin's real mode over a stand-in NVML (the cards'
+    NVLink pairs from nvmlDeviceGetP2PStatus) and the Python plugin's over
+    a stand-in nvidia-smi (``topo -m``) give the same inventory, NVLink
+    domains included, for an NVSwitch board, bridged pairs, a chain
+    beside a card alone, and one card."""
+    minors, links, names = BOARDS[board]
+    want = board_devices(tmp_path, monkeypatch, board)
+    env = {**_fake_env(None), "KTPU_DEV_DIR": os.environ["KTPU_DEV_DIR"],
+           "LD_LIBRARY_PATH": standin_nvml["p2p"],
+           "STANDIN_NVML_MINORS": ",".join(map(str, minors)),
+           "STANDIN_NVML_LINKS": ",".join(f"{i}-{j}" for i, j in links)}
+    with native_real_plugin(native_bins[native.PLUGIN], tmp_path / "plugins", env) as client:
+        devices = first_inventory(client)
+    host = os.uname().nodename
+    assert [d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] for d in devices] == [
+        f"{host}-{n}" for n in names]
+    assert devices == want
+
+
+def test_real_mode_without_the_p2p_call_gives_each_card_its_own_domain(
+        native_bins, standin_nvml, tmp_path, monkeypatch):
+    minors, links, _ = BOARDS["nvswitch-8"]
+    board_devices(tmp_path, monkeypatch, "nvswitch-8")
+    env = {**_fake_env(None), "KTPU_DEV_DIR": os.environ["KTPU_DEV_DIR"],
+           "LD_LIBRARY_PATH": standin_nvml["no-p2p"],
+           "STANDIN_NVML_MINORS": ",".join(map(str, minors)),
+           "STANDIN_NVML_LINKS": ",".join(f"{i}-{j}" for i, j in links)}
+    with native_real_plugin(native_bins[native.PLUGIN], tmp_path / "plugins", env) as client:
+        devices = first_inventory(client)
+    host = os.uname().nodename
+    assert [d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] for d in devices] == [
+        f"{host}-nvl{m}" for m in minors]
+
+
+@contextmanager
+def native_real_plugin(binary, plugin_dir, env):
+    """The native plugin in real mode under ``env``, with a client on its socket."""
+    proc = subprocess.Popen([binary, "--plugin-dir", str(plugin_dir)], env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    sock = plugin_socket_path(str(plugin_dir), GPU_RESOURCE)
+    client = PluginClient(sock)
+    try:
+        deadline = time.monotonic() + 10
+        while not os.path.exists(sock):
+            assert proc.poll() is None, f"the plugin exited {proc.returncode}: " \
+                                        f"{proc.stderr.read()}"
+            assert time.monotonic() < deadline, "the plugin's socket never appeared"
+            time.sleep(0.02)
+        yield client
+    finally:
+        client.close()
+        if proc.poll() is None:
+            proc.terminate()
+        proc.wait(timeout=10)
+        proc.stderr.close()
