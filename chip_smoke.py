@@ -99,11 +99,11 @@
    prints the profiled step's device time and, over 3 more steps, the
    device time a step by part (K10b, attention, cuBLAS, K2, the rest).
 17. (data parallelism, K8 across ranks) holds K8's split entries (bn_sums,
-   bn_fold, bn_bwd_sums, bn_bwd_dx) against their plain versions at the
-   odd shapes and the four layers of 7., each at one rank bit for bit the
-   one-launch kernels, and two halves of the rows with their sums added
-   against the one-launch kernels on all of them; times them at the stem
-   (this runs after 7.);
+   bn_fold_apply, bn_bwd_sums, bn_bwd_dx) against their plain versions at
+   the odd shapes and the four layers of 7., each at one rank bit for bit
+   the one-launch kernels, and two halves of the rows with their sums added
+   against the one-launch kernels on all of them; times them at the stem,
+   and bn_apply beside bn_fold_apply (this runs after 7.);
 18. over a 1-rank NCCL group (FileStore in a temp dir), trains Llama-3-8B
    widths x 4 layers (4 x 2048), BERT-large (32 x 512) and ResNet-50
    (128 x 224^2) for 3 steps each through mesh=, bit for bit the same steps
@@ -358,11 +358,12 @@ BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd")
 # values in another order, each channel within BN_SUMS_RTOL of the sum of
 # the terms' magnitudes (a run of ~1,600 sequential f32 adds a thread, then
 # fixed trees: ~√1600 · 2^-24 ≈ 2.4e-6 as a random walk); the fold as the
-# statistics (BN_STATS_TOL), dscale, dbias, dx and dr as the backward
-# (BWD_REL_L2_TOL).  At one rank each entry must give the one-launch
-# kernels' bits (the same partials, order and per-channel code).
+# statistics (BN_STATS_TOL), the split apply's y as the apply
+# (BN_APPLY_RTOL, on its own w and b), dscale, dbias, dx and dr as the
+# backward (BWD_REL_L2_TOL).  At one rank each entry must give the
+# one-launch kernels' bits (the same partials, order and per-channel code).
 BN_SUMS_RTOL = 1e-5
-BN_SPLIT_KERNELS = ("bn_sums", "bn_fold", "bn_bwd_sums", "bn_bwd_dx")
+BN_SPLIT_KERNELS = ("bn_sums", "bn_fold_apply", "bn_bwd_sums", "bn_bwd_dx")
 # Data parallelism on the card.  World 1 over NCCL: DP_STEPS steps of each
 # train path at its main path's size through mesh=, bit for bit the steps
 # without a mesh from the same weights and batch (and ResNet-50's again
@@ -546,7 +547,7 @@ KERNELS = {
     "cross_entropy_bwd": cross_entropy.KERNEL_BWD,
     "bn_stats": batchnorm.KERNEL_STATS, "bn_apply": batchnorm.KERNEL_APPLY,
     "bn_bwd": batchnorm.KERNEL_BWD,
-    "bn_sums": batchnorm.KERNEL_SUMS, "bn_fold": batchnorm.KERNEL_FOLD,
+    "bn_sums": batchnorm.KERNEL_SUMS, "bn_fold_apply": batchnorm.KERNEL_FOLD_APPLY,
     "bn_bwd_sums": batchnorm.KERNEL_BWD_SUMS, "bn_bwd_dx": batchnorm.KERNEL_BWD_DX,
     "attention_noncausal": attention.KERNEL_NC, "attention_noncausal_bwd": attention.KERNEL_BWD_NC,
     "layernorm": layernorm.KERNEL, "layernorm_bwd": layernorm.KERNEL_BWD,
@@ -594,9 +595,10 @@ def resnet_launches_per_step(n_bn: int) -> dict:
 
 
 def dp_resnet_launches_per_step(n_bn: int) -> dict:
-    """One ResNet-50 step over a mesh: batch norm's split kernels and the
-    apply once per layer, the rest as without a mesh."""
-    return {**{name: n_bn for name in BN_SPLIT_KERNELS + ("bn_apply",)},
+    """One ResNet-50 step over a mesh: batch norm's split kernels once per
+    layer (the split apply folds the statistics itself), the rest as
+    without a mesh."""
+    return {**{name: n_bn for name in BN_SPLIT_KERNELS},
             "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1, "sgdm": 1}
 
 
@@ -1297,6 +1299,22 @@ def bn_inputs(M, C, gen, dev, residual):
     return x, scale, bias, (bf16((M, C), gen, dev) if residual else None)
 
 
+def check_apply(name, y, x, w, b, r, relu) -> float:
+    """An apply kernel's y from w and b against bn_apply_plain on the same
+    w and b: within BN_APPLY_RTOL of |x*w| + |b| + |r|, element by
+    element; returns the max abs error."""
+    y_plain, _ = batchnorm.bn_apply_plain(x, w, b, r, relu)
+    torch.cuda.synchronize()
+    mag = (x.float() * w.float()).abs() + b.float().abs()
+    if r is not None:
+        mag += r.float().abs()
+    err = (y.float() - y_plain.float()).abs()
+    if not torch.isfinite(y.float()).all() or not bool((err <= BN_APPLY_RTOL * mag).all()):
+        fail(f"{name}: max abs err {err.max().item():.3e} beyond "
+             f"{BN_APPLY_RTOL} * (|x*w| + |b| + |r|)")
+    return err.max().item()
+
+
 def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
     """The statistics, apply and backward kernels against their plain
     versions, the apply's ReLU mask against the bits of its own y > 0, and
@@ -1305,16 +1323,8 @@ def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
     got = batchnorm.bn_stats_kernel(x, scale, bias)
     w, b, stats = batchnorm.bn_stats_plain(x, scale, bias)
     err_s = check_close(f"{name} bn_stats", got, (w, b, stats), BN_STATS_TOL)
-    y, _mask = batchnorm.bn_apply_kernel(x, w, b, r, relu)  # the same w and b into both
-    y_plain, _ = batchnorm.bn_apply_plain(x, w, b, r, relu)
-    torch.cuda.synchronize()
-    mag = (x.float() * w.float()).abs() + b.float().abs()
-    if r is not None:
-        mag += r.float().abs()
-    err = (y.float() - y_plain.float()).abs()
-    if not torch.isfinite(y.float()).all() or not bool((err <= BN_APPLY_RTOL * mag).all()):
-        fail(f"{name} bn_apply: max abs err {err.max().item():.3e} beyond "
-             f"{BN_APPLY_RTOL} * (|x*w| + |b| + |r|)")
+    y, _mask = batchnorm.bn_apply_kernel(x, w, b, r, relu)
+    err_a = check_apply(f"{name} bn_apply", y, x, w, b, r, relu)
     kw, kb, kstats = got
     ky, kmask = batchnorm.bn_apply_kernel(x, kw, kb, r, relu)
     if relu and not torch.equal(kmask, batchnorm.relu_mask_plain(ky)):
@@ -1342,7 +1352,7 @@ def check_bn(name, x, scale, bias, r, relu, dy) -> tuple:
                  f"beyond {BWD_REL_L2_TOL}")
         check_rel_l2(f"{name} bn_bwd vs autograd", [gk[i] for i in order[1:]], auto[1:],
                      BWD_REL_L2_TOL)
-    return err_s, err.max().item(), err_b
+    return err_s, err_a, err_b
 
 
 # ResNet-50's batch-norm layers that K8 is timed at, batch 128 x 224^2:
@@ -2855,7 +2865,9 @@ def check_bn_split(name, x, scale, bias, r, relu, dy) -> list:
     """K8's split entries against their plain versions on the same inputs,
     and at one rank against the one-launch kernels bit for bit; then two
     halves of the rows with their sums added (the all-reduce of two ranks)
-    against the one-launch kernels on all of them.  Returns the four
+    against the one-launch kernels on all of them.  The split apply is held
+    to bn_fold_plain (its w, b and stats) and to bn_apply_plain on its own
+    w and b (its y), its mask to the bits of its y > 0.  Returns the four
     entries' max abs errors."""
     M = x.shape[0]
     sums = batchnorm.bn_sums_kernel(x)
@@ -2866,15 +2878,20 @@ def check_bn_split(name, x, scale, bias, r, relu, dy) -> list:
     if not bool((err <= BN_SUMS_RTOL * mag).all()):
         fail(f"{name} bn_sums: beyond {BN_SUMS_RTOL} of the terms' magnitudes")
     errs = [err.max().item()]
-    fold = batchnorm.bn_fold_kernel(sums, M, scale, bias)
-    errs.append(check_close(f"{name} bn_fold", fold, batchnorm.bn_fold_plain(sums, M, scale,
-                                                                             bias),
-                            BN_STATS_TOL))
-    one = batchnorm.bn_stats_kernel(x, scale, bias)
-    if not all(torch.equal(a, b) for a, b in zip(fold, one)):
-        fail(f"{name}: bn_fold(bn_sums(x)) is not bn_stats(x) bit for bit")
-    w, b, stats = one
-    _y, mask = batchnorm.bn_apply_kernel(x, w, b, r, relu)
+    split = batchnorm.bn_fold_apply_kernel(x, sums, M, scale, bias, r, relu)
+    fy, fmask, fw, fb, _fstats = split
+    err_fold = check_close(f"{name} bn_fold_apply's fold", split[2:],
+                           batchnorm.bn_fold_plain(sums, M, scale, bias), BN_STATS_TOL)
+    errs.append(max(err_fold, check_apply(f"{name} bn_fold_apply", fy, x, fw, fb, r, relu)))
+    if relu and not torch.equal(fmask, batchnorm.relu_mask_plain(fy)):
+        fail(f"{name} bn_fold_apply: the ReLU mask is not the bits of its own y > 0")
+    if not relu and fmask is not None:
+        fail(f"{name} bn_fold_apply: a mask without a ReLU")
+    w, b, stats = batchnorm.bn_stats_kernel(x, scale, bias)
+    y, mask = batchnorm.bn_apply_kernel(x, w, b, r, relu)
+    one = (y, mask, w, b, stats) if relu else (y, w, b, stats)
+    if not all(torch.equal(a, b) for a, b in zip([t for t in split if t is not None], one)):
+        fail(f"{name}: bn_fold_apply(bn_sums(x)) is not bn_stats(x) and bn_apply bit for bit")
     res = r is not None
     bsums, dscale, dbias = batchnorm.bn_bwd_sums_kernel(x, mask, dy, stats)
     psums, pdscale, pdbias = batchnorm.bn_bwd_sums_plain(x, mask, dy, stats)
@@ -2893,9 +2910,16 @@ def check_bn_split(name, x, scale, bias, r, relu, dy) -> list:
         h = M // 2
         parts = [slice(0, h), slice(h, 2 * h)]
         gsum = sum(batchnorm.bn_sums_kernel(x[s]) for s in parts)
-        w2, b2, stats2 = batchnorm.bn_fold_kernel(gsum, 2 * h, scale, bias)
+        halves = [batchnorm.bn_fold_apply_kernel(x[s], gsum, 2 * h, scale, bias,
+                                                 None if r is None else r[s], relu)
+                  for s in parts]
+        if not all(torch.equal(a, b) for a, b in zip(halves[0][2:], halves[1][2:])):
+            fail(f"{name}: the two halves fold the same sums to different bits")
+        w2, b2, stats2 = halves[0][2:]
         ref = batchnorm.bn_stats_plain(x[:2 * h], scale, bias)
         check_close(f"{name} two halves' fold", (w2, b2, stats2), ref, BN_STATS_TOL)
+        check_apply(f"{name} two halves' apply", torch.cat([hv[0] for hv in halves]),
+                    x[:2 * h], w2, b2, None if r is None else r[:2 * h], relu)
         # each half's mask in its own (16-byte aligned) buffer, as a rank's is
         ms = [None if mask is None else mask[s].clone() for s in parts]
         bw = [batchnorm.bn_bwd_sums_kernel(x[s], m, dy[s], stats2) for s, m in zip(parts, ms)]
@@ -2928,8 +2952,7 @@ def bn_split_phase(dev, gen) -> list:
         if where != "stem":
             continue
         sums = batchnorm.bn_sums_kernel(x)
-        w, b, stats = batchnorm.bn_fold_kernel(sums, M, sc, bi)
-        _y, mask = batchnorm.bn_apply_kernel(x, w, b, r, True)
+        _y, mask, w, b, stats = batchnorm.bn_fold_apply_kernel(x, sums, M, sc, bi, r, True)
         bsums = batchnorm.bn_bwd_sums_kernel(x, mask, dy, stats)[0]
         shape = f"M={M} C={C} ({where}, ReLU; split across ranks)"
         out = [
@@ -2938,12 +2961,16 @@ def bn_split_phase(dev, gen) -> list:
                 time_ms(lambda: batchnorm.bn_sums_kernel(x)),
                 time_ms(lambda: batchnorm.bn_sums_plain(x), 5, 1),
                 bound_ms(2 * n + 8 * C, 3 * n, PEAK_F32), None, jax_file="resnet.py"),
-            # reads the sums, scale and bias, writes w, b and stats
-            row("bn_fold", "batchnorm.cu", "83-97,104", shape, errs[1],
-                time_ms(lambda: batchnorm.bn_fold_kernel(sums, M, sc, bi)),
-                time_ms(lambda: batchnorm.bn_fold_plain(sums, M, sc, bi), 5, 1),
-                bound_ms(8 * C + 8 * C + 4 * C + 16 * C, 12 * C, PEAK_F32), None,
-                jax_file="resnet.py"),
+            # reads x (and r), the sums, scale and bias, writes y, the
+            # mask's 1/8 byte an element, w, b and stats: bn_apply's bytes
+            # and 36 a channel
+            row("bn_fold_apply", "batchnorm.cu", "83-97,104-105,110-115", shape, errs[1],
+                time_ms(lambda: batchnorm.bn_fold_apply_kernel(x, sums, M, sc, bi, r, True)),
+                time_ms(lambda: batchnorm.bn_fold_apply_plain(x, sums, M, sc, bi, r, True), 5,
+                        1),
+                bound_ms(2 * n * (3 if res else 2) + n / 8 + 36 * C,
+                         (4 if res else 3) * n + 12 * C, PEAK_F32),
+                None, jax_file="resnet.py"),
             # reads x, dy, the mask and stats, writes the sums, dscale and dbias
             row("bn_bwd_sums", "batchnorm.cu", "83-97,104", shape, errs[2],
                 time_ms(lambda: batchnorm.bn_bwd_sums_kernel(x, mask, dy, stats)),
@@ -2960,6 +2987,17 @@ def bn_split_phase(dev, gen) -> list:
         ]
         for rw in out:
             print_row(rw)
+        # the apply that takes w and b, on the same inputs, timed in turn
+        # with the split apply
+        apply_ms = [time_ms(lambda: batchnorm.bn_apply_kernel(x, w, b, r, True)),
+                    time_ms(lambda: batchnorm.bn_fold_apply_kernel(x, sums, M, sc, bi, r, True)),
+                    time_ms(lambda: batchnorm.bn_apply_kernel(x, w, b, r, True)),
+                    time_ms(lambda: batchnorm.bn_fold_apply_kernel(x, sums, M, sc, bi, r, True))]
+        share = out[1]["bound_ms"] / out[1]["ms"]
+        print(f"bn split {where}: bn_fold_apply {out[1]['ms']:.4f} ms, bound "
+              f"{out[1]['bound_ms']:.4f} ms ({share:.1%} of it); bn_apply then bn_fold_apply, "
+              f"twice: {[round(v, 4) for v in apply_ms]} ms (bn_fold_apply / bn_apply "
+              f"{(apply_ms[1] + apply_ms[3]) / (apply_ms[0] + apply_ms[2]):.4f})", flush=True)
         del x, dy, mask, r
     print("bn split: at one rank each entry gives the one-launch kernels' bits; two halves "
           "with their sums added meet the one-launch kernels on all the rows", flush=True)
@@ -3032,7 +3070,7 @@ def dp_run(tag, name, mod, cfg, kw, batch, ref, total, mesh=None, ops=None, spli
 
 DP_PARTS = (("bn", ("bn_",)), ("nccl", ("nccl", "Nccl")))
 # the host calls a ResNet-50 step's batch norm makes, one-launch or split
-DP_HOST_CALLS = ("bn_stats_kernel", "bn_bwd_kernel", "bn_sums_kernel", "bn_fold_kernel",
+DP_HOST_CALLS = ("bn_stats_kernel", "bn_bwd_kernel", "bn_sums_kernel", "bn_fold_apply_kernel",
                  "bn_bwd_sums_kernel", "bn_bwd_dx_kernel", "bn_apply_kernel", "all_reduce")
 
 
@@ -3831,6 +3869,15 @@ class Cluster:
                 torch.cuda.get_device_name(0) or not attrs.get("nvidia.com/gpu/uuid"):
             fail(f"cluster: the node advertises {devs}, want one "
                  f"{torch.cuda.get_device_name(0)} with its UUID\n{self.log('plugin')}")
+        # the keys the JAX scheduler's slice-aware pick reads: the card's
+        # NVLink domain and its minor
+        minor = (attrs.get("ktpu.io/device-path") or "").rsplit("nvidia", 1)[-1]
+        if attrs.get("google.com/tpu/slice") != attrs.get("nvidia.com/gpu/nvlink-domain") or \
+                attrs.get("google.com/tpu/coords") != minor:
+            fail(f"cluster: the card's google.com/tpu/slice and google.com/tpu/coords are "
+                 f"{attrs.get('google.com/tpu/slice')!r} and "
+                 f"{attrs.get('google.com/tpu/coords')!r}, want its NVLink domain "
+                 f"{attrs.get('nvidia.com/gpu/nvlink-domain')!r} and its minor {minor!r}")
         return devs
 
     def job_started(self, sel: str, t0: float) -> tuple:

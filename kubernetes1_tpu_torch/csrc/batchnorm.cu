@@ -66,7 +66,12 @@
 // split at their per-channel step:
 //   forward:  bn_sums (this rank's (2, C) Σx, Σx², the same partials and
 //             fixed-order column total as the statistics) -> all-reduce on
-//             the host -> bn_fold (the same per-channel fold, M·n rows);
+//             the host -> bn_fold_apply (the apply, each block first folding
+//             its own channels' global sums over M·n rows with the
+//             statistics kernel's per-channel code; the blocks of the grid's
+//             first row also write w, b and stats for the backward): two
+//             launches, where a fold of its own would be a third whose
+//             36 bytes a channel take a launch's fixed cost;
 //   backward: bn_bwd_sums (this rank's Σdy', Σdy'·x, and dscale, dbias from
 //             them: the train step averages those with every gradient) ->
 //             all-reduce -> bn_bwd_dx (the coefficients from the global
@@ -242,28 +247,39 @@ __device__ __forceinline__ bool column_totals(const float* __restrict__ partial,
   return blockIdx.x * width + tid < C;
 }
 
-// Channel c's fold of its sums s = Σx, s2 = Σx² over m rows: w, b (bf16)
-// and stats = (mean, rstd, inv, gate).  The statistics kernel and the
-// split fold both call it, so that they give the same bits.
-__device__ __forceinline__ void fold_channel(float s, float s2, float m, int c, int C,
-                                             const float* __restrict__ scale,
-                                             const float* __restrict__ bias, float eps,
-                                             __nv_bfloat16* __restrict__ w,
-                                             __nv_bfloat16* __restrict__ b,
-                                             float* __restrict__ stats) {
+// One channel's fold: w, b (bf16) and its stats (mean, rstd, inv, gate).
+struct Fold {
+  __nv_bfloat16 w, b;
+  float mean, rstd, inv, gate;
+};
+
+// The fold of a channel's sums s = Σx, s2 = Σx² over m rows.  The
+// statistics kernel and the split apply both call it, so that they give
+// the same bits.
+__device__ __forceinline__ Fold fold_values(float s, float s2, float m, float scale, float bias,
+                                            float eps) {
   const float mean = s / m, mean2 = s2 / m;
   // no fused multiply-add here: fma(-mean, mean, mean2) would keep the
   // square's rounding error, so a single row (mean2 = fl(x²)) would not
   // give the exact 0 (a tie, gate ½) that JAX's order of roundings gives
   const float d = __fsub_rn(mean2, __fmul_rn(mean, mean));
   const float rstd = rsqrtf(fmaxf(d, 0.f) + eps);
-  const float inv = rstd * scale[c];
-  w[c] = ktpu::f2bf(inv);
-  b[c] = ktpu::f2bf(__fmaf_rn(-mean, inv, bias[c]));
-  stats[c] = mean;
-  stats[C + c] = rstd;
-  stats[2 * C + c] = inv;
-  stats[3 * C + c] = d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f);
+  const float inv = rstd * scale;
+  return Fold{ktpu::f2bf(inv), ktpu::f2bf(__fmaf_rn(-mean, inv, bias)), mean, rstd, inv,
+              d > 0.f ? 1.f : (d == 0.f ? 0.5f : 0.f)};
+}
+
+// Channel c's fold written out: w[c], b[c] and column c of stats (4, C).
+__device__ __forceinline__ void store_fold(const Fold& f, int c, int C,
+                                           __nv_bfloat16* __restrict__ w,
+                                           __nv_bfloat16* __restrict__ b,
+                                           float* __restrict__ stats) {
+  w[c] = f.w;
+  b[c] = f.b;
+  stats[c] = f.mean;
+  stats[C + c] = f.rstd;
+  stats[2 * C + c] = f.inv;
+  stats[3 * C + c] = f.gate;
 }
 
 // Channel c's d_inv = d_w − d_b·mean from its sums d_b = Σdy', d_w =
@@ -313,7 +329,8 @@ bn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ s
   if (column_totals(partial, smem, C, s, s2)) {
     const int c = blockIdx.x * blockDim.x * 8 + threadIdx.y * blockDim.x + threadIdx.x;
     if (kFold) {
-      fold_channel(s, s2, static_cast<float>(M), c, C, scale, bias, eps, w, b, stats);
+      store_fold(fold_values(s, s2, static_cast<float>(M), scale[c], bias[c], eps), c, C, w, b,
+                 stats);
     } else {
       sums[c] = s;
       sums[C + c] = s2;
@@ -321,18 +338,6 @@ bn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ s
   }
   // the next call's ticket; no block waits on this column's generation
   if (ktpu::lead_thread()) sync[2 * blockIdx.x] = 0;
-}
-
-// The split fold, one thread a channel: w, b and stats from the all-reduced
-// sums (2, C) over M rows (every rank's).
-__global__ void bn_fold_kernel(const float* __restrict__ sums, const float* __restrict__ scale,
-                               const float* __restrict__ bias, __nv_bfloat16* __restrict__ w,
-                               __nv_bfloat16* __restrict__ b, float* __restrict__ stats,
-                               long long M, int C, float eps) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < C)
-    fold_channel(sums[c], sums[C + c], static_cast<float>(M), c, C, scale, bias, eps, w, b,
-                 stats);
 }
 
 // dx = dy'·w + c0 + c1·x, and dr = dy' where dr is not null, over one row.
@@ -480,12 +485,37 @@ bn_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict_
 // loads kApplyRows rows (of x and r) before computing them and is done: a
 // grid of many short blocks, which streams faster here than resident
 // blocks walking the rows.
+// kFold (the split forward's apply): w and b are not read but folded from
+// the (2, C) sums over M_all rows (every rank's), each block its own
+// columns' channels in its prologue (fold_values, one thread a channel,
+// into shared memory) while its rows' loads are in flight; the blocks of
+// grid row 0 also write them (w_out, b_out) and stats (4, C) for the
+// backward.  The fold's four loads go out ahead of the rows': on an H100
+// that cost more at ResNet-50's stem (1.040 of bn_apply's time, against
+// 1.029 with them after the rows') but less over the 53 layers of a
+// split step (its batch norm +0.047 ms over the one-launch kernels',
+// against +0.076), whose small layers wait on the prologue's latency.
+template <bool kFold>
 __global__ void __launch_bounds__(kThreads)
 bn_apply_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                 const __nv_bfloat16* __restrict__ b, const __nv_bfloat16* __restrict__ r,
-                __nv_bfloat16* __restrict__ y, uint8_t* __restrict__ mask, long long M, int C) {
+                __nv_bfloat16* __restrict__ y, uint8_t* __restrict__ mask,
+                const float* __restrict__ sums, const float* __restrict__ scale,
+                const float* __restrict__ bias, __nv_bfloat16* __restrict__ w_out,
+                __nv_bfloat16* __restrict__ b_out, float* __restrict__ stats, long long M,
+                long long M_all, int C, float eps) {
   const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (col >= C) return;
+  if (!kFold && col >= C) return;
+  const int width = blockDim.x * 8, tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int c = blockIdx.x * width + tid;
+  const bool folds = kFold && tid < width && c < C;
+  float s = 0.f, s2 = 0.f, sc = 0.f, bi = 0.f;
+  if (folds) {
+    s = sums[c];
+    s2 = sums[C + c];
+    sc = scale[c];
+    bi = bias[c];
+  }
   const int G = C / 8;
   const long long row0 =
       static_cast<long long>(blockIdx.y) * blockDim.y * kApplyRows + threadIdx.y;
@@ -494,14 +524,35 @@ bn_apply_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
 #pragma unroll
   for (int u = 0; u < kApplyRows; ++u) {
     const long long row = row0 + u * blockDim.y;
-    if (row < M) {
+    if (col < C && row < M) {
       xs[u] = ld16(x + row * C + col);
       rs[u] = r != nullptr ? ld16(r + row * C + col) : zero;
     }
   }
   float wv[8], bv[8];
-  unpack8(ld16(w + col), wv);
-  unpack8(ld16(b + col), bv);
+  if (kFold) {
+    __shared__ __align__(16) float fw[kMaxTx * 8];
+    __shared__ __align__(16) float fb[kMaxTx * 8];
+    if (folds) {
+      const Fold f = fold_values(s, s2, static_cast<float>(M_all), sc, bi, eps);
+      fw[tid] = __bfloat162float(f.w);
+      fb[tid] = __bfloat162float(f.b);
+      if (blockIdx.y == 0) store_fold(f, c, C, w_out, b_out, stats);
+    }
+    __syncthreads();
+    if (col >= C) return;
+    const float4* pw = reinterpret_cast<const float4*>(fw + threadIdx.x * 8);
+    const float4* pb = reinterpret_cast<const float4*>(fb + threadIdx.x * 8);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 w4 = pw[h], b4 = pb[h];
+      wv[4 * h] = w4.x, wv[4 * h + 1] = w4.y, wv[4 * h + 2] = w4.z, wv[4 * h + 3] = w4.w;
+      bv[4 * h] = b4.x, bv[4 * h + 1] = b4.y, bv[4 * h + 2] = b4.z, bv[4 * h + 3] = b4.w;
+    }
+  } else {
+    unpack8(ld16(w + col), wv);
+    unpack8(ld16(b + col), bv);
+  }
 #pragma unroll
   for (int u = 0; u < kApplyRows; ++u) {
     const long long row = row0 + u * blockDim.y;
@@ -541,6 +592,13 @@ int resident_blocks(Kernel kernel) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   return per_sm * sms;
+}
+
+// The apply's grid: the reductions' columns by one block per kApplyRows * ty
+// rows.
+dim3 apply_grid(long long M, int C, const dim3& block) {
+  const long long rows = static_cast<long long>(block.y) * kApplyRows;
+  return dim3(columns(C, block), static_cast<unsigned>((M + rows - 1) / rows));
 }
 
 bool bad_shape(long long M, int C) { return M <= 0 || C <= 0 || C % 8 != 0; }
@@ -588,32 +646,40 @@ extern "C" int ktpu_bn_sums_bf16(const void* x, void* sums, void* partial, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The split forward's fold.  sums: (2, C) f32, summed over every rank;
-// M: the rows of every rank; scale, bias: (C,) f32; w, b: (C,) bf16 out;
-// stats: (4, C) f32 out, as ktpu_bn_stats_bf16 writes them.
-extern "C" int ktpu_bn_fold_f32(const void* sums, const void* scale, const void* bias, void* w,
-                                void* b, void* stats, long long M, int C, float eps,
-                                void* stream) {
-  if (bad_shape(M, C)) return static_cast<int>(cudaErrorInvalidValue);
-  bn_fold_kernel<<<(C + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sums), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(b), static_cast<float*>(stats), M, C, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // x, y: (M, C) bf16; w, b: (C,) bf16; r: (M, C) bf16 or null; mask: (M,
 // C/8) uint8 out, or null for no ReLU; C % 8 == 0.
 extern "C" int ktpu_bn_apply_bf16(const void* x, const void* w, const void* b, const void* r,
                                   void* y, void* mask, long long M, int C, void* stream) {
   if (bad_shape(M, C)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block = block_for(C);
-  const long long rows = static_cast<long long>(block.y) * kApplyRows;
-  const dim3 grid(columns(C, block), static_cast<unsigned>((M + rows - 1) / rows));
-  bn_apply_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  bn_apply_kernel<false><<<apply_grid(M, C, block), block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(b), static_cast<const __nv_bfloat16*>(r),
-      static_cast<__nv_bfloat16*>(y), static_cast<uint8_t*>(mask), M, C);
+      static_cast<__nv_bfloat16*>(y), static_cast<uint8_t*>(mask), nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, M, M, C, 0.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split forward's apply, after bn_sums and the all-reduce.  x, y: (M, C)
+// bf16 (this rank's rows); sums: (2, C) f32, Σx and Σx² summed over every
+// rank; M_all: the rows of every rank; scale, bias: (C,) f32; r, mask as
+// for ktpu_bn_apply_bf16; w, b: (C,) bf16 out and stats: (4, C) f32 out,
+// as ktpu_bn_stats_bf16 writes them.  One launch.
+extern "C" int ktpu_bn_fold_apply_bf16(const void* x, const void* sums, const void* scale,
+                                       const void* bias, const void* r, void* y, void* mask,
+                                       void* w, void* b, void* stats, long long M,
+                                       long long M_all, int C, float eps, void* stream) {
+  if (bad_shape(M, C) || M_all < M) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block = block_for(C);
+  bn_apply_kernel<true><<<apply_grid(M, C, block), block, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), nullptr, nullptr,
+      static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(y),
+      static_cast<uint8_t*>(mask), static_cast<const float*>(sums),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(b), static_cast<float*>(stats),
+      M, M_all, C, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -649,7 +715,7 @@ extern "C" int ktpu_bn_bwd_bf16(const void* x, const void* mask, const void* dy,
 }
 
 // The split backward's first launch.  x, dy: (M, C) bf16; mask as for
-// ktpu_bn_bwd_bf16; stats: (4, C) f32 from the fold; sums: (2, C) f32 out
+// ktpu_bn_bwd_bf16; stats: (4, C) f32 from the split apply; sums: (2, C) f32 out
 // (Σdy', Σdy'·x over these M rows); dscale, dbias: (C,) f32 out, from
 // these sums; partial, sync and P as for ktpu_bn_bwd_bf16, whose partials
 // and order it keeps.  Not cooperative.

@@ -41,7 +41,15 @@ Discovery modes:
   its own.  The plugin never initialises CUDA: a context in its process
   would hold memory on the card that the pod needs.
 - fake: KTPU_FAKE_GPUS="<model>:<count>:<domain>:<host index>[:<memory MiB>]"
-  makes an inventory without a card, for tests and hollow nodes.
+  makes an inventory without a card, for tests and hollow nodes.  The
+  domain field is one name for every card, or one a card, comma-separated
+  (``nvl-a,nvl-a,nvl-b,nvl-b``); cards past the list take its last name.
+
+Every card also carries its NVLink domain and its position in the keys
+the JAX scheduler's slice-aware allocation reads (google.com/tpu/slice and
+google.com/tpu/coords, the JAX package's strings, copied): a pod's cards
+are then picked best-fit within one domain, in order of the card's minor
+(its index in fake mode), and a gang goes to one domain when one holds it.
 
 Run it as ``python -m kubernetes1_tpu_torch.deviceplugin --plugin-dir D``.
 """
@@ -73,6 +81,12 @@ ATTR_GPU_MODEL = "nvidia.com/gpu/model"            # e.g. "NVIDIA H100 80GB HBM3
 ATTR_GPU_MEMORY = "nvidia.com/gpu/memory"          # MiB
 ATTR_GPU_UUID = "nvidia.com/gpu/uuid"
 ATTR_GPU_NVLINK_DOMAIN = "nvidia.com/gpu/nvlink-domain"
+# The keys the JAX scheduler's slice-aware allocation reads (its devices.py
+# pick_devices, priorities.py slice_packing, scheduler.py _place_gang): the
+# interconnect domain, and the position within it as integers joined by
+# commas.  The JAX package's strings (api/types.py), copied.
+ATTR_SLICE = "google.com/tpu/slice"
+ATTR_COORDS = "google.com/tpu/coords"
 ATTR_DEVICE_INDEX = "ktpu.io/device-index"
 ATTR_DEVICE_PATH = "ktpu.io/device-path"
 
@@ -105,12 +119,16 @@ def discover_gpu_devices() -> List[dict]:
 
 
 def _device(dev_id: str, index: int, model: str, memory: str, uuid: str, domain: str,
-            path: str = "") -> dict:
+            path: str = "", coord: Optional[int] = None) -> dict:
+    """One card's dict; ``coord``, its position in its domain (the minor
+    in real mode), defaults to its index."""
     attrs = {
         ATTR_GPU_MODEL: model,
         ATTR_GPU_MEMORY: memory,
         ATTR_GPU_UUID: uuid,
         ATTR_GPU_NVLINK_DOMAIN: domain,
+        ATTR_SLICE: domain,
+        ATTR_COORDS: str(index if coord is None else coord),
         ATTR_DEVICE_INDEX: str(index),
     }
     if path:
@@ -125,9 +143,14 @@ def _fake_devices(spec: str) -> List[dict]:
         return parts[i] if len(parts) > i and parts[i] else default
 
     model, count = part(0, FAKE_MODEL), int(part(1, "1"))
-    domain, host, memory = part(2, "nvlink-0"), part(3, "0"), part(4, FAKE_MEMORY_MIB)
-    return [_device(f"{domain}-h{host}-gpu{i}", i, model, memory,
-                    f"GPU-fake-{domain}-h{host}-{i}", domain) for i in range(count)]
+    domains = part(2, "nvlink-0").split(",")
+    host, memory = part(3, "0"), part(4, FAKE_MEMORY_MIB)
+    devices = []
+    for i in range(count):
+        domain = domains[min(i, len(domains) - 1)]
+        devices.append(_device(f"{domain}-h{host}-gpu{i}", i, model, memory,
+                               f"GPU-fake-{domain}-h{host}-{i}", domain))
+    return devices
 
 
 def smi_cards() -> List[dict]:
@@ -211,7 +234,8 @@ def _real_devices() -> List[dict]:
         path = os.path.join(dev_dir, f"nvidia{card['minor']}")
         if os.path.exists(path):
             devices.append(_device(f"{hostname}-nvidia{card['minor']}", index, card["name"],
-                                   card["memory"], card["uuid"], domain, path))
+                                   card["memory"], card["uuid"], domain, path,
+                                   int(card["minor"])))
     return devices
 
 

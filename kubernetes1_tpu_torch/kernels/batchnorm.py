@@ -17,8 +17,10 @@ reads in place of y.
 Across ranks (``group``: each rank holds M rows of a global batch, every
 rank the same M), the statistics are the global batch's, as JAX's are
 under its batch split: the split form sums this rank's rows
-(``bn_sums``), all-reduces the (2, C) sums and folds them over M·n rows
-(``bn_fold``); the backward sums dy' and dy'·x (``bn_bwd_sums``, which
+(``bn_sums``), all-reduces the (2, C) sums, and applies them
+(``bn_fold_apply``: one launch that folds them over M·n rows in each
+block's prologue and gives y, the mask, w, b and stats); the backward
+sums dy' and dy'·x (``bn_bwd_sums``, which
 also gives this rank's dscale and dbias: the train step averages those
 with every other gradient), all-reduces them and computes dx from the
 global sums (``bn_bwd_dx``).  With one rank it gives the one-launch
@@ -69,10 +71,13 @@ KERNEL_SUMS = build.Kernel("batchnorm", "ktpu_bn_sums_bf16", [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,      # M, C, P
     ctypes.c_void_p,                                    # stream
 ])
-KERNEL_FOLD = build.Kernel("batchnorm", "ktpu_bn_fold_f32", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # sums, scale, bias
+KERNEL_FOLD_APPLY = build.Kernel("batchnorm", "ktpu_bn_fold_apply_bf16", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, sums, scale
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # bias, r (or null), y
+    ctypes.c_void_p,                                    # mask (or null: no ReLU)
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # w, b, stats
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_float,    # M (every rank's), C, eps
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,  # M, M (every rank's), C
+    ctypes.c_float,                                     # eps
     ctypes.c_void_p,                                    # stream
 ])
 KERNEL_BWD_SUMS = build.Kernel("batchnorm", "ktpu_bn_bwd_sums_bf16", [
@@ -188,6 +193,16 @@ def bn_fold_plain(sums: torch.Tensor, M: int, scale: torch.Tensor, bias: torch.T
     return inv.to(dtype), (bias - mean * inv).to(dtype), stats
 
 
+def bn_fold_apply_plain(x: torch.Tensor, sums: torch.Tensor, M: int, scale: torch.Tensor,
+                        bias: torch.Tensor, r: Optional[torch.Tensor] = None,
+                        relu: bool = False, eps: float = EPS):
+    """(y, mask, w, b, stats): ``bn_fold_plain`` of the sums over M rows
+    (every rank's), w and b in x's dtype, then ``bn_apply_plain`` on this
+    rank's rows.  Differentiable."""
+    w, b, stats = bn_fold_plain(sums, M, scale, bias, eps, x.dtype)
+    return (*bn_apply_plain(x, w, b, r, relu), w, b, stats)
+
+
 def _masked_dy(mask: Optional[torch.Tensor], dy: torch.Tensor) -> torch.Tensor:
     dyf = dy.float()
     return dyf if mask is None else torch.where(relu_unmask_plain(mask), dyf, 0.0)
@@ -242,13 +257,12 @@ def batchnorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """The plain forward (autograd differentiates it); with ``group``,
     the split form: sums, a differentiable all-reduce, the fold over M·n
-    rows."""
-    if group is None:
-        w, b, _stats = bn_stats_plain(x, scale, bias)
-    else:
+    rows and the apply."""
+    if group is not None:
         sums = _AllReduceSum.apply(bn_sums_plain(x), group)
-        w, b, _stats = bn_fold_plain(sums, x.shape[0] * dist.get_world_size(group), scale,
-                                     bias, dtype=x.dtype)
+        return bn_fold_apply_plain(x, sums, x.shape[0] * dist.get_world_size(group), scale,
+                                   bias, residual, relu)[0]
+    w, b, _stats = bn_stats_plain(x, scale, bias)
     return bn_apply_plain(x, w, b, residual, relu)[0]
 
 
@@ -386,22 +400,33 @@ def bn_sums_kernel(x: torch.Tensor) -> torch.Tensor:
     return sums
 
 
-def bn_fold_kernel(sums: torch.Tensor, M: int, scale: torch.Tensor, bias: torch.Tensor,
-                   eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch: (w, b, stats) bf16, bf16, f32 from the (2, C) sums
-    over M rows (every rank's), in the statistics kernel's arithmetic."""
-    KERNEL_FOLD.load()
-    build.check_cuda_tensors("bn_fold", sums, scale, bias, dtype=torch.float32)
-    C = scale.shape[0]
-    if sums.shape != (2, C) or bias.shape != (C,) or C % 8 or M <= 0:
-        raise ValueError(f"bn_fold: sums (2, C), scale and bias (C,), C % 8 == 0, M > 0; got "
-                         f"{tuple(sums.shape)}, {tuple(scale.shape)}, {tuple(bias.shape)}, {M}")
-    w = torch.empty(C, device=sums.device, dtype=torch.bfloat16)
-    b = torch.empty(C, device=sums.device, dtype=torch.bfloat16)
-    stats = torch.empty((4, C), device=sums.device, dtype=torch.float32)
-    KERNEL_FOLD.launch(sums.device, sums.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                       w.data_ptr(), b.data_ptr(), stats.data_ptr(), M, C, eps)
-    return w, b, stats
+def bn_fold_apply_kernel(x: torch.Tensor, sums: torch.Tensor, M: int, scale: torch.Tensor,
+                         bias: torch.Tensor, r: Optional[torch.Tensor] = None,
+                         relu: bool = False, eps: float = EPS):
+    """One launch of the split forward's apply: (y, mask, w, b, stats).
+    Each block folds its channels' (2, C) sums over M rows (every rank's)
+    in the statistics kernel's arithmetic, then applies them to its rows
+    of x as ``bn_apply_kernel`` does; w, b (bf16) and stats (f32) are the
+    fold's, for the backward."""
+    KERNEL_FOLD_APPLY.load()
+    build.check_cuda_tensors("bn_fold_apply", x, *([] if r is None else [r]))
+    build.check_cuda_tensors("bn_fold_apply", sums, scale, bias, dtype=torch.float32)
+    _check("bn_fold_apply", x, scale, bias)
+    rows, C = x.shape
+    if sums.shape != (2, C) or M < rows or (r is not None and r.shape != x.shape):
+        raise ValueError(f"bn_fold_apply: sums (2, {C}) over M >= {rows} rows and a residual "
+                         f"like x, got {tuple(sums.shape)} over {M}, "
+                         f"{None if r is None else tuple(r.shape)}")
+    y = torch.empty_like(x)
+    mask = torch.empty((rows, C // 8), device=x.device, dtype=torch.uint8) if relu else None
+    w = torch.empty(C, device=x.device, dtype=x.dtype)
+    b = torch.empty(C, device=x.device, dtype=x.dtype)
+    stats = torch.empty((4, C), device=x.device, dtype=torch.float32)
+    KERNEL_FOLD_APPLY.launch(x.device, x.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+                             bias.data_ptr(), None if r is None else r.data_ptr(), y.data_ptr(),
+                             None if mask is None else mask.data_ptr(), w.data_ptr(),
+                             b.data_ptr(), stats.data_ptr(), rows, M, C, eps)
+    return y, mask, w, b, stats
 
 
 def _check_bwd(op, x, mask, dy, stats):
@@ -460,25 +485,26 @@ def bn_bwd_dx_kernel(x: torch.Tensor, mask: Optional[torch.Tensor], dy: torch.Te
     return dx, dr
 
 
-def _stats_over(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                group: dist.ProcessGroup):
-    """(w, b, stats, M): the statistics over every rank's rows, M of them
-    (each rank gives x.shape[0]): this rank's sums, their all-reduce, the
-    fold."""
+def _apply_over(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                r: Optional[torch.Tensor], relu: bool, group: dist.ProcessGroup):
+    """(y, mask, w, stats, M) with the statistics over every rank's rows, M
+    of them (each rank gives x.shape[0]): this rank's sums, their
+    all-reduce, the apply that folds them (two launches)."""
     M = x.shape[0] * dist.get_world_size(group)
     sums = bn_sums_kernel(x)
     dist.all_reduce(sums, group=group)
-    return (*bn_fold_kernel(sums, M, scale, bias), M)
+    y, mask, w, _b, stats = bn_fold_apply_kernel(x, sums, M, scale, bias, r, relu)
+    return y, mask, w, stats, M
 
 
 class _BatchNormRanksFn(torch.autograd.Function):
-    """The split kernels over ``group``: sums, all-reduce, fold and apply;
-    backward sums (and this rank's dscale, dbias), all-reduce, dx."""
+    """The split kernels over ``group``: sums, all-reduce, the apply that
+    folds them; backward sums (and this rank's dscale, dbias), all-reduce,
+    dx."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, r, relu, group):
-        w, b, stats, M = _stats_over(x, scale, bias, group)
-        y, mask = bn_apply_kernel(x, w, b, r, relu)
+        y, mask, w, stats, M = _apply_over(x, scale, bias, r, relu, group)
         ctx.save_for_backward(x, mask, w, scale, stats)
         ctx.residual, ctx.group, ctx.M = r is not None, group, M
         return y
@@ -533,14 +559,14 @@ def batchnorm_on_kernels(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     """The wrapper's kernel path: the statistics and apply kernels alone,
     or, where a gradient is wanted, the autograd Function over them and
     the backward kernel; with ``group``, the split kernels with an
-    all-reduce between each pair."""
+    all-reduce between each pair (bn_sums and bn_fold_apply; bn_bwd_sums
+    and bn_bwd_dx)."""
     tensors = (x, scale, bias) + (() if residual is None else (residual,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         if group is not None:
             return _BatchNormRanksFn.apply(x, scale, bias, residual, relu, group)
         return _BatchNormFn.apply(x, scale, bias, residual, relu)
     if group is not None:
-        w, b, _stats, _M = _stats_over(x, scale, bias, group)
-    else:
-        w, b, _stats = bn_stats_kernel(x, scale, bias)
+        return _apply_over(x, scale, bias, residual, relu, group)[0]
+    w, b, _stats = bn_stats_kernel(x, scale, bias)
     return bn_apply_kernel(x, w, b, residual, relu)[0]

@@ -4,7 +4,9 @@
 // card exactly as the Python plugin does.
 //
 //   fake mode: KTPU_FAKE_GPUS="<model>:<count>:<domain>:<host>[:<MiB>]"
-//              (the Python plugin's defaults for each empty field);
+//              (the Python plugin's defaults for each empty field; the
+//              domain one name for every card, or one a card,
+//              comma-separated, cards past the list taking its last);
 //   real mode: every card NVML reports, at its own node /dev/nvidia<minor>
 //              (the minor from NVML, never from the order of /dev
 //              entries; KTPU_DEV_DIR in place of /dev, for tests),
@@ -36,6 +38,7 @@ struct Card {
   std::string memory_mib;
   std::string uuid;
   std::string domain;  // the NVLink domain
+  std::string coords;  // the position in it: the minor, or the index in fake mode
   std::string index;   // NVML's index, or the position in fake mode
   std::string path;    // /dev/nvidia<minor>; empty in fake mode
   nvml::nvmlDevice_t handle = nullptr;  // real mode
@@ -78,17 +81,20 @@ inline std::vector<Card> fake_cards(const std::string& spec) {
   auto part = [&](size_t i, const char* dflt) {
     return parts.size() > i && !parts[i].empty() ? parts[i] : std::string(dflt);
   };
-  std::string model = part(0, kFakeModel), domain = part(2, "nvlink-0"),
-              host = part(3, "0"), memory = part(4, kFakeMemoryMiB);
+  std::string model = part(0, kFakeModel), host = part(3, "0"),
+              memory = part(4, kFakeMemoryMiB);
+  std::vector<std::string> domains = split(part(2, "nvlink-0"), ',');
   int count = atoi(part(1, "1").c_str());
   std::vector<Card> cards;
   for (int i = 0; i < count; ++i) {
+    const std::string& domain = domains[std::min<size_t>(i, domains.size() - 1)];
     Card c;
     c.id = domain + "-h" + host + "-gpu" + std::to_string(i);
     c.model = model;
     c.memory_mib = memory;
     c.uuid = "GPU-fake-" + domain + "-h" + host + "-" + std::to_string(i);
     c.domain = domain;
+    c.coords = std::to_string(i);
     c.index = std::to_string(i);
     cards.push_back(c);
   }
@@ -139,6 +145,7 @@ inline std::vector<Card> real_cards(nvml::Library& lib) {
     if (lib.DeviceGetMemoryInfo(c.handle, &mem) == nvml::kSuccess)
       c.memory_mib = std::to_string(mem.total / (1024ull * 1024ull));
     c.id = host + "-nvidia" + std::to_string(minor);
+    c.coords = std::to_string(minor);
     c.index = std::to_string(i);
     cards.push_back(c);
     minors.push_back(minor);

@@ -2,7 +2,8 @@
 
 ``kubernetes1_tpu_torch/kernels/batchnorm.py`` gives batch norm a form
 for data parallelism: each rank sums its rows (``bn_sums``), the (2, C)
-sums are all-reduced, and ``bn_fold`` folds them over every rank's rows;
+sums are all-reduced, and ``bn_fold_apply`` folds them over every rank's
+rows and applies them to the rank's own;
 the backward sums dy' and dy'·x (``bn_bwd_sums``, which also gives the
 rank's dscale and dbias), the sums are all-reduced, and ``bn_bwd_dx``
 computes each rank's dx from the global sums.  Here the all-reduce is the
@@ -21,8 +22,17 @@ without the ReLU and the residual:
   global sums they would count every shard n times over.
 
 The same sums go through ``batchnorm_plain(..., group=...)`` over real
-gloo ranks in ``tests/test_torch_sharding.py``.
+gloo ranks in ``tests/test_torch_sharding.py``; here, two gloo ranks (each
+a process that imports torch and the port, never JAX) each hold half the
+rows: ``bn_fold_apply_plain`` of the all-reduced sums, and autograd of
+``batchnorm_plain(..., group=...)`` through it, against ``jax.vjp`` of
+JAX's ``_bn`` on the whole batch, within the same 1e-5.
 """
+
+import os
+import pickle
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +43,7 @@ import torch
 from kubernetes1_tpu.workloads import resnet as jresnet
 from kubernetes1_tpu_torch.kernels import batchnorm as tbn
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5
 M, C = 48, 24  # 48 rows: 2, 3 and 4 shards of equal size
 VARIANTS = {"plain": (False, False), "relu": (True, False), "relu_residual": (True, True)}
@@ -151,3 +162,91 @@ def test_split_at_one_shard_is_the_one_launch_arithmetic():
                       (dscales[0], dscale0), (dbiases[0], dbias0)):
         assert _rel_err(got, want) <= TOL
 
+
+
+# ------------------------------------------------------------ two gloo ranks
+
+_WORKER = r"""
+import pickle
+import sys
+import torch
+import torch.distributed as dist
+from kubernetes1_tpu_torch.kernels import batchnorm as tbn
+
+rank, n, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(tmp + "/store", n), rank=rank,
+                        world_size=n)
+try:
+    with open(tmp + "/in.pkl", "rb") as f:
+        data = pickle.load(f)
+    x, scale, bias, r, dy = (torch.from_numpy(a) for a in data["inputs"])
+    h = x.shape[0] // n
+    rows = slice(rank * h, (rank + 1) * h)
+    out = {}
+    for name, (relu, residual) in data["variants"].items():
+        res = r[rows] if residual else None
+        sums = tbn.bn_sums_plain(x[rows])
+        dist.all_reduce(sums)
+        y, mask, w, b, stats = tbn.bn_fold_apply_plain(x[rows], sums, x.shape[0], scale, bias,
+                                                       res, relu)
+        leaves = [t.clone().requires_grad_(True) for t in (x[rows], scale, bias, r[rows])]
+        y2 = tbn.batchnorm_plain(*leaves[:3], leaves[3] if residual else None, relu,
+                                 group=dist.group.WORLD)
+        y2.backward(dy[rows])
+        out[name] = dict(y=y, w=w, b=b, stats=stats, y2=y2.detach(), dx=leaves[0].grad,
+                         dscale=leaves[1].grad, dbias=leaves[2].grad, dr=leaves[3].grad)
+    torch.save(out, tmp + "/out%d.pt" % rank)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks(tmp_path_factory):
+    """Each of 2 gloo ranks' results for every variant, on its half of
+    ``_inputs()``'s rows."""
+    tmp = tmp_path_factory.mktemp("bn-ranks")
+    with open(tmp / "in.pkl", "wb") as f:
+        pickle.dump({"inputs": _inputs(), "variants": VARIANTS}, f)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), "2", str(tmp)], cwd=REPO,
+                              env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(errs)
+    return [torch.load(tmp / f"out{r}.pt", weights_only=False) for r in range(2)]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_fold_apply_over_two_gloo_ranks_equals_jax_vjp_of_bn(gloo_ranks, variant):
+    """The split forward's plain twin over 2 ranks: both ranks fold the
+    same (w, b, stats), the whole batch's; the ranks' y together, and the
+    gradients of batchnorm_plain over the group (dx, dr by rows; dscale,
+    dbias summed over the ranks), are JAX's."""
+    relu, residual = VARIANTS[variant]
+    x, scale, bias, r, dy = _inputs()
+    jy, vjp = jax.vjp(_jax_bn(relu, residual), *(jnp.asarray(a) for a in (x, scale, bias, r)))
+    jdx, jds, jdb, jdr = vjp(jnp.asarray(dy))
+    ranks = [g[variant] for g in gloo_ranks]
+    for key in ("w", "b", "stats"):
+        assert torch.equal(ranks[0][key], ranks[1][key])
+    w0, b0, stats0 = tbn.bn_stats_plain(*(_t(a) for a in (x, scale, bias)))
+    for key, want in (("w", w0), ("b", b0), ("stats", stats0)):
+        assert _rel_err(ranks[0][key], want) <= TOL
+    for rk in ranks:
+        assert torch.equal(rk["y"], rk["y2"])
+    assert _rel_err(torch.cat([rk["y"] for rk in ranks]), jy) <= TOL
+    assert _rel_err(torch.cat([rk["dx"] for rk in ranks]), jdx) <= TOL
+    assert _rel_err(ranks[0]["dscale"] + ranks[1]["dscale"], jds) <= TOL
+    assert _rel_err(ranks[0]["dbias"] + ranks[1]["dbias"], jdb) <= TOL
+    if residual:
+        assert _rel_err(torch.cat([rk["dr"] for rk in ranks]), jdr) <= TOL

@@ -24,6 +24,10 @@ from kubernetes1_tpu.deviceplugin import api as japi
 from kubernetes1_tpu.deviceplugin.tpu_plugin import TPUDevicePlugin
 from kubernetes1_tpu.deviceplugin.tpu_plugin import _fake_devices as tpu_fake_devices
 from kubernetes1_tpu.kubelet.devicemanager import DeviceManager
+from kubernetes1_tpu.machinery.scheme import from_dict
+from kubernetes1_tpu.scheduler.cache import NodeInfo
+from kubernetes1_tpu.scheduler.devices import allocate_for_pod
+from kubernetes1_tpu.scheduler.predicates import TOPOLOGY_TPU_SLICE, node_topology_value
 from kubernetes1_tpu.utils.waitutil import must_poll_until
 from kubernetes1_tpu_torch import GPU_RESOURCE
 from kubernetes1_tpu_torch.deviceplugin import api as tapi
@@ -417,7 +421,7 @@ def test_fake_inventory_spec_and_defaults(monkeypatch):
     assert devices[1]["attributes"] == {
         gp.ATTR_GPU_MODEL: "NVIDIA A100-SXM4-40GB", gp.ATTR_GPU_MEMORY: "40960",
         gp.ATTR_GPU_UUID: "GPU-fake-dom-h3-1", gp.ATTR_GPU_NVLINK_DOMAIN: "dom",
-        gp.ATTR_DEVICE_INDEX: "1"}
+        gp.ATTR_SLICE: "dom", gp.ATTR_COORDS: "1", gp.ATTR_DEVICE_INDEX: "1"}
     default = gp._fake_devices("")
     assert len(default) == 1 and default[0]["attributes"][gp.ATTR_GPU_MODEL] == H100
 
@@ -492,8 +496,8 @@ def test_real_discovery_walks_device_nodes_and_reads_nvidia_smi(tmp_path, monkey
     assert [d["id"] for d in devices] == [f"{host}-nvidia3"]
     assert devices[0]["attributes"] == {
         gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559", gp.ATTR_GPU_UUID: "GPU-aaa",
-        gp.ATTR_GPU_NVLINK_DOMAIN: f"{host}-nvl3", gp.ATTR_DEVICE_INDEX: "0",
-        gp.ATTR_DEVICE_PATH: str(dev / "nvidia3")}
+        gp.ATTR_GPU_NVLINK_DOMAIN: f"{host}-nvl3", gp.ATTR_SLICE: f"{host}-nvl3",
+        gp.ATTR_COORDS: "3", gp.ATTR_DEVICE_INDEX: "0", gp.ATTR_DEVICE_PATH: str(dev / "nvidia3")}
     assert (tmp_path / "args").read_text().splitlines() == ["-q -x", "topo -m"]
     # what the pod is handed is that card's node and UUID, not /dev/nvidia0
     spec = gp.GPUDevicePlugin(devices=devices).init_container(
@@ -510,6 +514,9 @@ BOARDS = {
                    ["nvl0"] * 8),
     # PCIe cards bridged in pairs (0-1, 2-3); minors out of index order
     "bridged-pairs": ([4, 1, 2, 7], [(0, 1), (2, 3)], ["nvl1", "nvl1", "nvl2", "nvl2"]),
+    # more than ten cards on one NVSwitch: minor 10 sorts before 2 as a string
+    "nvswitch-12": (list(range(12)), [(i, j) for i in range(12) for j in range(i + 1, 12)],
+                    ["nvl0"] * 12),
     # a chain 0-1-2 is one domain; the fourth card has no peer
     "chain-and-one-alone": ([0, 1, 2, 3], [(0, 1), (1, 2)], ["nvl0", "nvl0", "nvl0", "nvl3"]),
     "one-card": ([3], [], ["nvl3"]),
@@ -563,6 +570,100 @@ def test_nvlink_domains_span_cards_whose_node_is_missing(tmp_path, monkeypatch):
     (d,) = gp.discover_gpu_devices()
     assert d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] == f"{host}-nvl2"
     assert d["attributes"][gp.ATTR_DEVICE_INDEX] == "1"
+
+
+@pytest.mark.parametrize("board", sorted(BOARDS))
+def test_every_card_carries_the_keys_the_scheduler_reads(tmp_path, monkeypatch, board):
+    """The JAX scheduler's slice-aware pick reads google.com/tpu/slice and
+    google.com/tpu/coords: the card's NVLink domain and its minor."""
+    devices = board_devices(tmp_path, monkeypatch, board)
+    assert [d["attributes"][gp.ATTR_SLICE] for d in devices] == [
+        d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] for d in devices]
+    assert [d["attributes"][gp.ATTR_COORDS] for d in devices] == [
+        str(m) for m in BOARDS[board][0]]
+
+
+def test_slice_keys_are_the_jax_packages():
+    assert (gp.ATTR_SLICE, gp.ATTR_COORDS) == (t.ATTR_TPU_SLICE, t.ATTR_TPU_CHIP_COORDS)
+
+
+def test_fake_domain_list_gives_one_domain_a_card():
+    """KTPU_FAKE_GPUS's domain field, comma-separated: one name a card,
+    the last repeated past the list; the coords are the index."""
+    devices = gp._fake_devices(f"{H100}:5:nvl-a,nvl-a,nvl-b:2")
+    assert [d["id"] for d in devices] == ["nvl-a-h2-gpu0", "nvl-a-h2-gpu1", "nvl-b-h2-gpu2",
+                                          "nvl-b-h2-gpu3", "nvl-b-h2-gpu4"]
+    assert [(d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN], d["attributes"][gp.ATTR_SLICE],
+             d["attributes"][gp.ATTR_COORDS]) for d in devices] == [
+        ("nvl-a", "nvl-a", "0"), ("nvl-a", "nvl-a", "1"), ("nvl-b", "nvl-b", "2"),
+        ("nvl-b", "nvl-b", "3"), ("nvl-b", "nvl-b", "4")]
+    assert [d["attributes"][gp.ATTR_GPU_UUID] for d in devices][2] == "GPU-fake-nvl-b-h2-2"
+
+
+def node_info(devices) -> NodeInfo:
+    """The JAX scheduler's NodeInfo for a node that advertises ``devices``
+    (the plugin's dicts, decoded through the JAX scheme as the kubelet's
+    status update is)."""
+    node = t.Node()
+    node.metadata.name = "gpu-node"
+    node.status.capacity = {"cpu": "8", "memory": "32Gi", "pods": "110"}
+    node.status.allocatable = dict(node.status.capacity)
+    node.status.extended_resources = {
+        GPU_RESOURCE: [from_dict(t.ExtendedResourceDevice, d) for d in devices]}
+    return NodeInfo(node)
+
+
+def place(info: NodeInfo, name: str, quantity: int) -> list:
+    """The JAX scheduler's allocate_for_pod for a pod asking ``quantity``
+    cards; the pod is then added to ``info`` with them, as a bind does."""
+    pod = _gpu_pod(name, f"uid-{name}", [], quantity)
+    assignments, reason = allocate_for_pod(pod, info)
+    assert assignments is not None, reason
+    pod.spec.extended_resources[0].assigned = assignments["gpu"]
+    info.add_pod(pod)
+    return assignments["gpu"]
+
+
+def pair_picks(devices) -> tuple:
+    """On the bridged-pairs board: a 2-card pod's cards on the fresh node,
+    and on another, a 1-card pod's and then a 2-card pod's."""
+    return (place(node_info(devices), "two", 2),
+            *(lambda info: (place(info, "one", 1), place(info, "two-after", 2)))(
+                node_info(devices)))
+
+
+def test_scheduler_picks_one_nvlink_pair_on_bridged_pairs(tmp_path, monkeypatch):
+    """nvl1 = {4, 1}, nvl2 = {2, 7}: a 2-card pod gets one pair, never a
+    card of each (whose traffic would cross PCIe); after a 1-card pod took
+    one card of nvl1, the next 2-card pod gets the intact pair nvl2."""
+    host = os.uname().nodename
+    two, one, two_after = pair_picks(board_devices(tmp_path, monkeypatch, "bridged-pairs"))
+    assert two == [f"{host}-nvidia1", f"{host}-nvidia4"]
+    assert one == [f"{host}-nvidia1"]
+    assert two_after == [f"{host}-nvidia2", f"{host}-nvidia7"]
+
+
+def test_scheduler_picks_cards_in_minor_order_past_ten(tmp_path, monkeypatch):
+    """Twelve cards on one NVSwitch: a 4-card pod gets minors 0-3, in
+    numeric order (the IDs' string order would give nvidia10 and
+    nvidia11 before nvidia2)."""
+    host = os.uname().nodename
+    info = node_info(board_devices(tmp_path, monkeypatch, "nvswitch-12"))
+    assert place(info, "four", 4) == [f"{host}-nvidia{m}" for m in range(4)]
+    assert place(info, "four-more", 4) == [f"{host}-nvidia{m}" for m in range(4, 8)]
+
+
+def test_pod_affinity_slice_topology_is_the_nvlink_domain(tmp_path, monkeypatch):
+    """The pod-affinity topology key google.com/tpu-slice: a node whose
+    cards share one NVLink domain has that domain as its value; a node of
+    two domains has none."""
+    host = os.uname().nodename
+    assert node_topology_value(node_info(gp._fake_devices(f"{H100}:8:nvl-x:0")),
+                               TOPOLOGY_TPU_SLICE) == "nvl-x"
+    assert node_topology_value(node_info(gp._fake_devices(f"{H100}:4:a,a,b,b:0")),
+                               TOPOLOGY_TPU_SLICE) is None
+    (d,) = board_devices(tmp_path, monkeypatch, "one-card")
+    assert node_topology_value(node_info([d]), TOPOLOGY_TPU_SLICE) == f"{host}-nvl3"
 
 
 def test_real_discovery_without_a_card_advertises_none(monkeypatch, tmp_path):

@@ -14,7 +14,10 @@ deviation: the pod-level form is the way in); the MNIST Job of
 overridden, and ``examples/gpu-resnet50-h100.yaml`` reaches Running on a
 hollow node.  The card, the waiting pod and the MNIST Job also run with the
 native plugin (``ktpu-gpu-plugin``, built once per test run with make) in
-the plugin dir in place of the Python one.
+the plugin dir in place of the Python one.  With each plugin, the JAX
+scheduler picks cards by NVLink domain (the fake spec's domain field one a
+card): a 2-card pod gets an intact pair, and a gang of 2 workers x 2 cards
+goes whole to the NVLink domain that holds it.
 
 The kubelets read no eviction signals: these tests are about devices, and
 a pod must not be evicted because the host's disk is nearly full.
@@ -26,6 +29,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import pytest
 import yaml
@@ -41,6 +45,7 @@ from kubernetes1_tpu.machinery.scheme import from_dict
 from kubernetes1_tpu.scheduler import Scheduler
 from kubernetes1_tpu.utils.waitutil import must_poll_until
 from kubernetes1_tpu_torch import GPU_RESOURCE, native
+from kubernetes1_tpu_torch.client.rest import Client
 from kubernetes1_tpu_torch.deviceplugin import api as tapi
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.workloads import specs
@@ -144,7 +149,44 @@ def hollow_nodes(control_plane, tmp_path):
         plugin.stop()
 
 
+@pytest.fixture()
+def nodes(request, control_plane, tmp_path):
+    """``add(name, fake_spec, hollow)`` starts a node with its own plugin
+    in fake mode (the Python one, or with the parameter ``native``,
+    ``ktpu-gpu-plugin``) and a ProcessRuntime (or, hollow, a FakeRuntime)
+    kubelet; returns the runtime.  Everything started stops at teardown."""
+    master, cs = control_plane
+    kind = getattr(request, "param", "python")
+    made = []
+
+    def add(name, fake, hollow=False):
+        # short: a unix socket's path has at most 107 bytes
+        plugin_dir = str(tmp_path / f"p{len(made)}")
+        if kind == "native":
+            plugin = _NativePlugin(request.getfixturevalue("native_bins")[native.PLUGIN],
+                                   plugin_dir, fake)
+        else:
+            plugin = _plugin(plugin_dir, fake)
+        runtime = FakeRuntime() if hollow else ProcessRuntime(
+            root_dir=str(tmp_path / f"r{len(made)}"))
+        kubelet = _kubelet(cs, name, runtime, plugin_dir)
+        made.append((kubelet, runtime, plugin))
+        kubelet.start()
+        must_poll_until(lambda: _cards(cs, name), timeout=20.0, desc=f"{name}'s cards")
+        return runtime
+
+    client = Client(master.url)
+    yield types.SimpleNamespace(master=master, cs=cs, client=client, add=add, tmp=tmp_path)
+    client.close()
+    for kubelet, runtime, plugin in made:
+        kubelet.stop()
+        if isinstance(runtime, ProcessRuntime):
+            runtime.kill_all()  # no container outlives the test
+        plugin.stop()
+
+
 BOTH_PLUGINS = pytest.mark.parametrize("gpu_node", ["python", "native"], indirect=True)
+NODES_BOTH_PLUGINS = pytest.mark.parametrize("nodes", ["python", "native"], indirect=True)
 
 
 def _cards(cs, node):
@@ -192,7 +234,7 @@ def test_node_advertises_the_card_and_a_pod_gets_it(gpu_node):
     assert card.attributes == {
         gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559",
         gp.ATTR_GPU_UUID: "GPU-fake-nv0-h0-0", gp.ATTR_GPU_NVLINK_DOMAIN: "nv0",
-        gp.ATTR_DEVICE_INDEX: "0"}
+        gp.ATTR_SLICE: "nv0", gp.ATTR_COORDS: "0", gp.ATTR_DEVICE_INDEX: "0"}
     out = tmp / "env.json"
     cs.pods.create(_pod("cuda-env", _env_dump(out)))
     must_poll_until(lambda: _phase(cs, "cuda-env") == t.POD_SUCCEEDED, timeout=60.0,
@@ -319,3 +361,60 @@ def test_resnet_manifest_reaches_running_on_a_hollow_node(hollow_nodes):
     node = cs.nodes.get(pod.spec.node_name, "")
     assert per.assigned[0] in {d.id for d in node.status.extended_resources[GPU_RESOURCE]}
     assert not pod.spec.containers[0].resources.limits
+
+
+# ------------------------------------------ the NVLink domain in the scheduler
+
+
+def _assigned(cs, name):
+    pod = cs.pods.get(name, "default")
+    return pod.spec.node_name, pod.spec.extended_resources[0].assigned
+
+
+@NODES_BOTH_PLUGINS
+def test_two_card_pod_lands_on_one_nvlink_pair(nodes):
+    """A node of two fake NVLink pairs (nvl-a: cards 0, 1; nvl-b: 2, 3):
+    a 1-card pod takes card 0, and the next 2-card pod gets the intact
+    pair nvl-b, not cards 1 and 2 (the IDs' order), whose traffic would
+    cross PCIe."""
+    nodes.add("pairs-node", f"{H100}:4:nvl-a,nvl-a,nvl-b,nvl-b:0", hollow=True)
+    cs = nodes.cs
+    cs.pods.create(_pod("one", "pass", gpus=1))
+    must_poll_until(lambda: _phase(cs, "one") == t.POD_RUNNING, timeout=30.0,
+                    desc="the 1-card pod running")
+    assert _assigned(cs, "one") == ("pairs-node", ["nvl-a-h0-gpu0"])
+    cs.pods.create(_pod("two", "pass", gpus=2))
+    must_poll_until(lambda: _phase(cs, "two") == t.POD_RUNNING, timeout=30.0,
+                    desc="the 2-card pod running")
+    assert _assigned(cs, "two") == ("pairs-node", ["nvl-b-h0-gpu2", "nvl-b-h0-gpu3"])
+
+
+@NODES_BOTH_PLUGINS
+def test_gang_goes_to_the_nvlink_domain_that_holds_it(nodes):
+    """A node of two NVLink pairs (4 cards) and one of an 8-card NVSwitch
+    domain: an Indexed gang Job of 2 workers x 2 cards (4 cards) goes
+    whole to the NVSwitch domain, the one that holds it, where best-fit
+    by the count of free cards alone would pack it onto the pairs, a
+    worker a pair."""
+    nodes.add("pairs-node", f"{H100}:4:nvl-1a,nvl-1a,nvl-1b,nvl-1b:1", hollow=True)
+    nodes.add("switch-node", f"{H100}:8:nvl-0:0", hollow=True)
+    pod_spec = {"containers": [{"name": "main", "image": "ktpu/torch-workload",
+                                "command": [sys.executable, "-c", "pass"]}],
+                "restartPolicy": "Never"}
+    specs.gpu_request(pod_spec, 2)
+    nodes.client.jobs.create({
+        "metadata": {"name": "gang", "namespace": "default"},
+        "spec": {"completionMode": "Indexed", "completions": 2, "parallelism": 2,
+                 "gangScheduling": True, "backoffLimit": 0,
+                 "template": {"metadata": {"labels": {"app": "gang"}}, "spec": pod_spec}}})
+
+    def running():
+        pods, _ = nodes.cs.pods.list(namespace="default",
+                                     label_selector="batch.ktpu.io/job-name=gang")
+        return len(pods) == 2 and all(p.status.phase == t.POD_RUNNING for p in pods) and pods
+
+    must_poll_until(running, timeout=30.0, desc="the whole gang running")
+    pods = running()
+    assert {p.spec.node_name for p in pods} == {"switch-node"}
+    cards = sorted(c for p in pods for c in p.spec.extended_resources[0].assigned)
+    assert cards == [f"nvl-0-h0-gpu{i}" for i in range(4)]

@@ -43,24 +43,21 @@ import subprocess
 import sys
 import threading
 import time
-import types
 
 import pytest
 import torch
 import yaml
 
 from kubernetes1_tpu.api import types as t
-from kubernetes1_tpu.kubelet import FakeRuntime, ProcessRuntime
 from kubernetes1_tpu.machinery.scheme import from_dict
 from kubernetes1_tpu.utils.waitutil import must_poll_until, poll_until
-from kubernetes1_tpu_torch import GPU_RESOURCE, native
-from kubernetes1_tpu_torch.client.rest import Client
+from kubernetes1_tpu_torch import GPU_RESOURCE
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.workloads import bert as tbert
 from kubernetes1_tpu_torch.workloads import launch, sharding, specs
 from kubernetes1_tpu_torch.workloads import llama as tllama
 from tests.test_torch_gpu_cluster import (  # noqa: F401
-    A100, H100, _cards, _kubelet, _NativePlugin, _plugin, control_plane, native_bins)
+    A100, H100, control_plane, native_bins, nodes)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
@@ -68,42 +65,6 @@ BERT_YAML = "gpu-bert-large-4x8-h100.yaml"
 LLAMA_YAML = "gpu-llama3-8b-32x8-h100-preemptible.yaml"
 DIST_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 F32_TOL = 1e-5
-
-
-@pytest.fixture()
-def nodes(request, control_plane, tmp_path):  # noqa: F811
-    """``add(name, fake_spec, hollow)`` starts a node with its own plugin
-    in fake mode (the Python one, or with the parameter ``native``,
-    ``ktpu-gpu-plugin``) and a ProcessRuntime (or, hollow, a FakeRuntime)
-    kubelet; returns the runtime.  Everything started stops at teardown."""
-    master, cs = control_plane
-    kind = getattr(request, "param", "python")
-    made = []
-
-    def add(name, fake, hollow=False):
-        # short: a unix socket's path has at most 107 bytes
-        plugin_dir = str(tmp_path / f"p{len(made)}")
-        if kind == "native":
-            plugin = _NativePlugin(request.getfixturevalue("native_bins")[native.PLUGIN],
-                                   plugin_dir, fake)
-        else:
-            plugin = _plugin(plugin_dir, fake)
-        runtime = FakeRuntime() if hollow else ProcessRuntime(
-            root_dir=str(tmp_path / f"r{len(made)}"))
-        kubelet = _kubelet(cs, name, runtime, plugin_dir)
-        made.append((kubelet, runtime, plugin))
-        kubelet.start()
-        must_poll_until(lambda: _cards(cs, name), timeout=20.0, desc=f"{name}'s cards")
-        return runtime
-
-    client = Client(master.url)
-    yield types.SimpleNamespace(master=master, cs=cs, client=client, add=add, tmp=tmp_path)
-    client.close()
-    for kubelet, runtime, plugin in made:
-        kubelet.stop()
-        if isinstance(runtime, ProcessRuntime):
-            runtime.kill_all()  # no container outlives the test
-        plugin.stop()
 
 
 BOTH_PLUGINS = pytest.mark.parametrize("nodes", ["python", "native"], indirect=True)

@@ -6,8 +6,9 @@ mode, the inventory, admission and injection of the Python
 ``GPUDevicePlugin`` (plus the ``gpu.ktpu.io/plugin: native`` annotation);
 SIGTERM or SIGINT must take its socket with it.  In real mode over a
 stand-in ``libnvidia-ml.so.1`` (built here with g++), its inventory,
-NVLink domains included, must equal the Python plugin's over a stand-in
-``nvidia-smi``.  Both binaries must refuse real mode on a host without NVML, and ``ktpu-gpu-metrics-exporter`` must
+NVLink domains included (and the slice and coords keys the JAX
+scheduler reads), must equal the Python plugin's over a stand-in
+``nvidia-smi``, and the JAX scheduler must pick one NVLink pair from it.  Both binaries must refuse real mode on a host without NVML, and ``ktpu-gpu-metrics-exporter`` must
 serve the GPU forms of the TPU exporter's metrics, with no reading in fake
 mode.  The binaries are built once per test run, with make, into a
 temporary directory of their own.
@@ -28,7 +29,7 @@ import pytest
 from kubernetes1_tpu_torch import GPU_RESOURCE, native
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.deviceplugin.api import PluginClient, plugin_socket_path
-from tests.test_torch_deviceplugin import BOARDS, board_devices
+from tests.test_torch_deviceplugin import BOARDS, board_devices, pair_picks
 
 H100 = "NVIDIA H100 80GB HBM3"
 NATIVE_ANNOTATION = "gpu.ktpu.io/plugin"
@@ -100,7 +101,10 @@ def test_four_rpcs_over_the_ports_plugin_client(native_bins, tmp_path):
     f"{H100}:1:nv0:0",
     "NVIDIA A100-SXM4-40GB:2:nva:3:40960",   # the memory field
     f"{H100}:8:nvlink-7:2",
-], ids=["defaults", "one-card", "memory-field", "eight-cards"])
+    f"{H100}:4:nvl-a,nvl-a,nvl-b,nvl-b:0",   # a domain a card
+    f"{H100}:3:nvl-x,nvl-y:1",               # the last domain past the list
+], ids=["defaults", "one-card", "memory-field", "eight-cards", "domain-a-card",
+        "domain-list-short"])
 def test_fake_inventory_equals_the_python_plugins(native_bins, tmp_path, fake):
     with native_plugin(native_bins[native.PLUGIN], tmp_path, fake) as (client, _):
         devices = first_inventory(client)
@@ -320,6 +324,24 @@ def test_real_mode_inventory_over_nvml_equals_the_python_plugins(
     assert [d["attributes"][gp.ATTR_GPU_NVLINK_DOMAIN] for d in devices] == [
         f"{host}-{n}" for n in names]
     assert devices == want
+
+
+def test_scheduler_picks_one_nvlink_pair_from_the_native_inventory(
+        native_bins, standin_nvml, tmp_path, monkeypatch):
+    """The bridged-pairs board through the native plugin's real mode: the
+    JAX scheduler's allocate_for_pod gives a 2-card pod one pair, and
+    after a 1-card pod the intact pair."""
+    minors, links, _ = BOARDS["bridged-pairs"]
+    board_devices(tmp_path, monkeypatch, "bridged-pairs")
+    env = {**_fake_env(None), "KTPU_DEV_DIR": os.environ["KTPU_DEV_DIR"],
+           "LD_LIBRARY_PATH": standin_nvml["p2p"],
+           "STANDIN_NVML_MINORS": ",".join(map(str, minors)),
+           "STANDIN_NVML_LINKS": ",".join(f"{i}-{j}" for i, j in links)}
+    with native_real_plugin(native_bins[native.PLUGIN], tmp_path / "plugins", env) as client:
+        devices = first_inventory(client)
+    host = os.uname().nodename
+    assert pair_picks(devices) == ([f"{host}-nvidia1", f"{host}-nvidia4"], [f"{host}-nvidia1"],
+                                   [f"{host}-nvidia2", f"{host}-nvidia7"])
 
 
 def test_real_mode_without_the_p2p_call_gives_each_card_its_own_domain(

@@ -220,9 +220,7 @@ try:
         rows = slice(rank * b, (rank + 1) * b)
         # the kernel path's autograd Function, each kernel its plain twin
         tbn.bn_sums_kernel = tbn.bn_sums_plain
-        tbn.bn_fold_kernel = lambda s, m, sc, bi: tbn.bn_fold_plain(s, m, sc, bi,
-                                                                    dtype=torch.float32)
-        tbn.bn_apply_kernel = tbn.bn_apply_plain
+        tbn.bn_fold_apply_kernel = tbn.bn_fold_apply_plain
         tbn.bn_bwd_sums_kernel = tbn.bn_bwd_sums_plain
         tbn.bn_bwd_dx_kernel = tbn.bn_bwd_dx_plain
         leaves = [t.clone().requires_grad_(True) for t in (x[rows], scale, bias, r[rows])]
