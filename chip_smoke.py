@@ -143,11 +143,13 @@
    (mnist.train: 50 SGD steps of batch 256) on the card, checking the
    loss, the accuracy (>= 0.9) and the launches per step;
 24. (the nvidia.com/gpu device plane) runs the orchestrator as child
-   processes: the JAX package's unchanged apiserver, scheduler,
-   controller manager and kubelet (`python -m kubernetes1_tpu <component>`,
-   a ProcessRuntime node; none of them imports JAX) and the port's GPU
-   plugin in real mode, and speaks to the apiserver over HTTP: the node
-   must advertise the one card as torch names it; ResNet-50 at 128 x 224^2
+   processes: the port's scheduler (`python -m kubernetes1_tpu_torch
+   scheduler`, which picks a pod's cards by NVLink domain and minor), the
+   JAX package's unchanged apiserver, controller manager and kubelet
+   (`python -m kubernetes1_tpu <component>`, a ProcessRuntime node; none
+   of them imports JAX) and the port's GPU plugin in real mode, and speaks
+   to the apiserver over HTTP: the node must advertise the one card as
+   torch names it, with its NVLink domain and minor; ResNet-50 at 128 x 224^2
    through resnet_bench as a Job (workloads.specs.payload_job) must be
    scheduled, get the card's ID and its UUID in CUDA_VISIBLE_DEVICES, and
    reach the in-process run's first loss (9.) within RESNET_LOSS_TOL; an
@@ -162,8 +164,11 @@
    must show utilization above 0 and memory above the idle reading.  The
    serving pod then takes LoadGen's open-loop traffic (Poisson, seed 1,
    20 QPS for 10 s, streamed) with no request failed or shed.
-   The pods' launches happen in their own processes: no launches column
-   (the fleet of 26. decodes in this process: ``fleet``);
+   The "cluster: scheduler" line names the port's scheduler process, the
+   node and cards it bound each Job's, the serving, the learner's and the
+   launcher's pod to, and the ResNet-50 Job's chip_alloc_s: it must have
+   bound each of them.  The pods' launches happen in their own processes:
+   no launches column (the fleet of 26. decodes in this process: ``fleet``);
 25. (the native node components, before 24.) runs ktpu-gpu-plugin in real
    mode: its inventory, read through the port's PluginClient, equals the
    Python plugin's, its injection names the card by UUID, and SIGTERM
@@ -615,7 +620,11 @@ def bert_launches_per_step(L: int) -> dict:
             "cross_entropy_f32": 1, "cross_entropy_f32_bwd": 1, "adamw": 1}
 
 
+FAILURES = []  # fail()'s messages, the last one first to report
+
+
 def fail(msg: str):
+    FAILURES.append(msg)
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
@@ -3786,6 +3795,18 @@ def _pod_pids(marker: str) -> dict:
     return out
 
 
+def _describe_pid(pid: int) -> str:
+    """A process's command line, state and parent, from /proc."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return f"{cmd[:160]!r}, state {fields[0]}, parent {fields[1]}"
+    except OSError as e:
+        return f"unreadable: {e}"
+
+
 def _compute_pids() -> set:
     """The processes nvidia-smi sees on the card."""
     out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
@@ -3794,16 +3815,18 @@ def _compute_pids() -> set:
 
 
 PYTHON_PLUGIN = (sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin")
+PORT_SCHEDULER = "kubernetes1_tpu_torch-scheduler"  # its process's name in Cluster
+BOUND_LINE = re.compile(r"^scheduler: bound default/(\S+) to (\S+)(?: devices=(.*))?$", re.M)
 
 
 class Cluster:
-    """The orchestrator as child processes of this one: the JAX package's
-    unchanged apiserver, scheduler, controller manager and kubelet (a
-    ProcessRuntime node), and a GPU plugin in real mode (no KTPU_FAKE_GPUS)
-    in the node's plugin dir: ``plugin``, its command before
-    ``--plugin-dir``, the port's Python plugin unless another is given.
-    Spoken to over HTTP.  ``stop`` deletes every workload, stops every
-    process and returns the pod processes that survived, killed."""
+    """The orchestrator as child processes of this one: the port's
+    scheduler, the JAX package's unchanged apiserver, controller manager
+    and kubelet (a ProcessRuntime node), and a GPU plugin in real mode (no
+    KTPU_FAKE_GPUS) in the node's plugin dir: ``plugin``, its command
+    before ``--plugin-dir``, the port's Python plugin unless another is
+    given.  Spoken to over HTTP.  ``stop`` deletes every workload, stops
+    every process and returns the pod processes that survived, killed."""
 
     def __init__(self, tmp: str, plugin=PYTHON_PLUGIN):
         self.tmp, self.procs, self.logs = tmp, [], []
@@ -3820,7 +3843,10 @@ class Cluster:
                                       self.url.rsplit(":", 1)[1]])
             _wait("the apiserver", self._healthy, 120)
             server = ["--server", self.url]
-            self._start("scheduler", [*component, "scheduler", *server, "--metrics-port", "-1"])
+            self._start(PORT_SCHEDULER, [sys.executable, "-m", "kubernetes1_tpu_torch", "scheduler",
+                                         *server, "--metrics-port", "-1"])
+            _wait("the port's scheduler to run", lambda: self.check_alive() or
+                  "scheduler running" in self.log(PORT_SCHEDULER), 120)
             self._start("controller-manager", [*component, "controller-manager", *server])
             self._start("plugin", [*plugin, "--plugin-dir", self.plugin_dir])
             self._start("kubelet", [*component, "kubelet", *server, "--runtime", "process",
@@ -3848,9 +3874,40 @@ class Cluster:
     def _serving(self) -> bool:
         return self.client.healthz()
 
-    def log(self, name: str) -> str:
+    def log(self, name: str, tail: int = 4000) -> str:
         with open(f"{self.tmp}/{name}.log") as f:
-            return f.read()[-4000:]
+            return f.read()[-tail:]
+
+    def report_failure(self):
+        """After a fail() while this cluster runs: the end of each
+        component's log, then the failure's message again, so that it
+        ends the output."""
+        for name, _log in self.logs:
+            print(f"--- {name}.log, its end:\n{self.log(name, 3000)}", file=sys.stderr)
+        print(f"chip_smoke: FAILED: {FAILURES[-1] if FAILURES else '?'}", file=sys.stderr,
+              flush=True)
+
+    def scheduled(self) -> dict:
+        """{pod: (node, devices)} of every pod the port's scheduler process
+        bound, from the line it prints a bind."""
+        return {m.group(1): (m.group(2), m.group(3) or "")
+                for m in BOUND_LINE.finditer(self.log(PORT_SCHEDULER, tail=1 << 30))}
+
+    def scheduler_line(self, card: str, alloc_s: float, pods: list):
+        """The "cluster: scheduler" line: the process that bound each pod,
+        the pods it bound, and chip_alloc_s under it; fails unless it bound
+        every pod of ``pods`` (and at least one)."""
+        bound = self.scheduled()
+        proc = dict(self.procs)[PORT_SCHEDULER]
+        missing = [p for p in pods if p not in bound]
+        if not bound or missing:
+            fail(f"cluster: the port's scheduler bound {sorted(bound)}, not {missing}:\n"
+                 f"{self.log(PORT_SCHEDULER)}")
+        print(f"cluster: scheduler python -m kubernetes1_tpu_torch (pid {proc.pid}) bound "
+              f"{len(bound)} pods, among them "
+              + ", ".join(f"{p} -> {bound[p][0]} {bound[p][1]}" for p in pods)
+              + f"; chip_alloc_s={alloc_s:.3f} on [{card}]", flush=True)
+        return sorted(bound)
 
     def advertised(self) -> list:
         """The node's nvidia.com/gpu devices once it advertises them; fails
@@ -3869,9 +3926,15 @@ class Cluster:
                 torch.cuda.get_device_name(0) or not attrs.get("nvidia.com/gpu/uuid"):
             fail(f"cluster: the node advertises {devs}, want one "
                  f"{torch.cuda.get_device_name(0)} with its UUID\n{self.log('plugin')}")
-        # the keys the JAX scheduler's slice-aware pick reads: the card's
-        # NVLink domain and its minor
+        # the keys the port's scheduler picks cards by: the card's NVLink
+        # domain and its minor; and the same two under the keys the JAX
+        # scheduler reads
         minor = (attrs.get("ktpu.io/device-path") or "").rsplit("nvidia", 1)[-1]
+        if not attrs.get("nvidia.com/gpu/nvlink-domain") or \
+                attrs.get("nvidia.com/gpu/minor") != minor:
+            fail(f"cluster: the card's nvidia.com/gpu/nvlink-domain and nvidia.com/gpu/minor "
+                 f"are {attrs.get('nvidia.com/gpu/nvlink-domain')!r} and "
+                 f"{attrs.get('nvidia.com/gpu/minor')!r}, want a domain and its minor {minor!r}")
         if attrs.get("google.com/tpu/slice") != attrs.get("nvidia.com/gpu/nvlink-domain") or \
                 attrs.get("google.com/tpu/coords") != minor:
             fail(f"cluster: the card's google.com/tpu/slice and google.com/tpu/coords are "
@@ -3949,17 +4012,30 @@ class Cluster:
     def stop(self) -> list:
         """Delete the workloads and their pods, wait for the pods to go,
         stop the components (the kubelet and the plugin first), then kill
-        and return the pod processes that survived."""
+        and return the pod processes that survived, each described: its
+        pid, command line, state, whether it exited of itself within 5 s,
+        and the pods the apiserver still listed when the wait for them
+        ended."""
+        left_pods = []
         try:
             if self._serving():
                 for rc in (self.client.deployments, self.client.jobs):
                     for obj in rc.list("default")[0]:
                         rc.delete(obj["metadata"]["name"])
-                for p in self.pods():
-                    self.delete_pod(p["metadata"]["name"])
+                # a controller that has not yet seen its owner's deletion
+                # can make a pod after the first pass: delete what is
+                # listed on every pass, until two passes a second apart
+                # list none
                 deadline = time.monotonic() + 60
-                while self.pods() and time.monotonic() < deadline:
-                    time.sleep(0.5)
+                empty = 0
+                while empty < 2 and time.monotonic() < deadline:
+                    listed = self.pods()
+                    for p in listed:
+                        if not p["metadata"].get("deletionTimestamp"):
+                            self.delete_pod(p["metadata"]["name"])
+                    empty = 0 if listed else empty + 1
+                    time.sleep(1.0 if not listed else 0.5)
+                left_pods = [p["metadata"]["name"] for p in self.pods()]
         finally:
             for _name, proc in reversed(self.procs):
                 if proc.poll() is None:
@@ -3972,13 +4048,23 @@ class Cluster:
             for _name, log in self.logs:
                 log.close()
             self.client.close()
-        survivors = _pod_pids(self.url)
+        survivors = sorted(_pod_pids(self.url))
+        seen = {pid: _describe_pid(pid) for pid in survivors}
+        t0 = time.monotonic()
+        gone = {}
+        while len(gone) < len(survivors) and time.monotonic() - t0 < 5:
+            gone.update({pid: time.monotonic() - t0 for pid in survivors
+                         if pid not in gone and not os.path.exists(f"/proc/{pid}")})
+            time.sleep(0.05)
         for pid in survivors:
             try:
                 os.killpg(pid, 9)  # each pod leads a process group of its own
             except OSError:
                 pass
-        return sorted(survivors)
+        return [f"{pid} ({seen[pid]}; "
+                + (f"exited of itself {gone[pid]:.2f} s later" if pid in gone
+                   else "still running 5 s later, killed")
+                + f"; pods still listed: {left_pods})" for pid in survivors]
 
 
 def _without_fake_gpus() -> dict:
@@ -4135,6 +4221,9 @@ def native_phase(card: str, bins: dict) -> dict:
         done = _wait("the MNIST Job to succeed", lambda: cl.job_done("mnist-native"), 300, 0.5)
         mlog = cl.pod_log(done["metadata"]["name"])
         cl.delete_job("mnist-native")
+    except SystemExit:
+        cl.report_failure()
+        raise
     finally:
         survivors = cl.stop()
     left = _compute_pids() - before
@@ -4149,6 +4238,7 @@ def native_phase(card: str, bins: dict) -> dict:
         fail(f"native: after teardown pod processes {survivors} survived, the card holds "
              f"{sorted(left)}, the plugin socket is "
              f"{'still there' if os.path.exists(cl.socket) else 'gone'}")
+    cl.scheduler_line(card, alloc_s, [done["metadata"]["name"]])
     shutil.rmtree(tmp, ignore_errors=True)
     res.update(chip_alloc_s=alloc_s, pod_start_s=start_s, mnist_acc=float(acc.group(1)))
     print(f"native: the MNIST Job through ktpu-gpu-plugin: chip_alloc_s={alloc_s:.3f} "
@@ -4234,7 +4324,7 @@ def rl_leg(cl: "Cluster", card: str, card_id: str, uuid: str) -> dict:
     if not stats["batches"] or not weights[7] > weights[0]:
         fail(f"rl: the learner took {stats['batches']} batches, weights {weights}")
     cl.delete_job("rl-learner")
-    res = dict(churn=churn, converge_s=converge_s, learner_alloc_s=alloc_s,
+    res = dict(pod=name, churn=churn, converge_s=converge_s, learner_alloc_s=alloc_s,
                learner_pod_start_s=start_s, learner_serving_s=learner_s, learner=stats,
                ingest_total=ingested, learner_port=int(url.rsplit(":", 1)[1]))
     print(f"rl: the learner Job's pod {name} got {assigned} (CUDA_VISIBLE_DEVICES={uuid}) and "
@@ -4437,7 +4527,7 @@ def multicard_leg(cl: "Cluster", card: str, devs: list) -> dict:
     if not gap <= MULTICARD_LOSS_TOL:
         fail(f"multicard: the Job's mlm-loss {losses[0]}, in process {want} (gap {gap}, tol "
              f"{MULTICARD_LOSS_TOL})")
-    res = dict(bind_s=bind_s, pod_start_s=start_s, launcher_line_s=line_s,
+    res = dict(pod=pname, bind_s=bind_s, pod_start_s=start_s, launcher_line_s=line_s,
                rendezvous_s=world_s - line_s, total_s=total_s, loss=float(losses[0]),
                loss_in_process=want, loss_gap=gap, reference_s=ref_s, address=address,
                how=how, nvlink_domain=domain)
@@ -4466,7 +4556,9 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     DecodeServer's tokens, then takes LoadGen's open-loop traffic with no
     request failed or shed; (e) the RL learner under churn (rl_leg); (f)
     the 8B fleet (fleet_leg); (g) config 4's multi-card Job at one card
-    (multicard_leg); nothing survives teardown."""
+    (multicard_leg); nothing survives teardown.  The port's scheduler
+    placed every pod: its "cluster: scheduler" line names the process and
+    each of those pods' node and cards."""
     from kubernetes1_tpu_torch.workloads import specs
 
     kind = torch.cuda.get_device_name(0)
@@ -4482,7 +4574,8 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     before = _compute_pids()
     tmp = tempfile.mkdtemp(prefix="cluster_")
     cl = Cluster(tmp)
-    exporter = None
+    exporter = sampler = None
+    sampled = threading.Event()
     res = {}
     try:
         exporter = Exporter(bins[native.EXPORTER], f"{tmp}/exporter.log")
@@ -4495,7 +4588,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         # (b) ResNet-50 as a Job, the exporter scraped all along; (c) MNIST
         # made while it holds the card
         idle = exporter.scrape()
-        samples, sampled = [], threading.Event()
+        samples = []
 
         def sample():
             while not sampled.wait(EXPORTER_EVERY_S):
@@ -4557,6 +4650,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
                 said.group(2).strip() != kind or \
                 mdone["spec"]["extendedResources"][0].get("assigned") != [card_id]:
             fail(f"cluster: the MNIST Job's pod said {mlog!r}")
+        placed = [pod["metadata"]["name"], mdone["metadata"]["name"]]
         res.update(chip_alloc_s=alloc_s, pod_start_s=start_s,
                    job_imgs_per_s=job["imgs_per_sec"], job_step_ms=job["step_time_ms"],
                    job_first_loss=job["first_loss"], first_loss_gap=gap,
@@ -4586,6 +4680,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
                 serve["spec"]["extendedResources"][0].get("assigned") != [card_id]:
             fail(f"cluster: the serving pod answered {got_tokens}, the in-process server "
                  f"{want_tokens}")
+        placed.append(name)
         res.update(serve_ready_s=ready_s, serve_tokens=got_tokens)
         print(f"cluster: the serving Deployment's pod {name} at {url}, ready in {ready_s:.2f} s, "
               f"answered {len(got_tokens)} requests with the in-process server's tokens "
@@ -4606,7 +4701,14 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         res.update(rl=rl_leg(cl, card, card_id, uuid))
         res["multicard"] = multicard_leg(cl, card, devs)
         res["fleet"] = fleet_leg(cl, card)
+        placed += [res["rl"]["pod"], res["multicard"]["pod"]]
+    except SystemExit:
+        cl.report_failure()
+        raise
     finally:
+        sampled.set()  # the sampler ends before the exporter does
+        if sampler is not None:
+            sampler.join(timeout=30)
         if exporter is not None:
             exporter.stop()
         survivors = cl.stop()
@@ -4617,6 +4719,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
              f"{sorted(left)}, the plugin socket is "
              f"{'still there' if os.path.exists(cl.socket) else 'gone'}, ports {listening} "
              f"of the learner and the fleet's backends still listen")
+    res["scheduled"] = cl.scheduler_line(card, res["chip_alloc_s"], placed)
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"cluster: teardown left no pod process (no actor, no learner), no new process on "
           f"the card, no plugin socket and no fleet backend on [{card}]", flush=True)

@@ -1,9 +1,11 @@
 """The port's client of the orchestrator's apiserver: its HTTP surface in
-the wire form (plain dicts), and a list+watch informer over it.
+the wire form (plain dicts), a list+watch informer over it, and a typed
+layer over both.
 
 ``errors`` (the Status errors), ``rest`` (``Client`` and a
-``ResourceClient`` per resource) and ``informer`` (``SharedInformer``,
-``InformerFactory``).  A client, not control plane: the apiserver,
-scheduler, controllers and kubelet stay the JAX package's, run as their
-own processes.
+``ResourceClient`` per resource), ``informer`` (``SharedInformer``,
+``InformerFactory``; typed when given a decoder), ``clientset``
+(``Clientset``: typed objects, the binding, bulk-binding and eviction
+subresources) and ``events`` (``EventRecorder``).  The workloads speak
+wire dicts; the port's scheduler speaks typed objects.
 """

@@ -3,8 +3,10 @@
 A failed call answers with a Status body (``{"kind": "Status", "code",
 "reason", "message"}``); ``ApiError.from_status`` turns it into the class
 named by its reason, as the JAX package's ``machinery.ApiError`` does, and
-keeps the body.  ``is_transient`` says which failures a retry may cure,
-and ``retry_on_conflict`` reruns a read-modify-write that lost a race.
+keeps the body.  The port's ``machinery.errors`` re-exports these classes:
+they are its one error hierarchy.  ``is_transient`` says which failures a
+retry may cure, and ``retry_on_conflict`` reruns a read-modify-write that
+lost a race.
 """
 
 from __future__ import annotations
@@ -69,7 +71,40 @@ class Gone(ApiError):
     reason = "Expired"
 
 
-_BY_REASON = {c.reason: c for c in (NotFound, AlreadyExists, Conflict, Gone)}
+# The JAX package's name for the same answer.
+TooOldResourceVersion = Gone
+
+
+class Invalid(ApiError):
+    code = 422
+    reason = "Invalid"
+
+
+class BadRequest(ApiError):
+    code = 400
+    reason = "BadRequest"
+
+
+class Unauthorized(ApiError):
+    code = 401
+    reason = "Unauthorized"
+
+
+class Forbidden(ApiError):
+    code = 403
+    reason = "Forbidden"
+
+
+class TooManyRequests(ApiError):
+    """The eviction of a pod whose disruption budget is spent, or an
+    overload shed: retry later."""
+
+    code = 429
+    reason = "TooManyRequests"
+
+
+_BY_REASON = {c.reason: c for c in (NotFound, AlreadyExists, Conflict, Gone, Invalid,
+                                     BadRequest, Unauthorized, Forbidden, TooManyRequests)}
 
 
 def is_transient(exc: BaseException) -> bool:

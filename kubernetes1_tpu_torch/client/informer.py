@@ -7,20 +7,30 @@ new to the cache as an add, a changed one as an update, and one that went
 while it was away as a delete, so no handler misses a delete.  Handlers
 run on the informer's own thread, one event at a time, in order.
 ``InformerFactory`` keeps one informer per resource.
+
+An informer caches the wire-form dicts, or, given ``decode`` (a function
+of a wire dict, as ``clientset.Clientset.informers`` passes the scheme's
+decoder), the typed objects it makes of them: the typed layer the port's
+scheduler reads, over the same list and watch.
 """
 
 from __future__ import annotations
 
 import threading
 import traceback
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
+from ..machinery import watch
 from ..utils.retry import Backoff
 from .errors import ApiError
 from .rest import Client, ResourceClient
 
 
-def object_key(obj: dict) -> str:
+def object_key(obj) -> str:
+    """``namespace/name`` (``name`` alone for a cluster-scoped object) of a
+    wire dict or a typed object."""
+    if not isinstance(obj, dict):
+        return obj.key()
     meta = obj.get("metadata") or {}
     ns = meta.get("namespace")
     return f"{ns}/{meta.get('name')}" if ns else meta.get("name", "")
@@ -28,11 +38,13 @@ def object_key(obj: dict) -> str:
 
 class SharedInformer:
     def __init__(self, client: ResourceClient, namespace: str = "",
-                 label_selector: str = ""):
+                 label_selector: str = "",
+                 decode: Optional[Callable[[dict], Any]] = None):
         self.client = client
         self.namespace = namespace
         self.label_selector = label_selector
-        self._cache: Dict[str, dict] = {}
+        self._decode = decode or (lambda obj: obj)
+        self._cache: Dict[str, Any] = {}
         self._lock = threading.Lock()
         self._handlers: List[Dict[str, Optional[Callable]]] = []
         self._synced = threading.Event()
@@ -65,10 +77,18 @@ class SharedInformer:
     def wait_for_sync(self, timeout: float = 10.0) -> bool:
         return self._synced.wait(timeout)
 
-    def list(self) -> List[dict]:
+    def has_synced(self) -> bool:
+        return self._synced.is_set()
+
+    def list(self) -> List[Any]:
         """The cached objects, shared with every handler: read, do not change."""
         with self._lock:
             return list(self._cache.values())
+
+    def get(self, key: str) -> Any:
+        """The cached object under ``namespace/name``, or None."""
+        with self._lock:
+            return self._cache.get(key)
 
     # ---------------------------------------------------------------- loop
 
@@ -83,7 +103,7 @@ class SharedInformer:
 
     def _relist(self) -> str:
         items, rv = self.client.list(self.namespace, self.label_selector)
-        fresh = {object_key(o): o for o in items}
+        fresh = {object_key(o): self._decode(o) for o in items}
         with self._lock:
             old, self._cache = self._cache, fresh
         self.relists += 1
@@ -107,17 +127,18 @@ class SharedInformer:
             for kind, obj in stream:
                 if self._stop.is_set():
                     return
-                if kind == "ERROR":
+                if kind == watch.ERROR:
                     return  # 410 in the stream: relist
-                if kind == "BOOKMARK":
+                if kind == watch.BOOKMARK:
                     continue
+                obj = self._decode(obj)
                 key = object_key(obj)
                 with self._lock:
-                    old = self._cache.pop(key, None) if kind == "DELETED" else \
+                    old = self._cache.pop(key, None) if kind == watch.DELETED else \
                         self._cache.get(key)
-                    if kind != "DELETED":
+                    if kind != watch.DELETED:
                         self._cache[key] = obj
-                if kind == "DELETED":
+                if kind == watch.DELETED:
                     self._dispatch("delete", obj if old is None else old)
                 elif old is None:
                     self._dispatch("add", obj)
@@ -141,17 +162,24 @@ class SharedInformer:
 
 
 class InformerFactory:
-    """One shared informer per resource (all namespaces, no selector)."""
+    """One shared informer per resource (all namespaces, no selector).
+    ``decode(plural, wire_dict)``, when given, makes every informer's
+    cache typed."""
 
-    def __init__(self, client: Client):
+    def __init__(self, client: Client,
+                 decode: Optional[Callable[[str, dict], Any]] = None):
         self.client = client
+        self._decode = decode
         self._informers: Dict[str, SharedInformer] = {}
         self._lock = threading.Lock()
 
     def informer(self, plural: str) -> SharedInformer:
         with self._lock:
             if plural not in self._informers:
-                self._informers[plural] = SharedInformer(self.client.resource(plural))
+                decode = None if self._decode is None else \
+                    (lambda obj, _p=plural: self._decode(_p, obj))
+                self._informers[plural] = SharedInformer(self.client.resource(plural),
+                                                         decode=decode)
             return self._informers[plural]
 
     def _all(self) -> List[SharedInformer]:

@@ -10,9 +10,11 @@ its own, whose line-delimited ``{"type", "object"}`` frames it yields,
 skipping the blank heartbeat lines.
 
 Only the verbs and resources the port calls are here: ``create``,
-``get``, ``list``, ``update``, ``delete`` and ``watch`` on pods, jobs,
-deployments, services, endpoints, poddisruptionbudgets, events and nodes,
-plus the pods' ``delete:batch`` and ``log``.
+``get``, ``list``, ``update``, ``patch``, ``delete`` and ``watch`` on pods,
+jobs, deployments, services, endpoints, poddisruptionbudgets, events and
+nodes, plus the pods' ``delete:batch`` and ``log``.  Every request carries
+the thread's trace context (``utils/spans``), so the apiserver's handling
+joins the caller's trace.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 from urllib.parse import urlencode, urlparse
 
+from ..utils import spans
 from ..utils.retry import Backoff
 from .errors import ApiError
 
@@ -138,6 +141,10 @@ class ResourceClient:
         return self.client.request("PUT", self.path(meta.get("namespace", ""), meta["name"]),
                                    self._body(obj))
 
+    def patch(self, name: str, patch: dict, namespace: str = "default") -> dict:
+        """A merge patch of the object."""
+        return self.client.request("PATCH", self.path(namespace, name), patch)
+
     def delete(self, name: str, namespace: str = "default",
                grace_seconds: Optional[int] = None) -> dict:
         params = {} if grace_seconds is None else {"gracePeriodSeconds": str(grace_seconds)}
@@ -213,7 +220,8 @@ class Client:
                 conn = self._conn()
                 conn.request(method, path, body=payload,
                              headers={"Content-Type": "application/json",
-                                      "Accept": "application/json"})
+                                      "Accept": "application/json",
+                                      spans.HEADER: spans.inject_header()})
                 sent = True
                 resp = conn.getresponse()
                 return resp.status, resp.read()

@@ -45,11 +45,13 @@ Discovery modes:
   domain field is one name for every card, or one a card, comma-separated
   (``nvl-a,nvl-a,nvl-b,nvl-b``); cards past the list take its last name.
 
-Every card also carries its NVLink domain and its position in the keys
-the JAX scheduler's slice-aware allocation reads (google.com/tpu/slice and
-google.com/tpu/coords, the JAX package's strings, copied): a pod's cards
-are then picked best-fit within one domain, in order of the card's minor
-(its index in fake mode), and a gang goes to one domain when one holds it.
+Every card carries its NVLink domain (nvidia.com/gpu/nvlink-domain) and
+its minor (nvidia.com/gpu/minor; its index in fake mode), which the port's
+scheduler reads: a pod's cards are picked best-fit within one domain, in
+order of the minor, and a gang goes to one domain when one holds it.  The
+same two also go under the keys the JAX scheduler's slice-aware
+allocation reads (google.com/tpu/slice and google.com/tpu/coords, the JAX
+package's strings, copied), for the clusters that still run it.
 
 Run it as ``python -m kubernetes1_tpu_torch.deviceplugin --plugin-dir D``.
 """
@@ -81,6 +83,7 @@ ATTR_GPU_MODEL = "nvidia.com/gpu/model"            # e.g. "NVIDIA H100 80GB HBM3
 ATTR_GPU_MEMORY = "nvidia.com/gpu/memory"          # MiB
 ATTR_GPU_UUID = "nvidia.com/gpu/uuid"
 ATTR_GPU_NVLINK_DOMAIN = "nvidia.com/gpu/nvlink-domain"
+ATTR_GPU_MINOR = "nvidia.com/gpu/minor"            # the minor; the index when fake
 # The keys the JAX scheduler's slice-aware allocation reads (its devices.py
 # pick_devices, priorities.py slice_packing, scheduler.py _place_gang): the
 # interconnect domain, and the position within it as integers joined by
@@ -122,13 +125,15 @@ def _device(dev_id: str, index: int, model: str, memory: str, uuid: str, domain:
             path: str = "", coord: Optional[int] = None) -> dict:
     """One card's dict; ``coord``, its position in its domain (the minor
     in real mode), defaults to its index."""
+    position = str(index if coord is None else coord)
     attrs = {
         ATTR_GPU_MODEL: model,
         ATTR_GPU_MEMORY: memory,
         ATTR_GPU_UUID: uuid,
         ATTR_GPU_NVLINK_DOMAIN: domain,
+        ATTR_GPU_MINOR: position,
         ATTR_SLICE: domain,
-        ATTR_COORDS: str(index if coord is None else coord),
+        ATTR_COORDS: position,
         ATTR_DEVICE_INDEX: str(index),
     }
     if path:

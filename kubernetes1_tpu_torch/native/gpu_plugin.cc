@@ -53,9 +53,12 @@ constexpr const char* kAttrModel = "nvidia.com/gpu/model";
 constexpr const char* kAttrMemory = "nvidia.com/gpu/memory";
 constexpr const char* kAttrUuid = "nvidia.com/gpu/uuid";
 constexpr const char* kAttrNvlinkDomain = "nvidia.com/gpu/nvlink-domain";
-// the keys the JAX scheduler's slice-aware allocation reads: the card's
-// interconnect domain and its position in it (the JAX package's strings,
-// copied)
+// the card's minor (its index in fake mode): with the NVLink domain, what
+// the port's scheduler picks cards by
+constexpr const char* kAttrMinor = "nvidia.com/gpu/minor";
+// the same two, under the keys the JAX scheduler's slice-aware allocation
+// reads: the card's interconnect domain and its position in it (the JAX
+// package's strings, copied)
 constexpr const char* kAttrSlice = "google.com/tpu/slice";
 constexpr const char* kAttrCoords = "google.com/tpu/coords";
 constexpr const char* kAttrDeviceIndex = "ktpu.io/device-index";
@@ -86,6 +89,7 @@ struct Device {
     attrs[kAttrMemory] = Json(card.memory_mib);
     attrs[kAttrUuid] = Json(card.uuid);
     attrs[kAttrNvlinkDomain] = Json(card.domain);
+    attrs[kAttrMinor] = Json(card.coords);
     attrs[kAttrSlice] = Json(card.domain);
     attrs[kAttrCoords] = Json(card.coords);
     attrs[kAttrDeviceIndex] = Json(card.index);

@@ -6,7 +6,8 @@ same classes and the same text format as the JAX package's
 exactly like the original's.  Histograms keep a bounded sample reservoir
 for in-process quantiles and cumulative ``_bucket`` counters for
 scrapers; every metric doubles as a family whose ``labels(...)``
-children render under one TYPE header.
+children render under one TYPE header.  ``MetricsServer`` serves a
+component process's registry (the port's scheduler's) over HTTP.
 """
 
 from __future__ import annotations
@@ -256,3 +257,89 @@ class Registry:
         with self._lock:
             metrics = list(self._metrics.values())
         return "".join(m.render() for m in metrics)  # type: ignore[attr-defined]
+
+
+class MetricsServer:
+    """A component process's /metrics, /healthz and /readyz (and
+    /debug/traces) over HTTP: the JAX package's ``MetricsServer`` without
+    its flight recorder and profiler endpoints.
+
+    ``extra`` maps a gauge name to a function read at each scrape.
+    ``ready_fn`` backs /readyz: None means ready while serving; a callable
+    gates readiness (informers synced, ...), and a falsy or raising one
+    answers 503.  ``spans`` (a ``utils.spans.SpanCollector``) backs
+    /debug/traces, served only on a loopback address."""
+
+    def __init__(self, registry: Registry, host: str = "127.0.0.1",
+                 port: int = 0, extra: Optional[Dict[str, object]] = None,
+                 ready_fn=None, spans=None):
+        import json as _json
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qs, urlsplit
+
+        from .logutil import RateLimitedReporter
+
+        extra_fns = dict(extra or {})
+        # a permanently broken gauge must not print once a scrape
+        gauge_err_reporter = RateLimitedReporter("metrics", window=60.0)
+        debug_enabled = host in ("127.0.0.1", "localhost", "::1")
+
+        class _H(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):  # noqa: D102
+                pass
+
+            def _send(self, status: int, ctype: str, body: bytes):
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                parts = urlsplit(self.path)
+                if parts.path == "/debug/traces" and debug_enabled and spans is not None:
+                    trace = (parse_qs(parts.query).get("trace") or [""])[0]
+                    self._send(200, "application/json", spans.to_json(trace))
+                elif parts.path == "/healthz":
+                    self._send(200, "application/json",
+                               _json.dumps({"status": "ok"}).encode())
+                elif parts.path == "/readyz":
+                    ready = True
+                    if ready_fn is not None:
+                        try:
+                            ready = bool(ready_fn())
+                        except Exception:  # noqa: BLE001 - a broken check reads as unready
+                            ready = False
+                    self._send(200 if ready else 503, "application/json", _json.dumps(
+                        {"status": "ok" if ready else "unready"}).encode())
+                elif parts.path == "/metrics":
+                    text = registry.render()
+                    for name, fn in extra_fns.items():
+                        try:
+                            text += f"# TYPE {name} gauge\n{name} {float(fn())}\n"
+                        except Exception as e:  # noqa: BLE001 - one bad gauge must not end /metrics
+                            gauge_err_reporter.report(f"extra gauge {name}: {e}")
+                    self._send(200, "text/plain; version=0.0.4", text.encode())
+                else:
+                    self._send(404, "text/plain", b"")
+
+        self._httpd = ThreadingHTTPServer((host, port), _H)
+        self._httpd.daemon_threads = True
+        self.host, self.port = self._httpd.server_address[:2]
+        self.url = f"http://{self.host}:{self.port}"
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "MetricsServer":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, kwargs={"poll_interval": 0.2},
+            daemon=True, name="metrics-server")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)

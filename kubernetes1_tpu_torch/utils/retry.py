@@ -2,13 +2,14 @@
 full jitter, and a loop that retries transient failures.
 
 The port's copy of the JAX package's ``client/retry.Backoff`` and
-``call_with_retries``, without what no caller of the port uses: the seeded
-jitter stream and the retry counter of the JAX package's chaos runner, and
-the Retry-After floor of its REST client.  Used by the plugin client's dial
-(``deviceplugin/api.py``), ``LoadGen`` (``workloads/loadgen.py``), which
-classifies its own failures, the apiserver client and its informer
-(``client/``, which keeps the apiserver's ``retry_on_conflict``) and
-``servefleet``.
+``call_with_retries``, and its retry counter (``retries_total``,
+``note_retry``: the scheduler's bind re-queues count there), without what
+no caller of the port uses: the seeded jitter stream of the JAX package's
+chaos runner and the Retry-After floor of its REST client.  Used by the
+plugin client's dial (``deviceplugin/api.py``), ``LoadGen``
+(``workloads/loadgen.py``), which classifies its own failures, the
+apiserver client and its informer (``client/``, which keeps the
+apiserver's ``retry_on_conflict``), ``servefleet`` and the scheduler.
 """
 
 from __future__ import annotations
@@ -17,7 +18,18 @@ import random
 import time
 from typing import Callable, Optional, TypeVar
 
+from .metrics import Counter
+
 T = TypeVar("T")
+
+# Every retry a control-plane client of the port takes, by reason (the
+# JAX package's family of the same name): its scheduler's bind re-queues
+# count here, and the scheduler process serves it on its /metrics.
+retries_total = Counter("ktpu_client_retries_total", "client retries by reason")
+
+
+def note_retry(reason: str) -> None:
+    retries_total.labels(reason=reason).inc()
 
 
 class Backoff:

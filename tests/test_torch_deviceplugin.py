@@ -30,6 +30,7 @@ from kubernetes1_tpu.scheduler.devices import allocate_for_pod
 from kubernetes1_tpu.scheduler.predicates import TOPOLOGY_TPU_SLICE, node_topology_value
 from kubernetes1_tpu.utils.waitutil import must_poll_until
 from kubernetes1_tpu_torch import GPU_RESOURCE
+from kubernetes1_tpu_torch.api import types as torch_types
 from kubernetes1_tpu_torch.deviceplugin import api as tapi
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.utils import faultline
@@ -421,7 +422,8 @@ def test_fake_inventory_spec_and_defaults(monkeypatch):
     assert devices[1]["attributes"] == {
         gp.ATTR_GPU_MODEL: "NVIDIA A100-SXM4-40GB", gp.ATTR_GPU_MEMORY: "40960",
         gp.ATTR_GPU_UUID: "GPU-fake-dom-h3-1", gp.ATTR_GPU_NVLINK_DOMAIN: "dom",
-        gp.ATTR_SLICE: "dom", gp.ATTR_COORDS: "1", gp.ATTR_DEVICE_INDEX: "1"}
+        gp.ATTR_GPU_MINOR: "1", gp.ATTR_SLICE: "dom", gp.ATTR_COORDS: "1",
+        gp.ATTR_DEVICE_INDEX: "1"}
     default = gp._fake_devices("")
     assert len(default) == 1 and default[0]["attributes"][gp.ATTR_GPU_MODEL] == H100
 
@@ -496,8 +498,9 @@ def test_real_discovery_walks_device_nodes_and_reads_nvidia_smi(tmp_path, monkey
     assert [d["id"] for d in devices] == [f"{host}-nvidia3"]
     assert devices[0]["attributes"] == {
         gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559", gp.ATTR_GPU_UUID: "GPU-aaa",
-        gp.ATTR_GPU_NVLINK_DOMAIN: f"{host}-nvl3", gp.ATTR_SLICE: f"{host}-nvl3",
-        gp.ATTR_COORDS: "3", gp.ATTR_DEVICE_INDEX: "0", gp.ATTR_DEVICE_PATH: str(dev / "nvidia3")}
+        gp.ATTR_GPU_NVLINK_DOMAIN: f"{host}-nvl3", gp.ATTR_GPU_MINOR: "3",
+        gp.ATTR_SLICE: f"{host}-nvl3", gp.ATTR_COORDS: "3", gp.ATTR_DEVICE_INDEX: "0",
+        gp.ATTR_DEVICE_PATH: str(dev / "nvidia3")}
     assert (tmp_path / "args").read_text().splitlines() == ["-q -x", "topo -m"]
     # what the pod is handed is that card's node and UUID, not /dev/nvidia0
     spec = gp.GPUDevicePlugin(devices=devices).init_container(
@@ -583,13 +586,31 @@ def test_every_card_carries_the_keys_the_scheduler_reads(tmp_path, monkeypatch, 
         str(m) for m in BOARDS[board][0]]
 
 
+@pytest.mark.parametrize("board", sorted(BOARDS))
+def test_every_card_carries_its_minor_for_the_ports_scheduler(tmp_path, monkeypatch, board):
+    """The port's scheduler reads nvidia.com/gpu/nvlink-domain and
+    nvidia.com/gpu/minor: the minor is the card's, the value the JAX
+    scheduler's google.com/tpu/coords carries too."""
+    devices = board_devices(tmp_path, monkeypatch, board)
+    assert [d["attributes"][gp.ATTR_GPU_MINOR] for d in devices] == [
+        str(m) for m in BOARDS[board][0]]
+    assert [d["attributes"][gp.ATTR_GPU_MINOR] for d in devices] == [
+        d["attributes"][gp.ATTR_COORDS] for d in devices]
+
+
+def test_gpu_keys_are_the_ports_api_types():
+    assert (gp.ATTR_GPU_NVLINK_DOMAIN, gp.ATTR_GPU_MINOR) == (
+        torch_types.ATTR_GPU_NVLINK_DOMAIN, torch_types.ATTR_GPU_MINOR)
+
+
 def test_slice_keys_are_the_jax_packages():
     assert (gp.ATTR_SLICE, gp.ATTR_COORDS) == (t.ATTR_TPU_SLICE, t.ATTR_TPU_CHIP_COORDS)
 
 
 def test_fake_domain_list_gives_one_domain_a_card():
     """KTPU_FAKE_GPUS's domain field, comma-separated: one name a card,
-    the last repeated past the list; the coords are the index."""
+    the last repeated past the list; the coords (and the minor) are the
+    index."""
     devices = gp._fake_devices(f"{H100}:5:nvl-a,nvl-a,nvl-b:2")
     assert [d["id"] for d in devices] == ["nvl-a-h2-gpu0", "nvl-a-h2-gpu1", "nvl-b-h2-gpu2",
                                           "nvl-b-h2-gpu3", "nvl-b-h2-gpu4"]
@@ -597,6 +618,7 @@ def test_fake_domain_list_gives_one_domain_a_card():
              d["attributes"][gp.ATTR_COORDS]) for d in devices] == [
         ("nvl-a", "nvl-a", "0"), ("nvl-a", "nvl-a", "1"), ("nvl-b", "nvl-b", "2"),
         ("nvl-b", "nvl-b", "3"), ("nvl-b", "nvl-b", "4")]
+    assert [d["attributes"][gp.ATTR_GPU_MINOR] for d in devices] == ["0", "1", "2", "3", "4"]
     assert [d["attributes"][gp.ATTR_GPU_UUID] for d in devices][2] == "GPU-fake-nvl-b-h2-2"
 
 

@@ -19,6 +19,15 @@ scheduler picks cards by NVLink domain (the fake spec's domain field one a
 card): a 2-card pod gets an intact pair, and a gang of 2 workers x 2 cards
 goes whole to the NVLink domain that holds it.
 
+The scheduling tests run under each scheduler (the ``control_plane``
+fixture's parameter): ``jax``, the JAX package's ``Scheduler`` in
+process, and ``torch``, the port's, as the process ``python -m
+kubernetes1_tpu_torch scheduler --server <url>`` (stopped by SIGTERM).
+Both give the same node and the same cards: the waiting pod's reason,
+affinity on the cards' model and memory, a 2-card pod on one NVLink pair,
+a gang on the domain that holds it, a gang bound all or nothing, and a
+pod of higher priority preempting the pod that holds the cards.
+
 The kubelets read no eviction signals: these tests are about devices, and
 a pod must not be evicted because the host's disk is nearly full.
 """
@@ -26,6 +35,7 @@ a pod must not be evicted because the host's disk is nearly full.
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -51,6 +61,7 @@ from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
 from kubernetes1_tpu_torch.workloads import specs
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H100 = "NVIDIA H100 80GB HBM3"
 A100 = "NVIDIA A100-SXM4-40GB"
 INJECTED = ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER")
@@ -94,12 +105,45 @@ def _kubelet(cs, name, runtime, plugin_dir):
                    capacity={"cpu": "16", "memory": "64Gi", "pods": "110"})
 
 
+class _PortScheduler:
+    """The port's scheduler process against the apiserver at ``url``, its
+    output in ``log``; stopped as the JAX ``Scheduler`` is."""
+
+    def __init__(self, url, log):
+        self.log = log
+        with open(log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "kubernetes1_tpu_torch", "scheduler", "--server", url,
+                 "--metrics-port", "-1"], cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            must_poll_until(self._running, timeout=30.0, desc="the port's scheduler running")
+        except BaseException:
+            self.stop()
+            raise
+
+    def _running(self):
+        if self.proc.poll() is not None:
+            raise RuntimeError(f"the port's scheduler exited {self.proc.returncode}: "
+                               f"{open(self.log).read()}")
+        return "scheduler running" in open(self.log).read()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        assert self.proc.wait(timeout=15) == 0, open(self.log).read()
+
+
 @pytest.fixture()
-def control_plane():
+def control_plane(request, tmp_path):
+    """The JAX apiserver and controllers in process, and a scheduler: the
+    JAX one in process, or with the parameter ``torch``, the port's process."""
     master = Master().start()
     cs = Clientset(master.url)
-    sched = Scheduler(cs)
-    sched.start()
+    if getattr(request, "param", "jax") == "torch":
+        sched = _PortScheduler(master.url, str(tmp_path / "scheduler.log"))
+    else:
+        sched = Scheduler(cs)
+        sched.start()
     cm = ControllerManager(cs, monitor_grace=5.0, eviction_timeout=5.0)
     cm.start()
     yield master, cs
@@ -187,6 +231,7 @@ def nodes(request, control_plane, tmp_path):
 
 BOTH_PLUGINS = pytest.mark.parametrize("gpu_node", ["python", "native"], indirect=True)
 NODES_BOTH_PLUGINS = pytest.mark.parametrize("nodes", ["python", "native"], indirect=True)
+BOTH_SCHEDULERS = pytest.mark.parametrize("control_plane", ["jax", "torch"], indirect=True)
 
 
 def _cards(cs, node):
@@ -234,7 +279,8 @@ def test_node_advertises_the_card_and_a_pod_gets_it(gpu_node):
     assert card.attributes == {
         gp.ATTR_GPU_MODEL: H100, gp.ATTR_GPU_MEMORY: "81559",
         gp.ATTR_GPU_UUID: "GPU-fake-nv0-h0-0", gp.ATTR_GPU_NVLINK_DOMAIN: "nv0",
-        gp.ATTR_SLICE: "nv0", gp.ATTR_COORDS: "0", gp.ATTR_DEVICE_INDEX: "0"}
+        gp.ATTR_GPU_MINOR: "0", gp.ATTR_SLICE: "nv0", gp.ATTR_COORDS: "0",
+        gp.ATTR_DEVICE_INDEX: "0"}
     out = tmp / "env.json"
     cs.pods.create(_pod("cuda-env", _env_dump(out)))
     must_poll_until(lambda: _phase(cs, "cuda-env") == t.POD_SUCCEEDED, timeout=60.0,
@@ -247,6 +293,7 @@ def test_node_advertises_the_card_and_a_pod_gets_it(gpu_node):
                                            "CUDA_DEVICE_ORDER": "PCI_BUS_ID"}
 
 
+@BOTH_SCHEDULERS
 @BOTH_PLUGINS
 def test_second_pod_waits_with_insufficient_gpu_until_the_card_is_free(gpu_node):
     cs = gpu_node["cs"]
@@ -321,6 +368,7 @@ def test_mnist_job_from_the_manifest_succeeds_with_the_injected_env(gpu_node):
     assert json.loads(out.read_text())["CUDA_VISIBLE_DEVICES"] == "0"
 
 
+@BOTH_SCHEDULERS
 def test_affinity_on_model_and_memory_picks_the_node(hollow_nodes):
     cs = hollow_nodes["cs"]
     big = [{"key": gp.ATTR_GPU_MODEL, "operator": "In", "values": [H100]},
@@ -371,6 +419,7 @@ def _assigned(cs, name):
     return pod.spec.node_name, pod.spec.extended_resources[0].assigned
 
 
+@BOTH_SCHEDULERS
 @NODES_BOTH_PLUGINS
 def test_two_card_pod_lands_on_one_nvlink_pair(nodes):
     """A node of two fake NVLink pairs (nvl-a: cards 0, 1; nvl-b: 2, 3):
@@ -389,6 +438,7 @@ def test_two_card_pod_lands_on_one_nvlink_pair(nodes):
     assert _assigned(cs, "two") == ("pairs-node", ["nvl-b-h0-gpu2", "nvl-b-h0-gpu3"])
 
 
+@BOTH_SCHEDULERS
 @NODES_BOTH_PLUGINS
 def test_gang_goes_to_the_nvlink_domain_that_holds_it(nodes):
     """A node of two NVLink pairs (4 cards) and one of an 8-card NVSwitch
@@ -418,3 +468,74 @@ def test_gang_goes_to_the_nvlink_domain_that_holds_it(nodes):
     assert {p.spec.node_name for p in pods} == {"switch-node"}
     cards = sorted(c for p in pods for c in p.spec.extended_resources[0].assigned)
     assert cards == [f"nvl-0-h0-gpu{i}" for i in range(4)]
+
+
+# --------------------------------- gangs and preemption, under each scheduler
+
+
+def _gang_pod(name, gpus, gang, size, priority=0):
+    pod = _pod(name, "pass", gpus=gpus)
+    pod.spec.scheduling_gang, pod.spec.gang_size, pod.spec.priority = gang, size, priority
+    return pod
+
+
+@BOTH_SCHEDULERS
+def test_gang_binds_all_or_nothing(nodes):
+    """Two hosts of 4 cards in one NVLink domain (``fabric``): a gang of 2
+    pods x 4 cards binds whole, a host each, every card of each.  The
+    scheduler integration suite's gang scenario, on fake GPU nodes."""
+    nodes.add("h0", f"{H100}:4:fabric:0", hollow=True)
+    nodes.add("h1", f"{H100}:4:fabric:1", hollow=True)
+    cs = nodes.cs
+    for i in range(2):
+        cs.pods.create(_gang_pod(f"worker-{i}", 4, "bert", 2))
+    must_poll_until(lambda: all(_phase(cs, f"worker-{i}") == t.POD_RUNNING for i in range(2)),
+                    timeout=30.0, desc="both gang members running")
+    got = sorted(_assigned(cs, f"worker-{i}") for i in range(2))
+    assert got == [("h0", [f"fabric-h0-gpu{k}" for k in range(4)]),
+                   ("h1", [f"fabric-h1-gpu{k}" for k in range(4)])]
+
+
+@BOTH_SCHEDULERS
+def test_gang_waits_for_all_members(nodes):
+    """A gang of 2 with one member made: nothing binds until the second
+    exists, then both bind."""
+    nodes.add("h0", f"{H100}:4:fabric:0", hollow=True)
+    nodes.add("h1", f"{H100}:4:fabric:1", hollow=True)
+    cs = nodes.cs
+    cs.pods.create(_gang_pod("lone-0", 4, "solo", 2))
+    time.sleep(1.0)
+    assert cs.pods.get("lone-0", "default").spec.node_name == ""  # an incomplete gang holds
+    cs.pods.create(_gang_pod("lone-1", 4, "solo", 2))
+    must_poll_until(lambda: all(_phase(cs, f"lone-{i}") == t.POD_RUNNING for i in range(2)),
+                    timeout=30.0, desc="the completed gang running")
+    assert sorted(_assigned(cs, f"lone-{i}")[0] for i in range(2)) == ["h0", "h1"]
+
+
+@BOTH_SCHEDULERS
+def test_high_priority_pod_preempts_the_pod_holding_the_cards(nodes):
+    """A node of 4 cards held whole by a pod of priority 0: a pod of
+    priority 100 asking for 4 evicts it through the eviction subresource
+    (the scheduler's Preempted event on the victim) and binds the same 4
+    cards once the kubelet has finished the victim."""
+    nodes.add("n1", f"{H100}:4:nvl:0", hollow=True)
+    cs = nodes.cs
+    cs.pods.create(_gang_pod("victim", 4, "", 0))
+    must_poll_until(lambda: _phase(cs, "victim") == t.POD_RUNNING, timeout=30.0,
+                    desc="the victim running on the cards")
+    cards = [f"nvl-h0-gpu{k}" for k in range(4)]
+    assert _assigned(cs, "victim") == ("n1", cards)
+    cs.pods.create(_gang_pod("vip", 4, "", 0, priority=100))
+    must_poll_until(lambda: _phase(cs, "vip") == t.POD_RUNNING, timeout=45.0,
+                    desc="the preemptor running")
+    assert _assigned(cs, "vip") == ("n1", cards)
+    with pytest.raises(NotFound):
+        cs.pods.get("victim", "default")
+
+    def preempted():
+        events, _ = cs.events.list(namespace="default")
+        return [e.message for e in events
+                if e.involved_object.name == "victim" and e.reason == "Preempted"]
+
+    must_poll_until(preempted, timeout=10.0, desc="the scheduler's Preempted event")
+    assert preempted() == ["preempted by default/vip (priority 100)"]

@@ -326,6 +326,24 @@ def test_real_mode_inventory_over_nvml_equals_the_python_plugins(
     assert devices == want
 
 
+@pytest.mark.parametrize("board", sorted(BOARDS))
+def test_real_mode_minor_equals_the_python_plugins(
+        native_bins, standin_nvml, tmp_path, monkeypatch, board):
+    """nvidia.com/gpu/minor, the key the port's scheduler orders cards by,
+    is each card's NVML minor in the native inventory and its nvidia-smi
+    minor in the Python one."""
+    minors, links, _ = BOARDS[board]
+    want = board_devices(tmp_path, monkeypatch, board)
+    env = {**_fake_env(None), "KTPU_DEV_DIR": os.environ["KTPU_DEV_DIR"],
+           "LD_LIBRARY_PATH": standin_nvml["p2p"],
+           "STANDIN_NVML_MINORS": ",".join(map(str, minors)),
+           "STANDIN_NVML_LINKS": ",".join(f"{i}-{j}" for i, j in links)}
+    with native_real_plugin(native_bins[native.PLUGIN], tmp_path / "plugins", env) as client:
+        devices = first_inventory(client)
+    got = [d["attributes"][gp.ATTR_GPU_MINOR] for d in devices]
+    assert got == [d["attributes"][gp.ATTR_GPU_MINOR] for d in want] == [str(m) for m in minors]
+
+
 def test_scheduler_picks_one_nvlink_pair_from_the_native_inventory(
         native_bins, standin_nvml, tmp_path, monkeypatch):
     """The bridged-pairs board through the native plugin's real mode: the
