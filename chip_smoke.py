@@ -143,12 +143,13 @@
    (mnist.train: 50 SGD steps of batch 256) on the card, checking the
    loss, the accuracy (>= 0.9) and the launches per step;
 24. (the nvidia.com/gpu device plane) runs the orchestrator as child
-   processes: the port's scheduler (`python -m kubernetes1_tpu_torch
-   scheduler`, which picks a pod's cards by NVLink domain and minor), the
-   JAX package's unchanged apiserver, controller manager and kubelet
-   (`python -m kubernetes1_tpu <component>`, a ProcessRuntime node; none
-   of them imports JAX) and the port's GPU plugin in real mode, and speaks
-   to the apiserver over HTTP: the node must advertise the one card as
+   processes: the port's apiserver (`python -m kubernetes1_tpu_torch
+   apiserver`, its in-memory store and admission chain) and scheduler
+   (`python -m kubernetes1_tpu_torch scheduler`, which picks a pod's cards
+   by NVLink domain and minor), the JAX package's unchanged controller
+   manager and kubelet (`python -m kubernetes1_tpu <component>`, a
+   ProcessRuntime node; neither imports JAX) and the port's GPU plugin in
+   real mode, and speaks to the apiserver over HTTP: the node must advertise the one card as
    torch names it, with its NVLink domain and minor; ResNet-50 at 128 x 224^2
    through resnet_bench as a Job (workloads.specs.payload_job) must be
    scheduled, get the card's ID and its UUID in CUDA_VISIBLE_DEVICES, and
@@ -167,8 +168,14 @@
    The "cluster: scheduler" line names the port's scheduler process, the
    node and cards it bound each Job's, the serving, the learner's and the
    launcher's pod to, and the ResNet-50 Job's chip_alloc_s: it must have
-   bound each of them.  The pods' launches happen in their own processes:
-   no launches column (the fleet of 26. decodes in this process: ``fleet``);
+   bound each of them.  A pod of the pre-v2 PodSpec (a container limit
+   nvidia.com/gpu: 1, no extendedResources) must be admitted with the
+   limit rewritten by the port's ResourceV2 into a uuid-named pod-level
+   extended resource, get the card and run; the "cluster: apiserver" line
+   names the port's apiserver process, its start-to-/healthz seconds, the
+   requests it served by verb and that pod's card.  The pods' launches
+   happen in their own processes: no launches column (the fleet of 26.
+   decodes in this process: ``fleet``);
 25. (the native node components, before 24.) runs ktpu-gpu-plugin in real
    mode: its inventory, read through the port's PluginClient, equals the
    Python plugin's, its injection names the card by UUID, and SIGTERM
@@ -179,7 +186,7 @@
    port's apiserver client (kubernetes1_tpu_torch/client) speaks to) runs
    rl_actor's learner Job on the card (one gang-scheduled worker with one
    nvidia.com/gpu: the card's ID, its UUID, its name in the learner's log)
-   while the port's ChurnDriver recycles 4 CPU actor pods at 4 ops/s for
+   while the port's ChurnDriver recycles 8 CPU actor pods at 4 ops/s for
    20 s, the actors posting experience to the learner: no create or delete
    error, the actors' Endpoints converged, the fleet drained, the learner's
    batches equal to its ingest counter and its policy ranking arm 7 above
@@ -521,8 +528,11 @@ POWER_LIMIT_TOL_W = 1.0
 # The RL leg (rl_leg): the port's ChurnDriver recycles this many CPU actor
 # pods at this many creates and deletes a second for this long, against the
 # learner Job on the card; the actors' Service Endpoints must then converge
-# to the Ready actors within RL_CONVERGE_S.
-RL_ACTORS, RL_RATE, RL_CHURN_S, RL_CONVERGE_S = 4, 4.0, 20.0, 30.0
+# to the Ready actors within RL_CONVERGE_S.  An actor lives RL_ACTORS /
+# (RL_RATE / 2) s, about 4: its start (python and numpy) takes 0.7-1.0 s of
+# it on the chip machine, and at 4 actors (2 s lives) a slow host left the
+# learner no batch (rl_churn_probe.py measures both).
+RL_ACTORS, RL_RATE, RL_CHURN_S, RL_CONVERGE_S = 8, 4.0, 20.0, 30.0
 # The fleet leg (fleet_leg): a Deployment of this many waiting CPU pods, a
 # Llama-3-8B DecodeServer in this process for each, rolled once; after the
 # fleet stops, the card's memory must come back to its value before the
@@ -3815,18 +3825,23 @@ def _compute_pids() -> set:
 
 
 PYTHON_PLUGIN = (sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin")
-PORT_SCHEDULER = "kubernetes1_tpu_torch-scheduler"  # its process's name in Cluster
+PORT_APISERVER = "kubernetes1_tpu_torch-apiserver"  # its process's name in Cluster
+PORT_SCHEDULER = "kubernetes1_tpu_torch-scheduler"
+REQUEST_LINE = re.compile(r'^apiserver_request_total\{method="(\w+)",resource="[^"]*"\} (\d+)$',
+                          re.M)
 BOUND_LINE = re.compile(r"^scheduler: bound default/(\S+) to (\S+)(?: devices=(.*))?$", re.M)
 
 
 class Cluster:
     """The orchestrator as child processes of this one: the port's
-    scheduler, the JAX package's unchanged apiserver, controller manager
-    and kubelet (a ProcessRuntime node), and a GPU plugin in real mode (no
-    KTPU_FAKE_GPUS) in the node's plugin dir: ``plugin``, its command
-    before ``--plugin-dir``, the port's Python plugin unless another is
-    given.  Spoken to over HTTP.  ``stop`` deletes every workload, stops
-    every process and returns the pod processes that survived, killed."""
+    apiserver and scheduler, the JAX package's unchanged controller
+    manager and kubelet (a ProcessRuntime node), and a GPU plugin in real
+    mode (no KTPU_FAKE_GPUS) in the node's plugin dir: ``plugin``, its
+    command before ``--plugin-dir``, the port's Python plugin unless
+    another is given.  Spoken to over HTTP.  ``healthz_s`` is the
+    apiserver's start-to-/healthz time.  ``stop`` deletes every workload,
+    stops every process and returns the pod processes that survived,
+    killed."""
 
     def __init__(self, tmp: str, plugin=PYTHON_PLUGIN):
         self.tmp, self.procs, self.logs = tmp, [], []
@@ -3839,9 +3854,11 @@ class Cluster:
         self.env.pop("KTPU_FAKE_GPUS", None)
         try:
             component = [sys.executable, "-m", "kubernetes1_tpu"]
-            self._start("apiserver", [*component, "apiserver", "--port",
-                                      self.url.rsplit(":", 1)[1]])
-            _wait("the apiserver", self._healthy, 120)
+            t0 = time.perf_counter()
+            self._start(PORT_APISERVER, [sys.executable, "-m", "kubernetes1_tpu_torch",
+                                         "apiserver", "--port", self.url.rsplit(":", 1)[1]])
+            _wait("the port's apiserver", self._healthy, 120, 0.02)
+            self.healthz_s = time.perf_counter() - t0
             server = ["--server", self.url]
             self._start(PORT_SCHEDULER, [sys.executable, "-m", "kubernetes1_tpu_torch", "scheduler",
                                          *server, "--metrics-port", "-1"])
@@ -3908,6 +3925,30 @@ class Cluster:
               + ", ".join(f"{p} -> {bound[p][0]} {bound[p][1]}" for p in pods)
               + f"; chip_alloc_s={alloc_s:.3f} on [{card}]", flush=True)
         return sorted(bound)
+
+    def requests_by_verb(self) -> dict:
+        """{verb: requests} the port's apiserver has served, from its /metrics."""
+        text = self.client.request("GET", "/metrics", raw=True).decode()
+        out = {}
+        for verb, n in REQUEST_LINE.findall(text):
+            out[verb] = out.get(verb, 0) + int(n)
+        return out
+
+    def apiserver_line(self, card: str, served: dict, rewritten: dict, alloc_s: float):
+        """The "cluster: apiserver" line: the process that served the
+        cluster, its start-to-/healthz seconds, the requests it served by
+        verb, the card of the pod whose nvidia.com/gpu limit it rewrote,
+        and the ResNet-50 Job's chip_alloc_s."""
+        proc = dict(self.procs)[PORT_APISERVER]
+        if not served.get("POST") or not served.get("GET"):
+            fail(f"cluster: the port's apiserver served {served}")
+        print(f"cluster: apiserver python -m kubernetes1_tpu_torch (pid {proc.pid}) /healthz "
+              f"{self.healthz_s:.3f} s after its start; served "
+              + ", ".join(f"{v} {n}" for v, n in sorted(served.items()))
+              + f"; ResourceV2 rewrote pod {rewritten['name']}'s nvidia.com/gpu limit into the "
+              f"pod-level extended resource {rewritten['resource']} and it got "
+              f"{rewritten['assigned']}; "
+              f"chip_alloc_s={alloc_s:.3f} on [{card}]", flush=True)
 
     def advertised(self) -> list:
         """The node's nvidia.com/gpu devices once it advertises them; fails
@@ -4542,6 +4583,41 @@ def multicard_leg(cl: "Cluster", card: str, devs: list) -> dict:
     return res
 
 
+def resource_v2_leg(cl: "Cluster", card_id: str, uuid: str) -> dict:
+    """A pod of the pre-v2 PodSpec: a container limit nvidia.com/gpu: 1 and
+    no extendedResources.  The port's ResourceV2 rewrites the limit into a
+    uuid-named pod-level extended resource that the container requests;
+    the pod gets the card (CUDA_VISIBLE_DEVICES is its UUID) and runs to
+    its end; its stored spec shows the rewrite.  Deleted after, so that
+    the card is free again."""
+    name = "pre-v2-limit"
+    cl.client.pods.create({"metadata": {"name": name, "namespace": "default"}, "spec": {
+        "containers": [{"name": "main", "image": "ktpu/torch-workload", "command": [
+            sys.executable, "-c",
+            "import os; print('visible', os.environ.get('CUDA_VISIBLE_DEVICES'))"],
+            "resources": {"limits": {"nvidia.com/gpu": 1}}}],
+        "restartPolicy": "Never"}})
+    pod = _wait("the pre-v2 pod to finish", lambda: next(
+        (p for p in cl.pods() if p["metadata"]["name"] == name
+         and (p.get("status") or {}).get("phase") in ("Succeeded", "Failed")), None), 120, 0.1)
+    said = cl.pod_log(name)
+    spec = pod["spec"]
+    (per,) = spec.get("extendedResources") or [{}]
+    c = spec["containers"][0]
+    if pod["status"]["phase"] != "Succeeded" or per.get("resource") != "nvidia.com/gpu" or \
+            per.get("quantity") != 1 or per.get("assigned") != [card_id] or \
+            len(per.get("name", "")) != 36 or c.get("extendedResourceRequests") != [per["name"]] or \
+            "nvidia.com/gpu" in ((c.get("resources") or {}).get("limits") or {}) or \
+            f"visible {uuid}" not in said:
+        fail(f"cluster: the pre-v2 pod's stored spec is {json.dumps(spec)}, its status "
+             f"{json.dumps(pod.get('status'))}, its log {said!r}; want the limit rewritten "
+             f"into one uuid-named nvidia.com/gpu extended resource, [{card_id}] assigned "
+             f"and CUDA_VISIBLE_DEVICES {uuid}")
+    cl.delete_pod(name)
+    _wait("the pre-v2 pod to go", lambda: all(p["metadata"]["name"] != name for p in cl.pods()))
+    return {"name": name, "resource": per["name"], "assigned": per["assigned"]}
+
+
 def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     """The nvidia.com/gpu device plane on the card: the orchestrator in
     child processes with the port's plugin in real mode.  (a) the node
@@ -4556,9 +4632,13 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     DecodeServer's tokens, then takes LoadGen's open-loop traffic with no
     request failed or shed; (e) the RL learner under churn (rl_leg); (f)
     the 8B fleet (fleet_leg); (g) config 4's multi-card Job at one card
-    (multicard_leg); nothing survives teardown.  The port's scheduler
-    placed every pod: its "cluster: scheduler" line names the process and
-    each of those pods' node and cards."""
+    (multicard_leg); (h) a pod of the pre-v2 PodSpec gets the card
+    (resource_v2_leg); nothing survives teardown.  The port's apiserver
+    served the cluster and the port's scheduler placed every pod: the
+    "cluster: scheduler" line names the process and each of those pods'
+    node and cards, the "cluster: apiserver" line the apiserver process,
+    its start-to-/healthz seconds, the requests it served by verb and the
+    rewritten pod's card."""
     from kubernetes1_tpu_torch.workloads import specs
 
     kind = torch.cuda.get_device_name(0)
@@ -4650,7 +4730,8 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
                 said.group(2).strip() != kind or \
                 mdone["spec"]["extendedResources"][0].get("assigned") != [card_id]:
             fail(f"cluster: the MNIST Job's pod said {mlog!r}")
-        placed = [pod["metadata"]["name"], mdone["metadata"]["name"]]
+        rewritten = resource_v2_leg(cl, card_id, uuid)
+        placed = [pod["metadata"]["name"], mdone["metadata"]["name"], rewritten["name"]]
         res.update(chip_alloc_s=alloc_s, pod_start_s=start_s,
                    job_imgs_per_s=job["imgs_per_sec"], job_step_ms=job["step_time_ms"],
                    job_first_loss=job["first_loss"], first_loss_gap=gap,
@@ -4702,6 +4783,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         res["multicard"] = multicard_leg(cl, card, devs)
         res["fleet"] = fleet_leg(cl, card)
         placed += [res["rl"]["pod"], res["multicard"]["pod"]]
+        served = cl.requests_by_verb()
     except SystemExit:
         cl.report_failure()
         raise
@@ -4720,6 +4802,8 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
              f"{'still there' if os.path.exists(cl.socket) else 'gone'}, ports {listening} "
              f"of the learner and the fleet's backends still listen")
     res["scheduled"] = cl.scheduler_line(card, res["chip_alloc_s"], placed)
+    cl.apiserver_line(card, served, rewritten, res["chip_alloc_s"])
+    res.update(apiserver_healthz_s=cl.healthz_s, apiserver_served=served, rewritten=rewritten)
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"cluster: teardown left no pod process (no actor, no learner), no new process on "
           f"the card, no plugin socket and no fleet backend on [{card}]", flush=True)

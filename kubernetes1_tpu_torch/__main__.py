@@ -1,5 +1,6 @@
 """The port's component processes behind one entry point:
 
+    python -m kubernetes1_tpu_torch apiserver --port N [--host H]
     python -m kubernetes1_tpu_torch scheduler --server URL [--metrics-port -1]
 
 (the JAX package's ``python -m kubernetes1_tpu <component>``, for the
@@ -12,6 +13,7 @@ import importlib
 import sys
 
 COMPONENTS = {
+    "apiserver": "kubernetes1_tpu_torch.apiserver.__main__",
     "scheduler": "kubernetes1_tpu_torch.scheduler.__main__",
 }
 

@@ -1,9 +1,10 @@
-"""The apiserver's errors, as the port's client raises them.
+"""The apiserver's errors, as the port's apiserver answers them and its
+client raises them.
 
 A failed call answers with a Status body (``{"kind": "Status", "code",
 "reason", "message"}``); ``ApiError.from_status`` turns it into the class
 named by its reason, as the JAX package's ``machinery.ApiError`` does, and
-keeps the body.  The port's ``machinery.errors`` re-exports these classes:
+keeps the body; ``to_status`` is the body the apiserver answers.  The port's ``machinery.errors`` re-exports these classes:
 they are its one error hierarchy.  ``is_transient`` says which failures a
 retry may cure, and ``retry_on_conflict`` reruns a read-modify-write that
 lost a race.
@@ -39,6 +40,17 @@ class ApiError(Exception):
         if code is not None:
             self.code = code
         self.status = status
+
+    def to_status(self) -> dict:
+        """The Status body the apiserver answers this error with."""
+        return {
+            "kind": "Status",
+            "apiVersion": "v1",
+            "status": "Failure",
+            "code": self.code,
+            "reason": self.reason,
+            "message": self.message,
+        }
 
     @staticmethod
     def from_status(status: dict) -> "ApiError":

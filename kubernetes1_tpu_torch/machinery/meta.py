@@ -10,12 +10,17 @@ from __future__ import annotations
 
 import copy
 import time
+import uuid
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 
 def now_iso() -> str:
     return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+def new_uid() -> str:
+    return str(uuid.uuid4())
 
 
 @dataclass

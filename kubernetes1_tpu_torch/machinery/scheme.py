@@ -157,14 +157,22 @@ def from_dict(cls: Type, data: Any) -> Any:
 
 
 class Scheme:
-    """Type registry: maps a resource plural ("pods") to its dataclass
-    (ref: runtime.Scheme and the RESTMapper)."""
+    """Kind registry: maps a resource plural ("pods") and a kind ("Pod")
+    to its dataclass, and says whether the resource is namespaced (ref:
+    runtime.Scheme and the RESTMapper)."""
 
     def __init__(self):
+        self.by_kind: Dict[str, Type] = {}
         self.by_resource: Dict[str, Type] = {}
+        self.resource_of: Dict[str, str] = {}  # kind -> plural
+        self.namespaced: Dict[str, bool] = {}  # plural -> bool
 
-    def register(self, cls: Type, plural: str):
+    def register(self, cls: Type, plural: str, namespaced: bool = True):
+        kind = cls.KIND or cls.__name__
+        self.by_kind[kind] = cls
         self.by_resource[plural] = cls
+        self.resource_of[kind] = plural
+        self.namespaced[plural] = namespaced
         return cls
 
     def encode(self, obj: Any) -> Dict[str, Any]:
@@ -173,6 +181,13 @@ class Scheme:
         d["kind"] = type(obj).KIND or type(obj).__name__
         d["apiVersion"] = type(obj).API_VERSION
         return d
+
+    def decode(self, data: Dict[str, Any]) -> Any:
+        """The typed object of a wire dict, by its kind; None for a kind
+        the scheme does not know (the JAX package's scheme answers such a
+        dict with an untyped object, which the apiserver then refuses)."""
+        cls = self.by_kind.get(data.get("kind", ""))
+        return None if cls is None else from_dict(cls, data)
 
     def decode_as(self, plural: str, data: Dict[str, Any]) -> Any:
         """The typed object for an item of resource ``plural``: list items

@@ -11,12 +11,12 @@ from __future__ import annotations
 
 import argparse
 import gc
-import os
 import signal
 import threading
 
 from ..client.clientset import Clientset
 from ..utils import retry as _retry
+from ..utils.procutil import bounded_exit
 from .scheduler import Scheduler
 
 
@@ -27,15 +27,6 @@ def _tune_gc():
     JAX package's ``utils/gctune``)."""
     gc.freeze()
     gc.set_threshold(200000, 50, 50)
-
-
-def _bounded_exit(delay: float = 5.0, code: int = 1) -> threading.Timer:
-    """Hard-exit, nonzero, if a graceful stop hangs (a dead apiserver must
-    not leave the process in informer retries forever)."""
-    timer = threading.Timer(delay, lambda: os._exit(code))
-    timer.daemon = True
-    timer.start()
-    return timer
 
 
 def main():
@@ -56,7 +47,7 @@ def main():
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     stop.wait()
-    _bounded_exit(5.0)
+    bounded_exit(5.0)
     sched.stop()
 
 

@@ -40,6 +40,18 @@ def format_context(ctx: SpanContext) -> str:
     return f"{ctx.trace_id}/{ctx.span_id}"
 
 
+def parse_header(value: str) -> Optional[SpanContext]:
+    """SpanContext from an X-Ktpu-Trace header value; None when absent or
+    malformed (a bad header must never fail the request it rides on)."""
+    if not value or "/" not in value:
+        return None
+    trace_id, _, span_id = value.partition("/")
+    trace_id, span_id = trace_id.strip(), span_id.strip()
+    if not trace_id or not span_id:
+        return None
+    return SpanContext(trace_id, span_id)
+
+
 # ------------------------------------------------------------ active span
 
 _tls = threading.local()
@@ -48,6 +60,11 @@ _tls = threading.local()
 def current_span() -> Optional["Span"]:
     stack = getattr(_tls, "stack", None)
     return stack[-1] if stack else None
+
+
+def current_trace_id() -> str:
+    sp = current_span()
+    return sp.trace_id if sp is not None else ""
 
 
 def inject_header() -> str:

@@ -684,6 +684,11 @@ def main(argv=None):
         except KeyboardInterrupt:
             learner.stop()
         return
+    # an actor is a numpy process in a pod of a hundredth of a core, and
+    # under churn it lives a second or two: numpy's OpenBLAS pool, a thread
+    # a host core, doubles the CPU each actor burns in that life, and a few
+    # such actors starve each other and the control plane
+    os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
     addr = os.environ.get("KTPU_LEARNER_ADDR", f"http://127.0.0.1:{args.port}")
     if not addr.startswith("http"):
         addr = f"http://{addr}"

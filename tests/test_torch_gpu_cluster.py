@@ -8,8 +8,8 @@ form gets it, with CUDA_VISIBLE_DEVICES injected into its process;
 attribute affinity picks the right one of two nodes; a second pod waits
 with "insufficient nvidia.com/gpu" until the card is free, and a
 finished pod holds its card until it is deleted; a container
-limit on nvidia.com/gpu is refused by ResourceV2 admission (a kept
-deviation: the pod-level form is the way in); the MNIST Job of
+limit on nvidia.com/gpu is refused by the JAX apiserver's ResourceV2
+admission and rewritten into the pod-level form by the port's; the MNIST Job of
 ``examples/gpu-mnist-single-card.yaml`` runs on the CPU with its command
 overridden, and ``examples/gpu-resnet50-h100.yaml`` reaches Running on a
 hollow node.  The card, the waiting pod and the MNIST Job also run with the
@@ -19,10 +19,12 @@ scheduler picks cards by NVLink domain (the fake spec's domain field one a
 card): a 2-card pod gets an intact pair, and a gang of 2 workers x 2 cards
 goes whole to the NVLink domain that holds it.
 
-The scheduling tests run under each scheduler (the ``control_plane``
-fixture's parameter): ``jax``, the JAX package's ``Scheduler`` in
-process, and ``torch``, the port's, as the process ``python -m
-kubernetes1_tpu_torch scheduler --server <url>`` (stopped by SIGTERM).
+The scheduling tests run under each control plane (the ``control_plane``
+fixture's parameter): ``jax``, the JAX package's ``Master`` and
+``Scheduler`` in process, and ``torch``, the port's apiserver and
+scheduler as the processes ``python -m kubernetes1_tpu_torch apiserver
+--port <port>`` and ``python -m kubernetes1_tpu_torch scheduler --server
+<url>`` (stopped by SIGTERM), under the JAX controllers and kubelets.
 Both give the same node and the same cards: the waiting pod's reason,
 affinity on the cards' model and memory, a 2-card pod on one NVLink pair,
 a gang on the domain that holds it, a gang bound all or nothing, and a
@@ -105,27 +107,27 @@ def _kubelet(cs, name, runtime, plugin_dir):
                    capacity={"cpu": "16", "memory": "64Gi", "pods": "110"})
 
 
-class _PortScheduler:
-    """The port's scheduler process against the apiserver at ``url``, its
-    output in ``log``; stopped as the JAX ``Scheduler`` is."""
+class _PortComponent:
+    """One of the port's component processes, ``python -m
+    kubernetes1_tpu_torch <argv>``, its output in ``log``; running once it
+    prints ``ready``, stopped by SIGTERM with exit code 0."""
 
-    def __init__(self, url, log):
-        self.log = log
+    def __init__(self, argv, log, ready):
+        self.log, self.ready, self.what = log, ready, f"the port's {argv[0]}"
         with open(log, "w") as out:
-            self.proc = subprocess.Popen(
-                [sys.executable, "-m", "kubernetes1_tpu_torch", "scheduler", "--server", url,
-                 "--metrics-port", "-1"], cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+            self.proc = subprocess.Popen([sys.executable, "-m", "kubernetes1_tpu_torch", *argv],
+                                         cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
         try:
-            must_poll_until(self._running, timeout=30.0, desc="the port's scheduler running")
+            must_poll_until(self._running, timeout=30.0, desc=f"{self.what} running")
         except BaseException:
             self.stop()
             raise
 
     def _running(self):
         if self.proc.poll() is not None:
-            raise RuntimeError(f"the port's scheduler exited {self.proc.returncode}: "
+            raise RuntimeError(f"{self.what} exited {self.proc.returncode}: "
                                f"{open(self.log).read()}")
-        return "scheduler running" in open(self.log).read()
+        return self.ready in open(self.log).read()
 
     def stop(self):
         if self.proc.poll() is None:
@@ -133,15 +135,35 @@ class _PortScheduler:
         assert self.proc.wait(timeout=15) == 0, open(self.log).read()
 
 
+def _port_scheduler(url, log):
+    return _PortComponent(["scheduler", "--server", url, "--metrics-port", "-1"], log,
+                          "scheduler running")
+
+
+class _PortApiserver(_PortComponent):
+    """The port's apiserver process on a loopback port it picks itself
+    (``--port 0``), at ``url``, read off its "listening on" line."""
+
+    LISTENING = "ktpu-apiserver listening on "
+
+    def __init__(self, log):
+        super().__init__(["apiserver", "--port", "0"], log, self.LISTENING)
+        line = next(ln for ln in open(log).read().splitlines() if ln.startswith(self.LISTENING))
+        self.url = line[len(self.LISTENING):].strip()
+
+
 @pytest.fixture()
 def control_plane(request, tmp_path):
-    """The JAX apiserver and controllers in process, and a scheduler: the
-    JAX one in process, or with the parameter ``torch``, the port's process."""
-    master = Master().start()
-    cs = Clientset(master.url)
+    """The JAX controllers in process beside an apiserver and a scheduler:
+    the JAX ones in process, or with the parameter ``torch``, the port's
+    apiserver and scheduler as processes."""
     if getattr(request, "param", "jax") == "torch":
-        sched = _PortScheduler(master.url, str(tmp_path / "scheduler.log"))
+        master = _PortApiserver(str(tmp_path / "apiserver.log"))
+        cs = Clientset(master.url)
+        sched = _port_scheduler(master.url, str(tmp_path / "scheduler.log"))
     else:
+        master = Master().start()
+        cs = Clientset(master.url)
         sched = Scheduler(cs)
         sched.start()
     cm = ControllerManager(cs, monitor_grace=5.0, eviction_timeout=5.0)
@@ -332,16 +354,30 @@ def test_a_finished_pod_holds_its_card_until_it_is_deleted(gpu_node):
                     desc="the next pod runs once the finished one is gone")
 
 
-def test_gpu_container_limit_is_refused_by_resource_v2(gpu_node):
-    """The kept deviation: an nvidia.com/gpu container limit is refused by
-    the JAX apiserver's admission; the pod-level form passes."""
+@BOTH_SCHEDULERS
+def test_gpu_container_limit_is_refused_by_jax_and_rewritten_by_the_ports_resource_v2(gpu_node,
+                                                                                      request):
+    """A pre-v2 PodSpec, an nvidia.com/gpu container limit: the JAX
+    apiserver's ResourceV2 refuses it; the port's rewrites it into the
+    pod-level form, and the pod gets the card and runs."""
     cs = gpu_node["cs"]
-    pod = _pod("limited", "print('never')", gpus=0)
+    pod = _pod("limited", "print('ran')", gpus=0)
     pod.spec.containers[0].resources.limits = {GPU_RESOURCE: 1}
-    with pytest.raises(Invalid, match="'nvidia.com/gpu' is not available on this cluster"):
-        cs.pods.create(pod)
-    with pytest.raises(NotFound):
-        cs.pods.get("limited", "default")
+    if request.node.callspec.params["control_plane"] == "jax":
+        with pytest.raises(Invalid, match="'nvidia.com/gpu' is not available on this cluster"):
+            cs.pods.create(pod)
+        with pytest.raises(NotFound):
+            cs.pods.get("limited", "default")
+        return
+    cs.pods.create(pod)
+    must_poll_until(lambda: _phase(cs, "limited") == t.POD_SUCCEEDED, timeout=60.0,
+                    desc="the rewritten pod ran on the card")
+    spec = cs.pods.get("limited", "default").spec
+    (per,) = spec.extended_resources
+    assert (per.resource, per.quantity, per.assigned) == (GPU_RESOURCE, 1, ["nv0-h0-gpu0"])
+    assert spec.containers[0].extended_resource_requests == [per.name]
+    assert GPU_RESOURCE not in spec.containers[0].resources.limits
+    assert spec.node_name == "gpu-node-0"
 
 
 @BOTH_PLUGINS

@@ -1,8 +1,8 @@
 """Hygiene of the PyTorch port: what it imports, and how its kernels fail.
 
-The port (``kubernetes1_tpu_torch/``) and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package, relative imports that
-climb out of the package included, and the port's C++ sources include no
+The port (``kubernetes1_tpu_torch/``), ``chip_smoke.py`` and
+``rl_churn_probe.py`` import nothing of JAX and nothing of the JAX
+package, relative imports that climb out of the package included, and the port's C++ sources include no
 file outside ``kubernetes1_tpu_torch/native/``.  Each kernel wrapper, handed a CUDA
 tensor while its library cannot be built, raises instead of running its
 plain version; the loader builds one library per source with nvcc for
@@ -29,7 +29,7 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "kubernetes1_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "kubernetes1_tpu"}
 PORT_FILES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "rl_churn_probe.py"]
 NATIVE = PKG / "native"
 NATIVE_SOURCES = sorted(p for ext in ("*.cc", "*.hpp") for p in NATIVE.glob(ext))
 INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)

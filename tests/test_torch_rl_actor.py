@@ -111,6 +111,20 @@ def test_port_actor_feeds_the_jax_learner():
         learner.stop()
 
 
+@pytest.mark.parametrize("given, want", [(None, "1"), ("4", "4")])
+def test_the_actor_main_caps_the_blas_pool_unless_told(monkeypatch, given, want):
+    """An actor under churn lives a second or two: its main caps numpy's
+    OpenBLAS pool at one thread unless its environment sizes the pool."""
+    monkeypatch.setenv("OPENBLAS_NUM_THREADS", "8")  # so that teardown restores the original
+    if given is None:
+        monkeypatch.delenv("OPENBLAS_NUM_THREADS")
+    else:
+        monkeypatch.setenv("OPENBLAS_NUM_THREADS", given)
+    monkeypatch.setenv("KTPU_LEARNER_ADDR", "http://127.0.0.1:9")
+    rl_actor.main(["--actor", "--lifetime", "0"])
+    assert os.environ["OPENBLAS_NUM_THREADS"] == want
+
+
 def test_learner_refuses_a_bad_batch_and_counts_it():
     learner = rl_actor.Learner(port=0, device="cpu").start()
     try:
