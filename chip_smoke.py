@@ -144,11 +144,13 @@
    loss, the accuracy (>= 0.9) and the launches per step;
 24. (the nvidia.com/gpu device plane) runs the orchestrator as child
    processes: the port's apiserver (`python -m kubernetes1_tpu_torch
-   apiserver`, its in-memory store and admission chain) and scheduler
+   apiserver`, its in-memory store and admission chain), scheduler
    (`python -m kubernetes1_tpu_torch scheduler`, which picks a pod's cards
-   by NVLink domain and minor), the JAX package's unchanged controller
-   manager and kubelet (`python -m kubernetes1_tpu <component>`, a
-   ProcessRuntime node; neither imports JAX) and the port's GPU plugin in
+   by NVLink domain and minor) and controller manager (`python -m
+   kubernetes1_tpu_torch controller-manager`, whose Job and ReplicaSet
+   controllers make every pod of the phase's Jobs and Deployments), the
+   JAX package's unchanged kubelet (`python -m kubernetes1_tpu kubelet`, a
+   ProcessRuntime node; it imports no JAX) and the port's GPU plugin in
    real mode, and speaks to the apiserver over HTTP: the node must advertise the one card as
    torch names it, with its NVLink domain and minor; ResNet-50 at 128 x 224^2
    through resnet_bench as a Job (workloads.specs.payload_job) must be
@@ -173,7 +175,14 @@
    limit rewritten by the port's ResourceV2 into a uuid-named pod-level
    extended resource, get the card and run; the "cluster: apiserver" line
    names the port's apiserver process, its start-to-/healthz seconds, the
-   requests it served by verb and that pod's card.  The pods' launches
+   requests it served by verb and that pod's card.  The "cluster:
+   controller manager" line names the port's controller manager process,
+   the pods it made by owning Job and ReplicaSet, the seconds from the
+   ResNet-50 Job's create to its pod's, the config-4 pod's gpu.ktpu.io
+   rank stamps (it fails unless they are there and no tpu.ktpu.io key is),
+   the fleet rollout's seconds and least Ready count, the RL leg's
+   Endpoints convergence and ktpu_gang_attempts_total off the process's
+   /metrics (it fails unless 0: the learner gang was never torn down).  The pods' launches
    happen in their own processes: no launches column (the fleet of 26.
    decodes in this process: ``fleet``);
 25. (the native node components, before 24.) runs ktpu-gpu-plugin in real
@@ -245,7 +254,7 @@ import torch.nn.functional as F
 
 from kubernetes1_tpu_torch import native, optim
 from kubernetes1_tpu_torch.client.errors import ApiError, NotFound
-from kubernetes1_tpu_torch.client.informer import InformerFactory
+from kubernetes1_tpu_torch.client.informer import InformerFactory, SharedInformer
 from kubernetes1_tpu_torch.client.rest import Client
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
                                            layernorm, rmsnorm, rope, swiglu)
@@ -3827,6 +3836,8 @@ def _compute_pids() -> set:
 PYTHON_PLUGIN = (sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin")
 PORT_APISERVER = "kubernetes1_tpu_torch-apiserver"  # its process's name in Cluster
 PORT_SCHEDULER = "kubernetes1_tpu_torch-scheduler"
+PORT_CONTROLLER_MANAGER = "kubernetes1_tpu_torch-controller-manager"
+STAMP_KEYS = ("worker-id", "coordinator-address", "worker-hostnames")  # gpu.ktpu.io/<key>
 REQUEST_LINE = re.compile(r'^apiserver_request_total\{method="(\w+)",resource="[^"]*"\} (\d+)$',
                           re.M)
 BOUND_LINE = re.compile(r"^scheduler: bound default/(\S+) to (\S+)(?: devices=(.*))?$", re.M)
@@ -3834,14 +3845,15 @@ BOUND_LINE = re.compile(r"^scheduler: bound default/(\S+) to (\S+)(?: devices=(.
 
 class Cluster:
     """The orchestrator as child processes of this one: the port's
-    apiserver and scheduler, the JAX package's unchanged controller
-    manager and kubelet (a ProcessRuntime node), and a GPU plugin in real
+    apiserver, scheduler and controller manager, the JAX package's
+    unchanged kubelet (a ProcessRuntime node), and a GPU plugin in real
     mode (no KTPU_FAKE_GPUS) in the node's plugin dir: ``plugin``, its
     command before ``--plugin-dir``, the port's Python plugin unless
     another is given.  Spoken to over HTTP.  ``healthz_s`` is the
-    apiserver's start-to-/healthz time.  ``stop`` deletes every workload,
-    stops every process and returns the pod processes that survived,
-    killed."""
+    apiserver's start-to-/healthz time.  A watch of the pods records each
+    pod's owner as it appears (``made``).  ``stop`` deletes every
+    workload, stops every process and returns the pod processes that
+    survived, killed."""
 
     def __init__(self, tmp: str, plugin=PYTHON_PLUGIN):
         self.tmp, self.procs, self.logs = tmp, [], []
@@ -3854,6 +3866,7 @@ class Cluster:
         self.env.pop("KTPU_FAKE_GPUS", None)
         try:
             component = [sys.executable, "-m", "kubernetes1_tpu"]
+            self.watch = None
             t0 = time.perf_counter()
             self._start(PORT_APISERVER, [sys.executable, "-m", "kubernetes1_tpu_torch",
                                          "apiserver", "--port", self.url.rsplit(":", 1)[1]])
@@ -3864,7 +3877,17 @@ class Cluster:
                                          *server, "--metrics-port", "-1"])
             _wait("the port's scheduler to run", lambda: self.check_alive() or
                   "scheduler running" in self.log(PORT_SCHEDULER), 120)
-            self._start("controller-manager", [*component, "controller-manager", *server])
+            self._start(PORT_CONTROLLER_MANAGER, [sys.executable, "-m", "kubernetes1_tpu_torch",
+                                                  "controller-manager", *server,
+                                                  "--metrics-port", "0"])
+            _wait("the port's controller manager to run", lambda: self.check_alive() or
+                  "controller manager running" in self.log(PORT_CONTROLLER_MANAGER), 120)
+            self.cm_metrics = re.search(r"controller manager metrics on (\S+)",
+                                        self.log(PORT_CONTROLLER_MANAGER)).group(1)
+            self.made = []  # (owner kind, owner name, pod) as the watch saw each pod appear
+            self.watch = SharedInformer(self.client.pods, "default")
+            self.watch.add_handler(on_add=self._pod_seen)
+            self.watch.start()
             self._start("plugin", [*plugin, "--plugin-dir", self.plugin_dir])
             self._start("kubelet", [*component, "kubelet", *server, "--runtime", "process",
                                     "--plugin-dir", self.plugin_dir, "--root-dir",
@@ -3878,6 +3901,46 @@ class Cluster:
         self.logs.append((name, log))
         self.procs.append((name, subprocess.Popen(argv, cwd=REPO_ROOT, env=self.env, stdout=log,
                                                   stderr=subprocess.STDOUT)))
+
+    def _pod_seen(self, pod: dict):
+        for ref in pod["metadata"].get("ownerReferences") or []:
+            if ref.get("controller"):
+                self.made.append((ref["kind"], ref["name"], pod["metadata"]["name"]))
+
+    def created_after(self, pod: dict, t_wall: float) -> float:
+        """Seconds from ``t_wall`` (time.time()) to the pod's create, by
+        the wall-clock stamp the apiserver put on it."""
+        return float(pod["metadata"]["annotations"]["slo.ktpu.io/created-at"]) - t_wall
+
+    def gang_attempts(self) -> float:
+        """ktpu_gang_attempts_total off the controller manager's /metrics."""
+        return _metric_value(_get(self.cm_metrics + "/metrics"), "ktpu_gang_attempts_total")
+
+    def controller_manager_line(self, card: str, res: dict):
+        """The "cluster: controller manager" line: the process, the pods it
+        made by owning Job and ReplicaSet, the ResNet-50 Job's create to its
+        pod's, the config-4 pod's rank stamps, the fleet rollout and the RL
+        leg's Endpoints convergence (both measured in their legs) and
+        ktpu_gang_attempts_total; fails unless the stamps are the
+        gpu.ktpu.io keys alone and the gang attempts 0."""
+        proc = dict(self.procs)[PORT_CONTROLLER_MANAGER]
+        by_owner = {}
+        for kind, name, _pod in self.made:
+            by_owner[f"{kind} {name}"] = by_owner.get(f"{kind} {name}", 0) + 1
+        kinds = {k.split()[0] for k in by_owner}
+        stamps = res["multicard"]["stamps"]
+        ru = res["fleet"]["rollout"]
+        if not {"Job", "ReplicaSet"} <= kinds or res["gang_attempts"] != 0:
+            fail(f"cluster: the port's controller manager made pods for {by_owner}; "
+                 f"ktpu_gang_attempts_total {res['gang_attempts']} (want 0)")
+        print(f"cluster: controller manager python -m kubernetes1_tpu_torch (pid {proc.pid}) "
+              f"made {len(self.made)} pods: "
+              + ", ".join(f"{k} {n}" for k, n in sorted(by_owner.items()))
+              + f"; ResNet-50 Job create to its pod's {res['job_to_pod_s']:.3f} s; the config-4 "
+              f"pod's stamps {json.dumps(stamps)}; fleet rollout {ru['duration_s']} s at "
+              f"min_ready_observed={ru['min_ready_observed']} of {ru['replicas']}; RL Endpoints "
+              f"converged in {res['rl']['converge_s']:.2f} s; ktpu_gang_attempts_total="
+              f"{res['gang_attempts']:.0f} on [{card}]", flush=True)
 
     def check_alive(self):
         for name, proc in self.procs:
@@ -4058,6 +4121,8 @@ class Cluster:
         and the pods the apiserver still listed when the wait for them
         ended."""
         left_pods = []
+        if self.watch is not None:
+            self.watch.stop()
         try:
             if self._serving():
                 for rc in (self.client.deployments, self.client.jobs):
@@ -4554,6 +4619,13 @@ def multicard_leg(cl: "Cluster", card: str, devs: list) -> dict:
     world_s = time.perf_counter() - t0
     pod = _wait(f"Job {name} to succeed", lambda: cl.job_done(name), 300, 0.2)
     total_s = time.perf_counter() - t0
+    ann = pod["metadata"].get("annotations") or {}
+    stamps = {k: ann.get(f"gpu.ktpu.io/{k}") for k in STAMP_KEYS}
+    theirs = sorted(k for k in ann if k.startswith("tpu.ktpu.io/"))
+    if stamps != {"worker-id": "0", "coordinator-address": f"{name}-0.default:{COORDINATOR_PORT}",
+                  "worker-hostnames": f"{name}-0.default"} or theirs:
+        fail(f"multicard: the stored pod's rank stamps are {stamps}, and tpu.ktpu.io keys "
+             f"{theirs}; want the port's Job controller's gpu.ktpu.io keys alone")
     log = cl.pod_log(pname)
     cl.delete_job(name)
     rank, world, k, coord, port, address, how = said
@@ -4571,7 +4643,7 @@ def multicard_leg(cl: "Cluster", card: str, devs: list) -> dict:
     res = dict(pod=pname, bind_s=bind_s, pod_start_s=start_s, launcher_line_s=line_s,
                rendezvous_s=world_s - line_s, total_s=total_s, loss=float(losses[0]),
                loss_in_process=want, loss_gap=gap, reference_s=ref_s, address=address,
-               how=how, nvlink_domain=domain)
+               how=how, nvlink_domain=domain, stamps=stamps)
     print(f"multicard: config 4 ({MULTICARD_YAML} at 1 worker x 1 card, BERT-large "
           f"{MULTICARD_BATCH} x {MULTICARD_SEQ}, {MULTICARD_STEPS} steps) through the launcher "
           f"and torchrun: the pod got {assigned} (CUDA_VISIBLE_DEVICES={uuid}, NVLink domain "
@@ -4677,12 +4749,15 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         sampler = threading.Thread(target=sample, daemon=True)
         sampler.start()
         out = f"{tmp}/resnet.json"
+        t_wall = time.time()
         t0 = time.perf_counter()  # bench.py's clock: from the create
         cl.create(specs.payload_job(
             "resnet50-gpu", ["kubernetes1_tpu_torch.workloads.resnet_bench", "--batch",
                              str(RESNET_BATCH), "--size", str(RESNET_SIZE), "--steps",
                              str(RESNET_STEPS), "--no-profile"], out=out))
         alloc_s, start_s, visible = cl.job_started("batch.ktpu.io/job-name=resnet50-gpu", t0)
+        res["job_to_pod_s"] = cl.created_after(
+            cl.pods("batch.ktpu.io/job-name=resnet50-gpu")[0], t_wall)
         cl.create(specs.payload_job("mnist-gpu", ["kubernetes1_tpu_torch.workloads.mnist"]))
         msel = "batch.ktpu.io/job-name=mnist-gpu"
         mpod = _wait("the MNIST pod", lambda: cl.pods(msel))[0]["metadata"]["name"]
@@ -4784,6 +4859,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         res["fleet"] = fleet_leg(cl, card)
         placed += [res["rl"]["pod"], res["multicard"]["pod"]]
         served = cl.requests_by_verb()
+        res["gang_attempts"] = cl.gang_attempts()
     except SystemExit:
         cl.report_failure()
         raise
@@ -4803,6 +4879,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
              f"of the learner and the fleet's backends still listen")
     res["scheduled"] = cl.scheduler_line(card, res["chip_alloc_s"], placed)
     cl.apiserver_line(card, served, rewritten, res["chip_alloc_s"])
+    cl.controller_manager_line(card, res)
     res.update(apiserver_healthz_s=cl.healthz_s, apiserver_served=served, rewritten=rewritten)
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"cluster: teardown left no pod process (no actor, no learner), no new process on "

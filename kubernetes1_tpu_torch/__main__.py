@@ -2,6 +2,7 @@
 
     python -m kubernetes1_tpu_torch apiserver --port N [--host H]
     python -m kubernetes1_tpu_torch scheduler --server URL [--metrics-port -1]
+    python -m kubernetes1_tpu_torch controller-manager --server URL [--metrics-port -1]
 
 (the JAX package's ``python -m kubernetes1_tpu <component>``, for the
 components the port has).
@@ -15,6 +16,7 @@ import sys
 COMPONENTS = {
     "apiserver": "kubernetes1_tpu_torch.apiserver.__main__",
     "scheduler": "kubernetes1_tpu_torch.scheduler.__main__",
+    "controller-manager": "kubernetes1_tpu_torch.controllers.__main__",
 }
 
 

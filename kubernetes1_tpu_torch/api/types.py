@@ -23,7 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-from ..machinery.meta import KObject, ObjectMeta
+from ..machinery.meta import KObject, ObjectMeta, OwnerReference  # noqa: F401 - re-exported
 
 # ----------------------------------------------------------------- constants
 
@@ -73,6 +73,11 @@ BOUND_AT_ANNOTATION = "slo.ktpu.io/bound-at"
 COMMITTED_AT_ANNOTATION = "obs.ktpu.io/committed-at"
 # The label the Job strategy puts on a Job's selector and pod template.
 JOB_NAME_LABEL = "batch.ktpu.io/job-name"
+# An Indexed Job's pod carries its completion index under this annotation.
+COMPLETION_INDEX_ANNOTATION = "batch.ktpu.io/completion-index"
+# A gang Job's current attempt: an annotation on the Job, a label on each
+# member pod, so a restarted controller reads attempt membership off the API.
+GANG_ATTEMPT_LABEL = "batch.ktpu.io/gang-attempt"
 # Marks a kubelet's mirror pod of a static pod.
 STATIC_POD_ANNOTATION = "kubelet.ktpu.io/static"
 

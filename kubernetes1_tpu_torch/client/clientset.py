@@ -4,9 +4,13 @@ the API types (``api/types.py``), encoded and decoded by the port's scheme
 ``client/clientset.py``).
 
 ``Clientset(url)`` holds one ``rest.Client``, whose keep-alive connections
-and Status errors it shares; ``clientset.pods`` and ``clientset.events``
-are ``TypedResource``s with the verbs the scheduler and its event
-recorder call, over typed objects.  Besides: the binding subresource
+and Status errors it shares; ``clientset.pods``, ``clientset.jobs`` and
+the others (``resource(plural)`` for any of ``TYPED``) are
+``TypedResource``s with the verbs the scheduler, the controller manager
+and the event recorder call, over typed objects: list, get, create,
+update, update_status, patch and delete with a grace period.  Besides:
+``delete_batch`` (the pods' ``delete:batch``, whose items may carry a
+resourceVersion precondition), the binding subresource
 (``bind``), the bulk bind
 ``pods/bindings:batch`` (``bind_batch``), the eviction subresource
 (``evict``), and ``informers()``, an ``InformerFactory`` whose caches hold
@@ -16,7 +20,7 @@ typed objects.  The JAX clientset's persistent bind stream and its
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from .. import api  # registers the API types with the scheme
 from ..api import types as t
@@ -24,6 +28,14 @@ from ..machinery.scheme import global_scheme
 from .errors import ApiError
 from .informer import InformerFactory
 from .rest import Client, ResourceClient
+
+
+# The resources with a typed client: those the port's scheduler and
+# controller manager read or write.
+TYPED = ("pods", "events", "nodes", "namespaces", "jobs", "replicasets", "deployments",
+         "daemonsets", "statefulsets", "cronjobs", "services", "endpoints",
+         "poddisruptionbudgets", "serviceaccounts", "secrets", "configmaps",
+         "persistentvolumeclaims")
 
 
 class TypedResource:
@@ -35,6 +47,11 @@ class TypedResource:
     def _decode(self, data: dict):
         return global_scheme.decode_as(self.rc.resource, data)
 
+    def list(self, namespace: str = "", label_selector: str = "") -> Tuple[List[Any], str]:
+        """(the typed items, the list's resourceVersion)."""
+        items, rv = self.rc.list(namespace, label_selector)
+        return [self._decode(d) for d in items], rv
+
     def create(self, obj, namespace: str = ""):
         ns = namespace or obj.metadata.namespace or "default"
         return self._decode(self.rc.create(global_scheme.encode(obj), ns))
@@ -45,15 +62,28 @@ class TypedResource:
     def update(self, obj):
         return self._decode(self.rc.update(global_scheme.encode(obj)))
 
+    def update_status(self, obj):
+        """PUT the status subresource: only ``obj.status`` is written."""
+        return self._decode(self.rc.update_status(global_scheme.encode(obj)))
+
     def patch(self, name: str, patch: Dict[str, Any], namespace: str = "default"):
         return self._decode(self.rc.patch(name, patch, namespace))
+
+    def delete(self, name: str, namespace: str = "default",
+               grace_seconds: Optional[int] = None) -> dict:
+        """The apiserver's answer: the deleted object, or a Status."""
+        return self.rc.delete(name, namespace, grace_seconds)
 
 
 class Clientset:
     def __init__(self, url: str):
         self.client = Client(url)
-        self.pods = TypedResource(self.client.pods)
-        self.events = TypedResource(self.client.events)
+        self._typed = {plural: TypedResource(self.client.resource(plural)) for plural in TYPED}
+        for plural, typed in self._typed.items():
+            setattr(self, plural, typed)
+
+    def resource(self, plural: str) -> TypedResource:
+        return self._typed[plural]
 
     def informers(self) -> InformerFactory:
         """An informer factory whose caches hold typed objects."""
@@ -75,6 +105,13 @@ class Clientset:
              "items": [global_scheme.encode(b) for b in bindings]})
         return [None if r.get("status") == "Success" else ApiError.from_status(r)
                 for r in data.get("results", [])]
+
+    def delete_batch(self, namespace: str, items, grace_seconds: Optional[int] = None) -> list:
+        """Delete pods in one ``pods/delete:batch`` call (``rest.Client``'s):
+        ``items`` are names or ``{"name", "resourceVersion"?,
+        "gracePeriodSeconds"?}``, the resourceVersion a precondition.  One
+        outcome an item, in order: None, or the ApiError that sank it."""
+        return self.client.delete_batch(namespace, items, grace_seconds=grace_seconds)
 
     def evict(self, namespace: str, pod_name: str,
               grace_seconds: Optional[int] = None):

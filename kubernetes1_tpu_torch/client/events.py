@@ -48,6 +48,17 @@ class EventRecorder:
             return  # overloaded: drop (best-effort, as upstream)
         self._ensure_worker()
 
+    def flush(self, timeout: float = 5.0):
+        """Block until every event put so far has been sent (tests, and an
+        orderly stop)."""
+        done = threading.Event()
+        try:
+            self._q.put(done, timeout=timeout)
+        except queue.Full:
+            return
+        self._ensure_worker()
+        done.wait(timeout)
+
     def _ensure_worker(self):
         if self._worker is None:
             with self._lock:
@@ -60,14 +71,18 @@ class EventRecorder:
     def _drain(self):
         while True:
             item = self._q.get()
+            if isinstance(item, threading.Event):  # a flush's fence
+                item.set()
+                continue
             # Coalesce identical items queued behind this one: a burst of N
             # identical events enqueued before the first create completes
             # would each miss _seen (populated only here, after the create)
             # and become N duplicate Event objects.  Collapsing the burst
             # in-queue keeps aggregation semantics identical to the old
-            # synchronous path.  Coalescing stops after at most one
-            # buffer's worth of items (so hot producers refilling the queue
-            # can't starve sends forever).
+            # synchronous path.  Coalescing stops at a flush's fence (which
+            # still means "everything put before me was sent") and after at
+            # most one buffer's worth of items (so hot producers refilling
+            # the queue can't starve sends forever).
             # slot = [first_item, n, latest_ts]: the create keeps the FIRST
             # occurrence's timestamp (when the condition started) while
             # last_timestamp reports the latest repeat, as the synchronous
@@ -75,11 +90,15 @@ class EventRecorder:
             batch: Dict[tuple, list] = {}
             batch[self._agg_key(item[0], item[2], item[3])] = \
                 [item, 1, item[4]]
+            fence = None
             drained = 1
-            while drained < self._q.maxsize:
+            while fence is None and drained < self._q.maxsize:
                 try:
                     nxt = self._q.get_nowait()
                 except queue.Empty:
+                    break
+                if isinstance(nxt, threading.Event):
+                    fence = nxt
                     break
                 drained += 1
                 k = self._agg_key(nxt[0], nxt[2], nxt[3])
@@ -97,6 +116,8 @@ class EventRecorder:
                     # entry fails — one summary line per window, not one
                     # line per event, or the flood buries real diagnostics
                     self._drop_reporter.report(f"last {it[2]}: {e}", n=n)
+            if fence is not None:
+                fence.set()
 
     @staticmethod
     def _agg_key(ref, reason: str, message: str) -> tuple:

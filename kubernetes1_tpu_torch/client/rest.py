@@ -10,9 +10,10 @@ its own, whose line-delimited ``{"type", "object"}`` frames it yields,
 skipping the blank heartbeat lines.
 
 Only the verbs and resources the port calls are here: ``create``,
-``get``, ``list``, ``update``, ``patch``, ``delete`` and ``watch`` on pods,
-jobs, deployments, services, endpoints, poddisruptionbudgets, events and
-nodes, plus the pods' ``delete:batch`` and ``log``.  Every request carries
+``get``, ``list``, ``update``, ``update_status`` (the status
+subresource), ``patch``, ``delete`` and ``watch`` on the resources of
+``RESOURCES`` (those the port's components and its controller manager
+read or write), plus the pods' ``delete:batch`` and ``log``.  Every request carries
 the thread's trace context (``utils/spans``), so the apiserver's handling
 joins the caller's trace.
 """
@@ -42,8 +43,21 @@ RESOURCES = {
     "jobs": ("/apis/batch/v1", "Job", "batch/v1"),
     "deployments": ("/apis/apps/v1", "Deployment", "apps/v1"),
     "poddisruptionbudgets": ("/apis/policy/v1", "PodDisruptionBudget", "policy/v1"),
+    "replicasets": ("/apis/apps/v1", "ReplicaSet", "apps/v1"),
+    "daemonsets": ("/apis/apps/v1", "DaemonSet", "apps/v1"),
+    "statefulsets": ("/apis/apps/v1", "StatefulSet", "apps/v1"),
+    "cronjobs": ("/apis/batch/v1", "CronJob", "batch/v1"),
+    "namespaces": ("/api/v1", "Namespace", "v1"),
+    "serviceaccounts": ("/api/v1", "ServiceAccount", "v1"),
+    "secrets": ("/api/v1", "Secret", "v1"),
+    "configmaps": ("/api/v1", "ConfigMap", "v1"),
+    "persistentvolumeclaims": ("/api/v1", "PersistentVolumeClaim", "v1"),
+    "resourcequotas": ("/api/v1", "ResourceQuota", "v1"),
+    "limitranges": ("/api/v1", "LimitRange", "v1"),
+    "horizontalpodautoscalers": ("/apis/autoscaling/v1", "HorizontalPodAutoscaler",
+                                 "autoscaling/v1"),
 }
-CLUSTER_SCOPED = frozenset({"nodes"})
+CLUSTER_SCOPED = frozenset({"nodes", "namespaces"})
 # A GET is retried over this many connection failures; a write only when it
 # failed before it was sent (the connect refused or reset), since a write
 # whose answer was lost may have been applied.  An idle keep-alive socket
@@ -141,6 +155,12 @@ class ResourceClient:
         return self.client.request("PUT", self.path(meta.get("namespace", ""), meta["name"]),
                                    self._body(obj))
 
+    def update_status(self, obj: dict) -> dict:
+        """PUT the status subresource: only the object's status is written."""
+        meta = obj["metadata"]
+        return self.client.request(
+            "PUT", self.path(meta.get("namespace", ""), meta["name"], "status"), self._body(obj))
+
     def patch(self, name: str, patch: dict, namespace: str = "default") -> dict:
         """A merge patch of the object."""
         return self.client.request("PATCH", self.path(namespace, name), patch)
@@ -165,17 +185,18 @@ class Client:
         self.host, self.port = p.hostname or "127.0.0.1", p.port or 80
         self.timeout = timeout
         self._local = threading.local()
-        self.pods = ResourceClient(self, "pods")
-        self.events = ResourceClient(self, "events")
-        self.services = ResourceClient(self, "services")
-        self.endpoints = ResourceClient(self, "endpoints")
-        self.nodes = ResourceClient(self, "nodes")
-        self.jobs = ResourceClient(self, "jobs")
-        self.deployments = ResourceClient(self, "deployments")
-        self.poddisruptionbudgets = ResourceClient(self, "poddisruptionbudgets")
+        self._resources = {plural: ResourceClient(self, plural) for plural in RESOURCES}
+        self.pods = self._resources["pods"]
+        self.events = self._resources["events"]
+        self.services = self._resources["services"]
+        self.endpoints = self._resources["endpoints"]
+        self.nodes = self._resources["nodes"]
+        self.jobs = self._resources["jobs"]
+        self.deployments = self._resources["deployments"]
+        self.poddisruptionbudgets = self._resources["poddisruptionbudgets"]
 
     def resource(self, plural: str) -> ResourceClient:
-        return getattr(self, plural)
+        return self._resources[plural]
 
     # ------------------------------------------------------------ plumbing
 

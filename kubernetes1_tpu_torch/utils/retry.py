@@ -3,7 +3,8 @@ full jitter, and a loop that retries transient failures.
 
 The port's copy of the JAX package's ``client/retry.Backoff`` and
 ``call_with_retries``, and its retry counter (``retries_total``,
-``note_retry``: the scheduler's bind re-queues count there), without what
+``note_retry``: the scheduler's bind re-queues and the controller
+manager's retried deletes count there), without what
 no caller of the port uses: the seeded jitter stream of the JAX package's
 chaos runner and the Retry-After floor of its REST client.  Used by the
 plugin client's dial (``deviceplugin/api.py``), ``LoadGen``
@@ -60,10 +61,11 @@ def call_with_retries(
     classify: Callable[[BaseException], bool],
     steps: int = 4,
     backoff: Optional[Backoff] = None,
+    reason: str = "",
 ) -> T:
     """Run fn, retrying the failures that ``classify`` calls transient
-    with jittered backoff.  Terminal errors, and the last attempt's,
-    surface as-is."""
+    with jittered backoff, each retry counted under ``reason`` when one is
+    given.  Terminal errors, and the last attempt's, surface as-is."""
     bo = backoff or Backoff()
     for i in range(steps):
         try:
@@ -71,6 +73,8 @@ def call_with_retries(
         except Exception as e:  # noqa: BLE001 - classified right below; terminal re-raises
             if i == steps - 1 or not classify(e):
                 raise
+            if reason:
+                note_retry(reason)
             bo.sleep()
     raise AssertionError("unreachable")  # pragma: no cover
 

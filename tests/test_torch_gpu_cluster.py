@@ -20,11 +20,13 @@ card): a 2-card pod gets an intact pair, and a gang of 2 workers x 2 cards
 goes whole to the NVLink domain that holds it.
 
 The scheduling tests run under each control plane (the ``control_plane``
-fixture's parameter): ``jax``, the JAX package's ``Master`` and
-``Scheduler`` in process, and ``torch``, the port's apiserver and
-scheduler as the processes ``python -m kubernetes1_tpu_torch apiserver
---port <port>`` and ``python -m kubernetes1_tpu_torch scheduler --server
-<url>`` (stopped by SIGTERM), under the JAX controllers and kubelets.
+fixture's parameter): ``jax``, the JAX package's ``Master``,
+``Scheduler`` and controllers in process, and ``torch``, the port's
+apiserver, scheduler and controller manager as the processes ``python -m
+kubernetes1_tpu_torch apiserver --port <port>``, ``python -m
+kubernetes1_tpu_torch scheduler --server <url>`` and ``python -m
+kubernetes1_tpu_torch controller-manager --server <url>`` (stopped by
+SIGTERM), under the JAX kubelets.
 Both give the same node and the same cards: the waiting pod's reason,
 affinity on the cards' model and memory, a 2-card pod on one NVLink pair,
 a gang on the domain that holds it, a gang bound all or nothing, and a
@@ -140,6 +142,11 @@ def _port_scheduler(url, log):
                           "scheduler running")
 
 
+def _port_controller_manager(url, log):
+    return _PortComponent(["controller-manager", "--server", url, "--node-monitor-grace", "5",
+                           "--pod-eviction-timeout", "5"], log, "controller manager running")
+
+
 class _PortApiserver(_PortComponent):
     """The port's apiserver process on a loopback port it picks itself
     (``--port 0``), at ``url``, read off its "listening on" line."""
@@ -154,20 +161,25 @@ class _PortApiserver(_PortComponent):
 
 @pytest.fixture()
 def control_plane(request, tmp_path):
-    """The JAX controllers in process beside an apiserver and a scheduler:
-    the JAX ones in process, or with the parameter ``torch``, the port's
-    apiserver and scheduler as processes."""
+    """An apiserver, a scheduler and a controller manager: the JAX ones in
+    process, or with the parameter ``torch``, the port's as processes."""
     if getattr(request, "param", "jax") == "torch":
         master = _PortApiserver(str(tmp_path / "apiserver.log"))
         cs = Clientset(master.url)
         sched = _port_scheduler(master.url, str(tmp_path / "scheduler.log"))
+        try:
+            cm = _port_controller_manager(master.url, str(tmp_path / "controller-manager.log"))
+        except BaseException:
+            sched.stop()
+            cs.close()
+            master.stop()
+            raise
     else:
         master = Master().start()
         cs = Clientset(master.url)
         sched = Scheduler(cs)
         sched.start()
-    cm = ControllerManager(cs, monitor_grace=5.0, eviction_timeout=5.0)
-    cm.start()
+        cm = ControllerManager(cs, monitor_grace=5.0, eviction_timeout=5.0).start()
     yield master, cs
     cm.stop()
     sched.stop()

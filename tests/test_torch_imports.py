@@ -120,7 +120,9 @@ def test_importing_the_port_pulls_in_no_jax():
             "kubernetes1_tpu_torch.deviceplugin.gpu_plugin, kubernetes1_tpu_torch.native, "
             "kubernetes1_tpu_torch.workloads.loadgen, kubernetes1_tpu_torch.utils.retry, "
             "kubernetes1_tpu_torch.client.rest, kubernetes1_tpu_torch.client.informer, "
-            "kubernetes1_tpu_torch.workloads.rl_actor, kubernetes1_tpu_torch.workloads.servefleet; "
+            "kubernetes1_tpu_torch.workloads.rl_actor, kubernetes1_tpu_torch.workloads.servefleet, "
+            "kubernetes1_tpu_torch.controllers, kubernetes1_tpu_torch.controllers.__main__, "
+            "kubernetes1_tpu_torch.utils.workqueue; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

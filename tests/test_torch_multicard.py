@@ -12,7 +12,10 @@ card.  Here:
 
 - an Indexed gang Job of 2 workers x 1 fake card through the JAX Job
   controller, scheduler and kubelet: each pod's process holds its rank,
-  the world and the coordinator, with each plugin;
+  the world and the coordinator, with each plugin; and the same under the
+  port's apiserver, scheduler and controller manager (processes, the JAX
+  kubelet), whose Job controller writes the ``gpu.ktpu.io/*`` keys alone,
+  which both plugins read;
 - BASELINE configs 4 and 5 (``examples/gpu-bert-large-4x8-h100.yaml``,
   ``examples/gpu-llama3-8b-32x8-h100-preemptible.yaml``) applied on
   hollow nodes of fake cards, scaled down as ``tests/test_examples_e2e.py``
@@ -49,6 +52,7 @@ import torch
 import yaml
 
 from kubernetes1_tpu.api import types as t
+from kubernetes1_tpu.apiserver import Master
 from kubernetes1_tpu.machinery.scheme import from_dict
 from kubernetes1_tpu.utils.waitutil import must_poll_until, poll_until
 from kubernetes1_tpu_torch import GPU_RESOURCE
@@ -87,12 +91,15 @@ def _failed_scheduling(client, pod):
 # ------------------------------------------------ the Job controller's chain
 
 
-@BOTH_PLUGINS
-def test_indexed_gang_job_workers_get_rank_world_and_coordinator(nodes):
+@pytest.mark.parametrize("control_plane,nodes", [
+    ("jax", "python"), ("jax", "native"), ("torch", "python"), ("torch", "native")],
+    indirect=True, ids=["python", "native", "torch-python", "torch-native"])
+def test_indexed_gang_job_workers_get_rank_world_and_coordinator(control_plane, nodes):
     """An Indexed gang Job of 2 workers x 1 card: each pod's process holds
     RANK = its completion index, LOCAL_RANK 0, WORLD_SIZE 2 and the
     coordinator <job>-0.<ns>:8476, from the Job controller's annotations
-    through the plugin."""
+    through the plugin: the JAX controller's tpu.ktpu.io keys, or under the
+    port's control plane (``torch``) the gpu.ktpu.io keys alone."""
     nodes.add("gpu-node-0", f"{H100}:1:nv0:0")
     nodes.add("gpu-node-1", f"{H100}:1:nv1:1")
     out = nodes.tmp / "envs"
@@ -119,6 +126,15 @@ def test_indexed_gang_job_workers_get_rank_world_and_coordinator(nodes):
         env = json.loads((out / f"{index}.json").read_text())
         assert env == {"RANK": index, "LOCAL_RANK": "0", "WORLD_SIZE": "2",
                        "MASTER_ADDR": "ranks-0.default", "MASTER_PORT": "8476"}, (index, env)
+        ann = p["metadata"]["annotations"]
+        ours, theirs = (sorted(k for k in ann if k.startswith(f"{pre}.ktpu.io/worker")
+                               or k.startswith(f"{pre}.ktpu.io/coordinator"))
+                        for pre in ("gpu", "tpu"))
+        stamps = ["coordinator-address", "worker-hostnames", "worker-id"]
+        if not isinstance(control_plane[0], Master):  # the port's apiserver process
+            assert ours == [f"gpu.ktpu.io/{k}" for k in stamps] and not theirs, ann
+        else:
+            assert theirs == [f"tpu.ktpu.io/{k}" for k in stamps] and not ours, ann
 
 
 # ------------------------------------------------ the manifests on fake cards

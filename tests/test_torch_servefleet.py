@@ -9,7 +9,12 @@ the JAX ``EndpointsBalancerSync`` over the fleet's resolver, and the
 port's ``LoadGen`` through the balancer: the rollout completes with no
 request failed and the PDB's floor held, once on synthetic backends and
 once on ``DecodeServer(cfg=tiny(), device="cpu")`` backends, whose tokens,
-before and after the rollout, are an in-process server's.
+before and after the rollout, are an in-process server's.  The
+``torch-synthetic`` case runs the same rollout under the port's
+apiserver, scheduler and controller manager as processes (``python -m
+kubernetes1_tpu_torch <component>``) with two JAX kubelets in process, in
+place of the ``LocalCluster``: the port's ReplicaSet controller, with its
+expectations and its scale-down order, holds the PDB's floor.
 
 Every wait has its own deadline, and the backends, balancer, informers
 and cluster stop in ``finally``.
@@ -211,9 +216,50 @@ def test_a_pod_deleted_while_its_backend_starts_gets_no_backend():
     fleet.stop()
 
 
+class _PortPlane:
+    """The port's apiserver, scheduler and controller manager as processes
+    and two JAX kubelets (FakeRuntime) in process: ``url``, ``cs`` (a JAX
+    clientset) and ``stop()``, as a LocalCluster has them."""
+
+    def __init__(self, tmp):
+        from kubernetes1_tpu.client import Clientset as JaxClientset
+        from kubernetes1_tpu.kubelet import FakeRuntime
+        from tests.test_torch_gpu_cluster import (_kubelet, _port_controller_manager,
+                                                  _port_scheduler, _PortApiserver)
+
+        self.procs, self.kubelets = [], []
+        try:
+            self.procs.append(_PortApiserver(str(tmp / "apiserver.log")))
+            self.url = self.procs[0].url
+            self.cs = JaxClientset(self.url)
+            self.procs.append(_port_scheduler(self.url, str(tmp / "scheduler.log")))
+            self.procs.append(_port_controller_manager(self.url, str(tmp / "cm.log")))
+            for i in range(2):
+                self.kubelets.append(_kubelet(self.cs, f"node-{i}", FakeRuntime(),
+                                              str(tmp / f"plugins{i}")))
+                self.kubelets[-1].start()
+            _wait("two Ready nodes", lambda: len([
+                n for n in self.cs.nodes.list()[0] if any(
+                    c.type == "Ready" and c.status == "True" for c in n.status.conditions)]) == 2,
+                  30)
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self):
+        for kubelet in self.kubelets:
+            kubelet.stop()
+        for proc in reversed(self.procs):
+            proc.stop()
+        if getattr(self, "cs", None) is not None:
+            self.cs.close()
+
+
 @pytest.mark.usefixtures("no_disk_eviction")
-@pytest.mark.parametrize("kind", ["synthetic", "decode"])
-def test_rolling_update_under_traffic_fails_no_request(kind):
+@pytest.mark.parametrize("kind,plane", [("synthetic", "jax"), ("decode", "jax"),
+                                        ("synthetic", "torch")],
+                         ids=["synthetic", "decode", "torch-synthetic"])
+def test_rolling_update_under_traffic_fails_no_request(kind, plane, tmp_path):
     from kubernetes1_tpu.client import InformerFactory as JaxInformerFactory
     from kubernetes1_tpu.localcluster import LocalCluster
     from kubernetes1_tpu.proxy import EndpointsBalancerSync, LeastInflightBalancer
@@ -226,7 +272,8 @@ def test_rolling_update_under_traffic_fails_no_request(kind):
         finally:
             ref.stop()
         made = []
-    cluster = LocalCluster(nodes=2, tpus_per_node=4).start()
+    cluster = LocalCluster(nodes=2, tpus_per_node=4).start() if plane == "jax" \
+        else _PortPlane(tmp_path)
     client = Client(cluster.url)
     factory = InformerFactory(client)
     jfactory = JaxInformerFactory(cluster.cs)
