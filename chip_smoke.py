@@ -148,10 +148,13 @@
    (`python -m kubernetes1_tpu_torch scheduler`, which picks a pod's cards
    by NVLink domain and minor) and controller manager (`python -m
    kubernetes1_tpu_torch controller-manager`, whose Job and ReplicaSet
-   controllers make every pod of the phase's Jobs and Deployments), the
-   JAX package's unchanged kubelet (`python -m kubernetes1_tpu kubelet`, a
-   ProcessRuntime node; it imports no JAX) and the port's GPU plugin in
-   real mode, and speaks to the apiserver over HTTP: the node must advertise the one card as
+   controllers make every pod of the phase's Jobs and Deployments),
+   kubelet (`python -m kubernetes1_tpu_torch kubelet --runtime process`,
+   whose device manager admits each pod against the card, injects
+   CUDA_VISIBLE_DEVICES and starts and stops its processes; it writes no
+   pod cgroup and makes no mount namespace)
+   and the port's GPU plugin in real mode; no process it starts names the
+   JAX package.  It speaks to the apiserver over HTTP: the node must advertise the one card as
    torch names it, with its NVLink domain and minor; ResNet-50 at 128 x 224^2
    through resnet_bench as a Job (workloads.specs.payload_job) must be
    scheduled, get the card's ID and its UUID in CUDA_VISIBLE_DEVICES, and
@@ -182,7 +185,14 @@
    rank stamps (it fails unless they are there and no tpu.ktpu.io key is),
    the fleet rollout's seconds and least Ready count, the RL leg's
    Endpoints convergence and ktpu_gang_attempts_total off the process's
-   /metrics (it fails unless 0: the learner gang was never torn down).  The pods' launches
+   /metrics (it fails unless 0: the learner gang was never torn down).
+   The "cluster: kubelet" line names the port's kubelet process, each pod
+   it admitted with its card and the seconds from its admission to the
+   watch seeing it Running, the device manager's allocation-latency count
+   and p50 off the kubelet's /metrics, and whether its cluster DNS ran; it
+   fails unless the kubelet admitted and ran every pod the scheduler line
+   names.  The MNIST pod's log is read through the port's apiserver and
+   kubelet, and must hold the accuracy line the pod printed.  The pods' launches
    happen in their own processes: no launches column (the fleet of 26.
    decodes in this process: ``fleet``);
 25. (the native node components, before 24.) runs ktpu-gpu-plugin in real
@@ -3837,6 +3847,9 @@ PYTHON_PLUGIN = (sys.executable, "-m", "kubernetes1_tpu_torch.deviceplugin")
 PORT_APISERVER = "kubernetes1_tpu_torch-apiserver"  # its process's name in Cluster
 PORT_SCHEDULER = "kubernetes1_tpu_torch-scheduler"
 PORT_CONTROLLER_MANAGER = "kubernetes1_tpu_torch-controller-manager"
+PORT_KUBELET = "kubernetes1_tpu_torch-kubelet"
+JAX_PACKAGE = re.compile(r"\bkubernetes1_tpu\b(?!_torch)")  # an argv naming the JAX package
+ALLOC_P50 = re.compile(r'^ktpu_device_plugin_allocation_seconds\{quantile="0.5"\} (\S+)$', re.M)
 STAMP_KEYS = ("worker-id", "coordinator-address", "worker-hostnames")  # gpu.ktpu.io/<key>
 REQUEST_LINE = re.compile(r'^apiserver_request_total\{method="(\w+)",resource="[^"]*"\} (\d+)$',
                           re.M)
@@ -3845,15 +3858,17 @@ BOUND_LINE = re.compile(r"^scheduler: bound default/(\S+) to (\S+)(?: devices=(.
 
 class Cluster:
     """The orchestrator as child processes of this one: the port's
-    apiserver, scheduler and controller manager, the JAX package's
-    unchanged kubelet (a ProcessRuntime node), and a GPU plugin in real
-    mode (no KTPU_FAKE_GPUS) in the node's plugin dir: ``plugin``, its
-    command before ``--plugin-dir``, the port's Python plugin unless
-    another is given.  Spoken to over HTTP.  ``healthz_s`` is the
-    apiserver's start-to-/healthz time.  A watch of the pods records each
-    pod's owner as it appears (``made``).  ``stop`` deletes every
-    workload, stops every process and returns the pod processes that
-    survived, killed."""
+    apiserver, scheduler, controller manager and kubelet (a process-runtime
+    node that leaves the machine's cgroups and mounts alone), and a GPU
+    plugin in real mode (no KTPU_FAKE_GPUS) in the node's plugin dir:
+    ``plugin``, its command before ``--plugin-dir``, the port's Python
+    plugin unless another is given.  No argv it starts may name the JAX
+    package.  Spoken to over HTTP.  ``healthz_s`` is the apiserver's
+    start-to-/healthz time.  A watch of the pods records each pod's owner
+    as it appears (``made``) and, for each pod the kubelet admitted, its
+    cards, its admission stamp and when it was first seen Running
+    (``ran``).  ``stop`` deletes every workload, stops every process and
+    returns the pod processes that survived, killed."""
 
     def __init__(self, tmp: str, plugin=PYTHON_PLUGIN):
         self.tmp, self.procs, self.logs = tmp, [], []
@@ -3865,7 +3880,6 @@ class Cluster:
             p for p in (REPO_ROOT, os.environ.get("PYTHONPATH", "")) if p)}
         self.env.pop("KTPU_FAKE_GPUS", None)
         try:
-            component = [sys.executable, "-m", "kubernetes1_tpu"]
             self.watch = None
             t0 = time.perf_counter()
             self._start(PORT_APISERVER, [sys.executable, "-m", "kubernetes1_tpu_torch",
@@ -3885,18 +3899,25 @@ class Cluster:
             self.cm_metrics = re.search(r"controller manager metrics on (\S+)",
                                         self.log(PORT_CONTROLLER_MANAGER)).group(1)
             self.made = []  # (owner kind, owner name, pod) as the watch saw each pod appear
+            self.ran = {}  # pod -> {"cards", "admitted_at", "running_at"}
             self.watch = SharedInformer(self.client.pods, "default")
-            self.watch.add_handler(on_add=self._pod_seen)
+            self.watch.add_handler(on_add=self._pod_seen,
+                                   on_update=lambda _old, pod: self._pod_ran(pod))
             self.watch.start()
             self._start("plugin", [*plugin, "--plugin-dir", self.plugin_dir])
-            self._start("kubelet", [*component, "kubelet", *server, "--runtime", "process",
-                                    "--plugin-dir", self.plugin_dir, "--root-dir",
-                                    f"{tmp}/node", "--node-name", CLUSTER_NODE])
+            self._start(PORT_KUBELET, [sys.executable, "-m", "kubernetes1_tpu_torch", "kubelet",
+                                       *server, "--runtime", "process", "--plugin-dir",
+                                       self.plugin_dir, "--root-dir", f"{tmp}/node",
+                                       "--node-name", CLUSTER_NODE])
+            _wait("the port's kubelet to run", lambda: self.check_alive() or
+                  f"kubelet {CLUSTER_NODE} running" in self.log(PORT_KUBELET), 120)
         except BaseException:
             self.stop()
             raise
 
     def _start(self, name: str, argv: list):
+        if any(JAX_PACKAGE.search(str(a)) for a in argv):
+            fail(f"cluster: {name} would run the JAX package: {argv}")
         log = open(f"{self.tmp}/{name}.log", "w")
         self.logs.append((name, log))
         self.procs.append((name, subprocess.Popen(argv, cwd=REPO_ROOT, env=self.env, stdout=log,
@@ -3906,6 +3927,62 @@ class Cluster:
         for ref in pod["metadata"].get("ownerReferences") or []:
             if ref.get("controller"):
                 self.made.append((ref["kind"], ref["name"], pod["metadata"]["name"]))
+        self._pod_ran(pod)
+
+    def _pod_ran(self, pod: dict):
+        """Record, once, a pod the kubelet admitted (its admitted-at stamp)
+        as the watch first sees it Running (or past it)."""
+        meta, name = pod["metadata"], pod["metadata"]["name"]
+        stamp = (meta.get("annotations") or {}).get("slo.ktpu.io/admitted-at")
+        if name in self.ran or not stamp or (pod.get("status") or {}).get("phase") not in (
+                "Running", "Succeeded", "Failed"):
+            return
+        self.ran[name] = {"running_at": time.time(), "admitted_at": float(stamp),
+                          "cards": [c for r in pod["spec"].get("extendedResources") or []
+                                    for c in r.get("assigned") or []]}
+
+    def read_log(self, name: str) -> str:
+        """A pod's log through the port's apiserver and kubelet; fails when
+        it cannot be read or is empty."""
+        try:
+            text = self.client.pod_log(name)
+        except (ApiError, OSError) as e:
+            fail(f"cluster: the log of pod {name} through the apiserver and kubelet: {e!r}")
+        if not text:
+            fail(f"cluster: pod {name}'s log through the apiserver and kubelet is empty")
+        return text
+
+    def kubelet_metrics(self) -> dict:
+        """The kubelet's allocation-latency count and p50 and its running
+        pods, off its /metrics (open, at the node's kubelet.ktpu.io/server)."""
+        node = self.client.nodes.get(CLUSTER_NODE)
+        text = _get(node["metadata"]["annotations"]["kubelet.ktpu.io/server"] + "/metrics")
+        p50 = ALLOC_P50.search(text)
+        return {"alloc_count": _metric_value(text, "ktpu_device_plugin_allocation_seconds_count"),
+                "alloc_p50_s": float(p50.group(1)) if p50 else None,
+                "running_pods": _metric_value(text, "kubelet_running_pods")}
+
+    def kubelet_line(self, card: str, metrics: dict, pods: list):
+        """The "cluster: kubelet" line: the process, each pod it admitted
+        with its cards and admission-to-Running seconds, the device
+        manager's allocation latency and its cluster DNS; fails unless the
+        process is the port's kubelet and it admitted and ran every pod of
+        ``pods``."""
+        proc = dict(self.procs)[PORT_KUBELET]
+        log = self.log(PORT_KUBELET, tail=1 << 30)
+        dns = re.search(rf"kubelet {CLUSTER_NODE}: (cluster DNS on \S+|no cluster DNS .*)", log)
+        missing = [p for p in pods if p not in self.ran]
+        if missing or not metrics["alloc_count"] or JAX_PACKAGE.search(" ".join(proc.args)):
+            fail(f"cluster: the port's kubelet (argv {proc.args}) admitted and ran "
+                 f"{sorted(self.ran)}, not {missing}; its /metrics {metrics}")
+        print(f"cluster: kubelet python -m kubernetes1_tpu_torch (pid {proc.pid}) admitted and "
+              f"ran {len(self.ran)} pods: "
+              + ", ".join(f"{p} {'+'.join(r['cards']) or 'no card'} "
+                          f"{r['running_at'] - r['admitted_at']:.3f} s"
+                          for p, r in self.ran.items())
+              + f"; device plugin allocations {metrics['alloc_count']:.0f}, p50 "
+              f"{metrics['alloc_p50_s']} s; {dns.group(1) if dns else 'no DNS line'} "
+              f"on [{card}]", flush=True)
 
     def created_after(self, pod: dict, t_wall: float) -> float:
         """Seconds from ``t_wall`` (time.time()) to the pod's create, by
@@ -4325,8 +4402,9 @@ def native_phase(card: str, bins: dict) -> dict:
         alloc_s, start_s, visible = cl.job_started(sel, t0)
         injected = PluginClient(cl.socket).call("InitContainer", {"device_ids": [want[0]["id"]]})
         done = _wait("the MNIST Job to succeed", lambda: cl.job_done("mnist-native"), 300, 0.5)
-        mlog = cl.pod_log(done["metadata"]["name"])
+        mlog = cl.read_log(done["metadata"]["name"])
         cl.delete_job("mnist-native")
+        kubelet_metrics = cl.kubelet_metrics()
     except SystemExit:
         cl.report_failure()
         raise
@@ -4345,8 +4423,10 @@ def native_phase(card: str, bins: dict) -> dict:
              f"{sorted(left)}, the plugin socket is "
              f"{'still there' if os.path.exists(cl.socket) else 'gone'}")
     cl.scheduler_line(card, alloc_s, [done["metadata"]["name"]])
+    cl.kubelet_line(card, kubelet_metrics, [done["metadata"]["name"]])
     shutil.rmtree(tmp, ignore_errors=True)
-    res.update(chip_alloc_s=alloc_s, pod_start_s=start_s, mnist_acc=float(acc.group(1)))
+    res.update(chip_alloc_s=alloc_s, pod_start_s=start_s, mnist_acc=float(acc.group(1)),
+               kubelet=dict(kubelet_metrics, ran=cl.ran))
     print(f"native: the MNIST Job through ktpu-gpu-plugin: chip_alloc_s={alloc_s:.3f} "
           f"pod_start_s={start_s:.3f} on {want[0]['id']} (CUDA_VISIBLE_DEVICES={uuid}, "
           f"gpu.ktpu.io/plugin: native), accuracy {acc.group(1)}; teardown left no pod process, "
@@ -4798,7 +4878,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
                  f"in-process run's {rn['first_loss']}, tol {RESNET_LOSS_TOL})")
         cl.delete_job("resnet50-gpu")
         mdone = _wait("the MNIST Job to succeed", lambda: cl.job_done("mnist-gpu"), 300, 0.5)
-        mlog = cl.pod_log(mdone["metadata"]["name"])
+        mlog = cl.read_log(mdone["metadata"]["name"])
         cl.delete_job("mnist-gpu")
         said = re.search(r"acc=([0-9.]+) on (.+)", mlog)
         if not said or float(said.group(1)) < MNIST_MIN_ACCURACY or \
@@ -4860,6 +4940,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         placed += [res["rl"]["pod"], res["multicard"]["pod"]]
         served = cl.requests_by_verb()
         res["gang_attempts"] = cl.gang_attempts()
+        kubelet_metrics = cl.kubelet_metrics()
     except SystemExit:
         cl.report_failure()
         raise
@@ -4880,7 +4961,9 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     res["scheduled"] = cl.scheduler_line(card, res["chip_alloc_s"], placed)
     cl.apiserver_line(card, served, rewritten, res["chip_alloc_s"])
     cl.controller_manager_line(card, res)
-    res.update(apiserver_healthz_s=cl.healthz_s, apiserver_served=served, rewritten=rewritten)
+    cl.kubelet_line(card, kubelet_metrics, placed)
+    res.update(apiserver_healthz_s=cl.healthz_s, apiserver_served=served, rewritten=rewritten,
+               kubelet=dict(kubelet_metrics, ran=cl.ran))
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"cluster: teardown left no pod process (no actor, no learner), no new process on "
           f"the card, no plugin socket and no fleet backend on [{card}]", flush=True)

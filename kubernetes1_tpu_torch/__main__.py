@@ -3,6 +3,8 @@
     python -m kubernetes1_tpu_torch apiserver --port N [--host H]
     python -m kubernetes1_tpu_torch scheduler --server URL [--metrics-port -1]
     python -m kubernetes1_tpu_torch controller-manager --server URL [--metrics-port -1]
+    python -m kubernetes1_tpu_torch kubelet --server URL --node-name N [--runtime process|fake]
+        [--plugin-dir D] [--root-dir R]
 
 (the JAX package's ``python -m kubernetes1_tpu <component>``, for the
 components the port has).
@@ -17,6 +19,7 @@ COMPONENTS = {
     "apiserver": "kubernetes1_tpu_torch.apiserver.__main__",
     "scheduler": "kubernetes1_tpu_torch.scheduler.__main__",
     "controller-manager": "kubernetes1_tpu_torch.controllers.__main__",
+    "kubelet": "kubernetes1_tpu_torch.kubelet.__main__",
 }
 
 

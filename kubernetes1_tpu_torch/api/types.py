@@ -14,8 +14,7 @@ A device's attributes are free-form strings under a vendor prefix.  The
 port's scheduler reads the ``nvidia.com/gpu/`` keys that both GPU plugins
 publish: a card's NVLink domain (``ATTR_GPU_NVLINK_DOMAIN``) and its
 minor (``ATTR_GPU_MINOR``), where the JAX scheduler reads a TPU chip's
-slice and coordinates.  The ``google.com/tpu/`` keys stay beside them,
-since the JAX control plane still serves the same objects.
+slice and coordinates.
 """
 
 from __future__ import annotations
@@ -45,14 +44,6 @@ ATTR_GPU_UUID = "nvidia.com/gpu/uuid"
 ATTR_GPU_NVLINK_DOMAIN = "nvidia.com/gpu/nvlink-domain"  # the cards one NVLink fabric joins
 ATTR_GPU_MINOR = "nvidia.com/gpu/minor"                  # the card's minor (its index when fake)
 
-# Well-known TPU attribute keys (the JAX package's device plane).
-ATTR_TPU_TYPE = "google.com/tpu/type"            # e.g. v5e, v5p
-ATTR_TPU_TOPOLOGY = "google.com/tpu/topology"    # e.g. 2x2x1, 4x4x8
-ATTR_TPU_SLICE = "google.com/tpu/slice"          # slice/ICI-domain id
-ATTR_TPU_HOST_INDEX = "google.com/tpu/host-index"
-ATTR_TPU_CHIP_COORDS = "google.com/tpu/coords"   # x,y,z within slice
-ATTR_TPU_CORES_PER_CHIP = "google.com/tpu/cores-per-chip"
-
 # Annotation carrying the scheduler's nominated node during preemption
 # (ref: scheduler.go NominatedNodeAnnotationKey).
 NOMINATED_NODE_ANNOTATION = "scheduler.ktpu.io/nominated-node"
@@ -69,6 +60,9 @@ SCHEDULED_AT_ANNOTATION = "slo.ktpu.io/scheduled-at"
 # Server-set wall-clock stamps (as "%.6f") of the pod's create and bind.
 CREATED_AT_ANNOTATION = "slo.ktpu.io/created-at"
 BOUND_AT_ANNOTATION = "slo.ktpu.io/bound-at"
+# The wall-clock second (as "%.6f") at which the kubelet's device admission
+# (the plugin's AdmitPod included) accepted the pod on its node.
+ADMITTED_AT_ANNOTATION = "slo.ktpu.io/admitted-at"
 # The monotonic commit stamps a lag-stamp BOOKMARK frame carries.
 COMMITTED_AT_ANNOTATION = "obs.ktpu.io/committed-at"
 # The label the Job strategy puts on a Job's selector and pod template.
@@ -1272,3 +1266,23 @@ class PodCustomMetrics(KObject):
     stale: bool = False
     samples: List[MetricSample] = field(default_factory=list)
 
+
+def effective_security_context(pod: "Pod", container: "Container") -> SecurityContext:
+    """The container's settings over the pod's (ref pkg/securitycontext
+    DetermineEffectiveSecurityContext)."""
+    psc = pod.spec.security_context
+    csc = container.security_context
+    out = SecurityContext()
+    if psc is not None:
+        out.run_as_user = psc.run_as_user
+        out.run_as_group = psc.run_as_group
+        out.run_as_non_root = psc.run_as_non_root
+    if csc is not None:
+        if csc.run_as_user is not None:
+            out.run_as_user = csc.run_as_user
+        if csc.run_as_group is not None:
+            out.run_as_group = csc.run_as_group
+        if csc.run_as_non_root is not None:
+            out.run_as_non_root = csc.run_as_non_root
+        out.privileged = csc.privileged
+    return out

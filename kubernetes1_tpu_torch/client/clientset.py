@@ -26,16 +26,16 @@ from .. import api  # registers the API types with the scheme
 from ..api import types as t
 from ..machinery.scheme import global_scheme
 from .errors import ApiError
-from .informer import InformerFactory
+from .informer import InformerFactory, SharedInformer
 from .rest import Client, ResourceClient
 
 
-# The resources with a typed client: those the port's scheduler and
-# controller manager read or write.
+# The resources with a typed client: those the port's scheduler,
+# controller manager and kubelet read or write.
 TYPED = ("pods", "events", "nodes", "namespaces", "jobs", "replicasets", "deployments",
          "daemonsets", "statefulsets", "cronjobs", "services", "endpoints",
          "poddisruptionbudgets", "serviceaccounts", "secrets", "configmaps",
-         "persistentvolumeclaims")
+         "persistentvolumeclaims", "persistentvolumes", "podmetrics", "nodemetrics")
 
 
 class TypedResource:
@@ -47,9 +47,10 @@ class TypedResource:
     def _decode(self, data: dict):
         return global_scheme.decode_as(self.rc.resource, data)
 
-    def list(self, namespace: str = "", label_selector: str = "") -> Tuple[List[Any], str]:
+    def list(self, namespace: str = "", label_selector: str = "",
+             field_selector: str = "") -> Tuple[List[Any], str]:
         """(the typed items, the list's resourceVersion)."""
-        items, rv = self.rc.list(namespace, label_selector)
+        items, rv = self.rc.list(namespace, label_selector, field_selector)
         return [self._decode(d) for d in items], rv
 
     def create(self, obj, namespace: str = ""):
@@ -84,6 +85,12 @@ class Clientset:
 
     def resource(self, plural: str) -> TypedResource:
         return self._typed[plural]
+
+    def informer(self, plural: str, field_selector: str = "") -> SharedInformer:
+        """A typed informer of its own over one resource, narrowed by
+        ``field_selector`` on the apiserver's side."""
+        return SharedInformer(self.client.resource(plural), field_selector=field_selector,
+                              decode=lambda obj: global_scheme.decode_as(plural, obj))
 
     def informers(self) -> InformerFactory:
         """An informer factory whose caches hold typed objects."""

@@ -6,7 +6,9 @@ it lists again and dispatches the difference against its cache: an object
 new to the cache as an add, a changed one as an update, and one that went
 while it was away as a delete, so no handler misses a delete.  Handlers
 run on the informer's own thread, one event at a time, in order.
-``InformerFactory`` keeps one informer per resource.
+``InformerFactory`` keeps one informer per resource.  A label or field
+selector (``spec.nodeName=<node>``, as a kubelet watches its own pods)
+narrows both the list and the watch on the apiserver's side.
 
 An informer caches the wire-form dicts, or, given ``decode`` (a function
 of a wire dict, as ``clientset.Clientset.informers`` passes the scheme's
@@ -39,10 +41,12 @@ def object_key(obj) -> str:
 class SharedInformer:
     def __init__(self, client: ResourceClient, namespace: str = "",
                  label_selector: str = "",
-                 decode: Optional[Callable[[dict], Any]] = None):
+                 decode: Optional[Callable[[dict], Any]] = None,
+                 field_selector: str = ""):
         self.client = client
         self.namespace = namespace
         self.label_selector = label_selector
+        self.field_selector = field_selector
         self._decode = decode or (lambda obj: obj)
         self._cache: Dict[str, Any] = {}
         self._lock = threading.Lock()
@@ -102,7 +106,8 @@ class SharedInformer:
                     traceback.print_exc()
 
     def _relist(self) -> str:
-        items, rv = self.client.list(self.namespace, self.label_selector)
+        items, rv = self.client.list(self.namespace, self.label_selector,
+                                     self.field_selector)
         fresh = {object_key(o): self._decode(o) for o in items}
         with self._lock:
             old, self._cache = self._cache, fresh
@@ -120,7 +125,8 @@ class SharedInformer:
 
     def _watch(self, rv: str):
         """Apply one watch stream from ``rv`` until it ends."""
-        stream = self._stream = self.client.watch(self.namespace, self.label_selector, rv)
+        stream = self._stream = self.client.watch(self.namespace, self.label_selector, rv,
+                                                  self.field_selector)
         try:
             if self._stop.is_set():
                 return

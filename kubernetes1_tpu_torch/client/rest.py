@@ -56,8 +56,11 @@ RESOURCES = {
     "limitranges": ("/api/v1", "LimitRange", "v1"),
     "horizontalpodautoscalers": ("/apis/autoscaling/v1", "HorizontalPodAutoscaler",
                                  "autoscaling/v1"),
+    "persistentvolumes": ("/api/v1", "PersistentVolume", "v1"),
+    "podmetrics": ("/apis/metrics.k8s.io/v1", "PodMetrics", "metrics.k8s.io/v1"),
+    "nodemetrics": ("/apis/metrics.k8s.io/v1", "NodeMetrics", "metrics.k8s.io/v1"),
 }
-CLUSTER_SCOPED = frozenset({"nodes", "namespaces"})
+CLUSTER_SCOPED = frozenset({"nodes", "namespaces", "persistentvolumes", "nodemetrics"})
 # A GET is retried over this many connection failures; a write only when it
 # failed before it was sent (the connect refused or reset), since a write
 # whose answer was lost may have been applied.  An idle keep-alive socket
@@ -144,10 +147,12 @@ class ResourceClient:
     def get(self, name: str, namespace: str = "default") -> dict:
         return self.client.request("GET", self.path(namespace, name))
 
-    def list(self, namespace: str = "", label_selector: str = "") -> Tuple[List[dict], str]:
+    def list(self, namespace: str = "", label_selector: str = "",
+             field_selector: str = "") -> Tuple[List[dict], str]:
         """(items, the list's resourceVersion)."""
         data = self.client.request("GET", self.path(namespace),
-                                   params={"labelSelector": label_selector})
+                                   params={"labelSelector": label_selector,
+                                           "fieldSelector": field_selector})
         return data.get("items") or [], (data.get("metadata") or {}).get("resourceVersion", "0")
 
     def update(self, obj: dict) -> dict:
@@ -171,9 +176,10 @@ class ResourceClient:
         return self.client.request("DELETE", self.path(namespace, name), params=params)
 
     def watch(self, namespace: str = "", label_selector: str = "",
-              resource_version: str = "0") -> WatchStream:
+              resource_version: str = "0", field_selector: str = "") -> WatchStream:
         return self.client.watch(self.path(namespace), {
-            "resourceVersion": resource_version, "labelSelector": label_selector})
+            "resourceVersion": resource_version, "labelSelector": label_selector,
+            "fieldSelector": field_selector})
 
 
 class Client:

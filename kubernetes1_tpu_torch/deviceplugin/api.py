@@ -102,8 +102,9 @@ class PluginServer:
     The implementation object provides:
       get_plugin_info() -> dict
       list_devices() -> [device dicts]          (initial ListAndWatch frame)
-      watch_devices(send: Callable[[list], None], stop: Event)  (optional
-          streaming updates; default sends only the initial frame)
+      watch_devices(send: Callable[[list], None], stop: Event)  (optional:
+          sends the initial frame, then an update on every change; without
+          it the server sends list_devices() once)
       admit_pod(params) -> dict
       init_container(params) -> ContainerSpec
     """
@@ -196,11 +197,14 @@ class PluginServer:
                 f.flush()
 
         try:
-            send(self.impl.list_devices())
             watch = getattr(self.impl, "watch_devices", None)
             if watch is not None:
+                # it sends the first frame itself, from a snapshot taken
+                # as it subscribes: a health flip between the two would
+                # otherwise wake no one
                 watch(send, self._stop)
             else:
+                send(self.impl.list_devices())
                 self._stop.wait()
         except (BrokenPipeError, ConnectionResetError, OSError):
             pass

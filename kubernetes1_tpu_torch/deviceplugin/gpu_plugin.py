@@ -265,14 +265,22 @@ class GPUDevicePlugin:
 
     def list_devices(self) -> List[dict]:
         with self._lock:
-            return [{**d, "attributes": dict(d["attributes"])} for d in self.devices]
+            return self._snapshot()
+
+    def _snapshot(self) -> List[dict]:
+        return [{**d, "attributes": dict(d["attributes"])} for d in self.devices]
 
     def watch_devices(self, send, stop: threading.Event):
-        """Push the inventory again whenever a card's health flips."""
+        """Send the inventory, then again whenever a card's health flips.
+        The first frame's snapshot and the stream's subscription are taken
+        under one hold of the lock, so a flip lands either in that frame
+        or on the subscribed event, never between them."""
         dirty = threading.Event()
         with self._lock:
             self._subscribers.append(dirty)
+            first = self._snapshot()
         try:
+            send(first)
             while not stop.is_set():
                 dirty.wait(self.health_check_interval)
                 if stop.is_set():

@@ -137,6 +137,9 @@ def test_port_client_drives_the_jax_tpu_plugin_over_all_four_rpcs(plugin_dir):
         frames = _stream(client)
         must_poll_until(lambda: frames, desc="initial frame")
         assert len(frames[0]) == 4
+        # the JAX plugin writes the first frame before its stream subscribes
+        # to health flips (tpu_plugin.py:150-153): flip once it has
+        must_poll_until(lambda: impl._subscribers, desc="the stream's wake-up event")
         impl.set_health("s0-h0-chip1", t.DEVICE_UNHEALTHY)
         must_poll_until(lambda: len(frames) >= 2, desc="health frame")
         assert {d["id"]: d["health"] for d in frames[-1]}["s0-h0-chip1"] == t.DEVICE_UNHEALTHY
@@ -149,6 +152,61 @@ def test_port_client_drives_the_jax_tpu_plugin_over_all_four_rpcs(plugin_dir):
                                                                    "s0-h0-chip3"]}))
         assert spec.envs["TPU_VISIBLE_CHIPS"] == "0,3"
         assert spec.annotations == {"tpu.ktpu.io/injected": "true"}
+    finally:
+        client.close()
+        server.stop()
+
+
+class _PausingPlugin(gp.GPUDevicePlugin):
+    """The port's plugin, pausing right after the inventory snapshot of a
+    stream's first frame until ``flipped`` is set (or 1 s has passed)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.snapshot_taken, self.flipped = threading.Event(), threading.Event()
+
+    def _pause(self):
+        if not self.snapshot_taken.is_set():
+            self.snapshot_taken.set()
+            self.flipped.wait(1.0)
+
+    def list_devices(self):
+        snap = super().list_devices()
+        self._pause()
+        return snap
+
+    def _snapshot(self):
+        snap = super()._snapshot()
+        self._pause()
+        return snap
+
+
+def test_a_flip_right_after_the_first_frames_snapshot_reaches_the_stream(plugin_dir):
+    """A health flip that lands between the first frame's inventory
+    snapshot and the stream's subscription to flips still reaches the
+    stream as a second frame: the snapshot and the subscription are one
+    step under the plugin's lock (ROADMAP Queue 3 F).  The plugin's timed
+    health pass is an hour away and a fake card has no node to check, so
+    only the flip's own wake-up can send that frame."""
+    impl = _PausingPlugin(devices=gp._fake_devices(f"{H100}:2:nv0:0"),
+                          health_check_interval=3600.0)
+    server = tapi.PluginServer(impl, tapi.plugin_socket_path(plugin_dir, GPU_RESOURCE)).start()
+    client = tapi.PluginClient(server.socket_path)
+    try:
+        frames = _stream(client)
+        assert impl.snapshot_taken.wait(10.0)
+
+        def flip():
+            impl.set_health("nv0-h0-gpu1", t.DEVICE_UNHEALTHY)
+            impl.flipped.set()
+
+        flipper = threading.Thread(target=flip)
+        flipper.start()
+        flipper.join(10.0)
+        must_poll_until(lambda: len(frames) >= 2, timeout=5.0,
+                        desc="the flip's frame after the first")
+        assert {d["id"]: d["health"] for d in frames[0]}["nv0-h0-gpu1"] == t.DEVICE_HEALTHY
+        assert {d["id"]: d["health"] for d in frames[1]}["nv0-h0-gpu1"] == t.DEVICE_UNHEALTHY
     finally:
         client.close()
         server.stop()

@@ -21,12 +21,13 @@ goes whole to the NVLink domain that holds it.
 
 The scheduling tests run under each control plane (the ``control_plane``
 fixture's parameter): ``jax``, the JAX package's ``Master``,
-``Scheduler`` and controllers in process, and ``torch``, the port's
-apiserver, scheduler and controller manager as the processes ``python -m
-kubernetes1_tpu_torch apiserver --port <port>``, ``python -m
+``Scheduler``, controllers and kubelets in process, and ``torch``, the
+port's apiserver, scheduler and controller manager as the processes
+``python -m kubernetes1_tpu_torch apiserver --port <port>``, ``python -m
 kubernetes1_tpu_torch scheduler --server <url>`` and ``python -m
 kubernetes1_tpu_torch controller-manager --server <url>`` (stopped by
-SIGTERM), under the JAX kubelets.
+SIGTERM), with the port's kubelets in process (``kubernetes1_tpu_torch
+.kubelet``, over the port's clientset and runtimes).
 Both give the same node and the same cards: the waiting pod's reason,
 affinity on the cards' model and memory, a 2-card pod on one NVLink pair,
 a gang on the domain that holds it, a gang bound all or nothing, and a
@@ -59,6 +60,8 @@ from kubernetes1_tpu.machinery.scheme import from_dict
 from kubernetes1_tpu.scheduler import Scheduler
 from kubernetes1_tpu.utils.waitutil import must_poll_until
 from kubernetes1_tpu_torch import GPU_RESOURCE, native
+from kubernetes1_tpu_torch import kubelet as tkubelet
+from kubernetes1_tpu_torch.client.clientset import Clientset as TorchClientset
 from kubernetes1_tpu_torch.client.rest import Client
 from kubernetes1_tpu_torch.deviceplugin import api as tapi
 from kubernetes1_tpu_torch.deviceplugin import gpu_plugin as gp
@@ -102,11 +105,44 @@ def native_bins(tmp_path_factory):
     return native.build(str(tmp_path_factory.mktemp("native-bin")))
 
 
+KUBELET_TIMING = dict(heartbeat_interval=0.5, sync_interval=0.3, pleg_interval=0.3,
+                      eviction_signals_fn=lambda: {},
+                      capacity={"cpu": "16", "memory": "64Gi", "pods": "110"})
+
+
 def _kubelet(cs, name, runtime, plugin_dir):
-    return Kubelet(cs, node_name=name, runtime=runtime, plugin_dir=plugin_dir,
-                   heartbeat_interval=0.5, sync_interval=0.3, pleg_interval=0.3,
-                   eviction_signals_fn=lambda: {},
-                   capacity={"cpu": "16", "memory": "64Gi", "pods": "110"})
+    return Kubelet(cs, node_name=name, runtime=runtime, plugin_dir=plugin_dir, **KUBELET_TIMING)
+
+
+class _Node:
+    """A node's kubelet and runtime: the JAX package's, or under the port's
+    control plane (``torch``) the port's, with a clientset of its own."""
+
+    def __init__(self, request, master, cs, name, plugin_dir, hollow, root):
+        self.cs = None
+        if _plane(request) == "torch":
+            self.cs = TorchClientset(master.url)
+            self.runtime = tkubelet.FakeRuntime() if hollow else tkubelet.ProcessRuntime(
+                root_dir=root)
+            self.kubelet = tkubelet.Kubelet(self.cs, name, self.runtime, plugin_dir=plugin_dir,
+                                            **KUBELET_TIMING)
+        else:
+            self.runtime = FakeRuntime() if hollow else ProcessRuntime(root_dir=root)
+            self.kubelet = _kubelet(cs, name, self.runtime, plugin_dir)
+        self.kubelet.start()
+
+    def stop(self):
+        self.kubelet.stop()
+        if hasattr(self.runtime, "kill_all"):
+            self.runtime.kill_all()  # no container outlives the test
+        if self.cs is not None:
+            self.cs.close()
+
+
+def _plane(request) -> str:
+    """The test's control plane: ``jax`` unless parametrized ``torch``."""
+    callspec = getattr(request.node, "callspec", None)
+    return callspec.params.get("control_plane", "jax") if callspec else "jax"
 
 
 class _PortComponent:
@@ -198,32 +234,27 @@ def gpu_node(request, control_plane, tmp_path):
         plugin = _NativePlugin(binary, plugin_dir, f"{H100}:1:nv0:0")
     else:
         plugin = _plugin(plugin_dir, f"{H100}:1:nv0:0")
-    runtime = ProcessRuntime(root_dir=str(tmp_path / "ktpu"))
-    kubelet = _kubelet(cs, "gpu-node-0", runtime, plugin_dir)
-    kubelet.start()
+    node = _Node(request, master, cs, "gpu-node-0", plugin_dir, False, str(tmp_path / "ktpu"))
     must_poll_until(lambda: _cards(cs, "gpu-node-0"), timeout=20.0,
                     desc="gpu-node-0 advertises its card")
     yield {"master": master, "cs": cs, "tmp": tmp_path}
-    kubelet.stop()
-    runtime.kill_all()  # no container outlives the test
+    node.stop()
     plugin.stop()
 
 
 @pytest.fixture()
-def hollow_nodes(control_plane, tmp_path):
+def hollow_nodes(request, control_plane, tmp_path):
     """Two FakeRuntime nodes: an H100 and an A100, each behind its own plugin."""
     master, cs = control_plane
     nodes = []
     for name, spec in (("h100-node", f"{H100}:1:nvh:0"), ("a100-node", f"{A100}:1:nva:0:40960")):
         plugin = _plugin(str(tmp_path / name), spec)
-        kubelet = _kubelet(cs, name, FakeRuntime(), str(tmp_path / name))
-        kubelet.start()
-        nodes.append((kubelet, plugin))
+        nodes.append((_Node(request, master, cs, name, str(tmp_path / name), True, ""), plugin))
     for name in ("h100-node", "a100-node"):
         must_poll_until(lambda: _cards(cs, name), timeout=20.0, desc=f"{name}'s card")
     yield {"master": master, "cs": cs}
-    for kubelet, plugin in nodes:
-        kubelet.stop()
+    for node, plugin in nodes:
+        node.stop()
         plugin.stop()
 
 
@@ -245,21 +276,16 @@ def nodes(request, control_plane, tmp_path):
                                    plugin_dir, fake)
         else:
             plugin = _plugin(plugin_dir, fake)
-        runtime = FakeRuntime() if hollow else ProcessRuntime(
-            root_dir=str(tmp_path / f"r{len(made)}"))
-        kubelet = _kubelet(cs, name, runtime, plugin_dir)
-        made.append((kubelet, runtime, plugin))
-        kubelet.start()
+        node = _Node(request, master, cs, name, plugin_dir, hollow, str(tmp_path / f"r{len(made)}"))
+        made.append((node, plugin))
         must_poll_until(lambda: _cards(cs, name), timeout=20.0, desc=f"{name}'s cards")
-        return runtime
+        return node.runtime
 
     client = Client(master.url)
     yield types.SimpleNamespace(master=master, cs=cs, client=client, add=add, tmp=tmp_path)
     client.close()
-    for kubelet, runtime, plugin in made:
-        kubelet.stop()
-        if isinstance(runtime, ProcessRuntime):
-            runtime.kill_all()  # no container outlives the test
+    for node, plugin in made:
+        node.stop()
         plugin.stop()
 
 

@@ -29,7 +29,7 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "kubernetes1_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "kubernetes1_tpu"}
 PORT_FILES = sorted(p for p in PKG.rglob("*.py") if "_build" not in p.parts) + [
-    REPO / "chip_smoke.py", REPO / "rl_churn_probe.py"]
+    REPO / "chip_smoke.py", REPO / "rl_churn_probe.py", REPO / "phase_clock.py"]
 NATIVE = PKG / "native"
 NATIVE_SOURCES = sorted(p for ext in ("*.cc", "*.hpp") for p in NATIVE.glob(ext))
 INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)

@@ -13,9 +13,9 @@ card.  Here:
 - an Indexed gang Job of 2 workers x 1 fake card through the JAX Job
   controller, scheduler and kubelet: each pod's process holds its rank,
   the world and the coordinator, with each plugin; and the same under the
-  port's apiserver, scheduler and controller manager (processes, the JAX
-  kubelet), whose Job controller writes the ``gpu.ktpu.io/*`` keys alone,
-  which both plugins read;
+  port's apiserver, scheduler and controller manager (processes) and the
+  port's kubelets, whose Job controller writes the ``gpu.ktpu.io/*`` keys
+  alone, which both plugins read;
 - BASELINE configs 4 and 5 (``examples/gpu-bert-large-4x8-h100.yaml``,
   ``examples/gpu-llama3-8b-32x8-h100-preemptible.yaml``) applied on
   hollow nodes of fake cards, scaled down as ``tests/test_examples_e2e.py``
