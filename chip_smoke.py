@@ -262,13 +262,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubernetes1_tpu_torch import native, optim
+from kubernetes1_tpu_torch import GPU_RESOURCE, native, optim
 from kubernetes1_tpu_torch.client.errors import ApiError, NotFound
 from kubernetes1_tpu_torch.client.informer import InformerFactory, SharedInformer
 from kubernetes1_tpu_torch.client.rest import Client
 from kubernetes1_tpu_torch.kernels import (attention, batchnorm, build, cross_entropy, gelu,
                                            layernorm, rmsnorm, rope, swiglu)
 from kubernetes1_tpu_torch.kernels import optim as optim_kernels
+from kubernetes1_tpu_torch.proxy import EndpointsBalancerSync, LeastInflightBalancer
 from kubernetes1_tpu_torch.kernels import ringattention as ring_kernels
 from kubernetes1_tpu_torch.workloads import (bert, benchguard, llama, llama_bench, loadgen, mnist,
                                              resnet, resnet_bench, ringattention, rl_actor,
@@ -558,6 +559,14 @@ RL_ACTORS, RL_RATE, RL_CHURN_S, RL_CONVERGE_S = 8, 4.0, 20.0, 30.0
 # leg, plus the shared weights, within FLEET_MEMORY_TOL bytes.
 FLEET_APP, FLEET_REPLICAS = "fleet-serve", 2
 FLEET_MEMORY_TOL = 64 << 20
+# LoadGen through the fleet's balancer starts this long before the rollout
+# and runs this long after it; at least this many requests must be answered.
+FLEET_TRAFFIC_S, FLEET_MIN_ACKED = 2.0, 40
+# The LocalCluster phase: its one fleet SLO (the merged scheduling p99, s)
+# and how many times its scorecard ticks.  The card read the pod in the
+# histogram's first bucket (p99 0.00495 s, NVIDIA H100 80GB HBM3, 700 W):
+# the limit is that bucket's next bound, so a scheduling 5x slower fails.
+LC_SLO_SCHED_S, LC_SLO_TICKS = 0.025, 3
 # The multi-card leg (multicard_leg): BASELINE config 4's manifest, scaled
 # to the one card, runs BERT-large (full width and depth) at this batch,
 # sequence and step count through the pod launcher and torchrun; its loss
@@ -4529,15 +4538,21 @@ def rl_leg(cl: "Cluster", card: str, card_id: str, uuid: str) -> dict:
 def fleet_leg(cl: "Cluster", card: str) -> dict:
     """(f) ServeFleet on the device plane: one Llama-3-8B parameter set on
     the card (seed 0, what DecodeServer(seed=0) draws), a Deployment of
-    FLEET_REPLICAS waiting CPU pods behind a PDB of minAvailable 1, and the
-    port's ServeFleet making an 8B DecodeServer in this process on those
-    weights for each Running pod: every backend must answer CLUSTER_PROMPTS
-    with the tokens of the same weights decoded here, before and after the
-    port's rolling_update, which must complete without a Ready pod short of
-    one; every backend but the new pods' stops, and once the fleet stops the
-    card's memory is back to its value before the leg plus the weights
-    (FLEET_MEMORY_TOL).  The backends' launches are the fleet path's, held
-    to the serving kernels' counts per engine step."""
+    FLEET_REPLICAS waiting CPU pods behind a PDB of minAvailable 1 and a
+    Service, and the port's ServeFleet making an 8B DecodeServer in this
+    process on those weights for each Running pod.  The port's
+    LeastInflightBalancer (seed 0), fed by the port's EndpointsBalancerSync
+    from the Service's Endpoints through the fleet's resolver, fronts them:
+    every backend, and the balancer, must answer CLUSTER_PROMPTS with the
+    tokens of the same weights decoded here, before and after the port's
+    rolling_update, which must complete without a Ready pod short of one,
+    while the port's LoadGen (Poisson, seed 1, streamed, CLUSTER_LOADGEN_QPS)
+    sends through the balancer from FLEET_TRAFFIC_S before the rollout to
+    FLEET_TRAFFIC_S after it: no request may fail and at least
+    FLEET_MIN_ACKED must be answered.  Every backend but the new pods' stops,
+    and once the fleet stops the card's memory is back to its value before
+    the leg plus the weights (FLEET_MEMORY_TOL).  The backends' launches are
+    the fleet path's, held to the serving kernels' counts per engine step."""
     cfg = llama.llama_3_8b()
     release_gemm_memory()
     base = torch.cuda.memory_allocated()
@@ -4561,23 +4576,34 @@ def fleet_leg(cl: "Cluster", card: str) -> dict:
         made.append(srv)
         return srv
 
-    def answers(tag, addrs):
-        for host, port in addrs:
-            got = [_post(f"http://{host}:{port}", {"tokens": p, "max_new": SERVE_MAX_NEW})
+    def answers(tag, urls):
+        for url in urls:
+            got = [_post(url, {"tokens": p, "max_new": SERVE_MAX_NEW})
                    for p in CLUSTER_PROMPTS]
             if got != want:
-                fail(f"fleet: the backend at {port} ({tag}) answered {got}, the weights "
-                     f"decoded in this process {want}")
+                fail(f"fleet: {url} ({tag}) answered {got}, the weights decoded in this "
+                     f"process {want}")
+
+    def direct(addrs):
+        return [f"http://{host}:{port}" for host, port in addrs]
 
     client = cl.client
     factory = InformerFactory(client)
     fleet = servefleet.ServeFleet(client, factory, FLEET_APP, backend_factory=backend)
+    bal = LeastInflightBalancer(seed=0)
+    # a pod whose backend starts after its Endpoints event joins then
+    fleet.add_listener(EndpointsBalancerSync(bal, factory, "default", FLEET_APP,
+                                             resolver=fleet.resolver).refresh)
+    lg = None
     for kern in KERNELS.values():
         kern.launches = 0
     try:
         client.poddisruptionbudgets.create({
             "metadata": {"name": f"{FLEET_APP}-pdb", "namespace": "default"},
             "spec": {"selector": {"matchLabels": {"app": FLEET_APP}}, "minAvailable": 1}})
+        client.services.create({"metadata": {"name": FLEET_APP, "namespace": "default"},
+                                "spec": {"selector": {"app": FLEET_APP},
+                                         "ports": [{"port": 80}]}})
         cl.create({"metadata": {"name": FLEET_APP, "namespace": "default"}, "spec": {
             "replicas": FLEET_REPLICAS, "selector": {"matchLabels": {"app": FLEET_APP}},
             "template": {"metadata": {"labels": {"app": FLEET_APP}}, "spec": {"containers": [{
@@ -4588,21 +4614,48 @@ def fleet_leg(cl: "Cluster", card: str) -> dict:
                 fleet.wait_backends(FLEET_REPLICAS, CLUSTER_WAIT_S) != FLEET_REPLICAS:
             fail(f"fleet: {len(fleet.backends())} backends, want {FLEET_REPLICAS}")
         old = set(fleet.backends())
-        answers("before the rollout", old)
+        _wait("the balancer's backends", lambda: set(bal.stats()["backends"]) == {
+            f"{host}:{port}" for host, port in old}, CLUSTER_WAIT_S, 0.05)
+        answers("before the rollout", direct(old) + [bal.url])
+        lg = loadgen.LoadGen(bal.url, qps=CLUSTER_LOADGEN_QPS, arrival="poisson", seed=1,
+                             stream=True).start()
+        time.sleep(FLEET_TRAFFIC_S)
         ru = servefleet.rolling_update(client, FLEET_APP, timeout=CLUSTER_WAIT_S)
+        time.sleep(FLEET_TRAFFIC_S)
+        lg.stop(drain_s=CLUSTER_WAIT_S)
+        traffic = lg.summary()
+        lg = None
         if not ru["completed"] or ru["min_ready_observed"] < 1:
             fail(f"fleet: rolling_update {ru}")
+        if traffic["failed"] or traffic["acked"] < FLEET_MIN_ACKED:
+            fail(f"fleet: LoadGen through the balancer across the rollout {traffic}, "
+                 f"balancer {bal.stats()}")
         new = _wait("the fleet to settle on the new pods", lambda: fleet.settled(
             FLEET_REPLICAS, old), CLUSTER_WAIT_S, 0.05)
-        answers("after the rollout", new)
+        answers("after the rollout", direct(new) + [bal.url])
+        bal_stats = bal.stats()
         started, stopped = fleet.started, fleet.stopped
         launches = {name: kern.launches for name, kern in KERNELS.items()}
         steps = sum(srv.engine.steps for srv in made)
         peak = torch.cuda.max_memory_allocated()
     finally:
+        if lg is not None:
+            lg.stop(drain_s=1.0)
+        bal.stop()
         factory.stop_all()
         fleet.stop()
     check_serve_launches("fleet", launches, steps, cfg.n_layers)
+    per_backend = {addr: b["requests"] for addr, b in bal_stats["backends"].items()}
+    print(f"fleet: balancer {bal.url} (least in flight, seed 0) across rolling_update: LoadGen "
+          f"(poisson seed 1, {CLUSTER_LOADGEN_QPS:.0f} QPS asked, streamed, "
+          f"{FLEET_TRAFFIC_S:.0f} s before and after) achieved {traffic['achieved_qps']} QPS, "
+          f"{traffic['acked']} acked, {traffic['failed']} failed, {traffic['shed']} shed, "
+          f"TTFT p50/p99 {traffic['ttft_p50_s']}/{traffic['ttft_p99_s']} s, token gap "
+          f"p50/p99 {traffic['token_p50_s']}/{traffic['token_p99_s']} s; balancer requests "
+          f"{bal_stats['requests']}, retries {bal_stats['retries']}, errors "
+          f"{bal_stats['errors']}, picks {bal_stats['picks']}, requests by live backend "
+          f"{per_backend}; its answers before and after were this process's tokens "
+          f"on [{card}]", flush=True)
     ports = [srv.port for srv in made]
     del made, backend, fleet
     free_memory()
@@ -4617,7 +4670,7 @@ def fleet_leg(cl: "Cluster", card: str) -> dict:
     res = dict(rollout=ru, backend_start_s=start_s, started=started, stopped=stopped,
                weights_s=draw_s, peak_bytes=peak, cublas_workspace_bytes=held - after,
                weight_bytes=weight_bytes, memory_after_bytes=after - base, steps=steps,
-               launches=launches, ports=ports)
+               launches=launches, ports=ports, traffic=traffic, balancer=bal_stats)
     print(f"fleet: Llama-3-8B weights ({weight_bytes} B) drawn and decoded in {draw_s:.2f} s; "
           f"{started} backends started in {[round(x, 4) for x in start_s]} s ({stopped} "
           f"stopped after the rollout), each "
@@ -4815,6 +4868,7 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
         devs = cl.advertised()
         attrs = devs[0]["attributes"]
         card_id, uuid = devs[0]["id"], attrs["nvidia.com/gpu/uuid"]
+        res["advertised"] = devs
         print(f"cluster: {CLUSTER_NODE} advertises {card_id}: {attrs}", flush=True)
 
         # (b) ResNet-50 as a Job, the exporter scraped all along; (c) MNIST
@@ -4970,6 +5024,153 @@ def cluster_phase(card: str, rn: dict, bins: dict) -> dict:
     return res
 
 
+LC_POD_SERVER = r"""
+import http.server, json, os, sys, torch
+reply = json.dumps({"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "name": torch.cuda.get_device_name(0)}).encode()
+class H(http.server.BaseHTTPRequestHandler):
+    def log_message(self, *a):
+        pass
+    def do_GET(self):
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(reply)))
+        self.end_headers()
+        self.wfile.write(reply)
+print("serving on", sys.argv[1], flush=True)
+http.server.HTTPServer(("127.0.0.1", int(sys.argv[1])), H).serve_forever()
+"""
+
+
+def localcluster_phase(card: str, advertised: list) -> dict:
+    """The port's LocalCluster in this process, node 0 on the card
+    (real_gpu: the plugin's discovery and a ProcessRuntime): the node must
+    advertise the card as the plugin process did in cluster_phase
+    (``advertised``: IDs and UUIDs); a pod asking for one nvidia.com/gpu
+    runs an HTTP server (LC_POD_SERVER) on a port picked here, answering with
+    its CUDA_VISIBLE_DEVICES and torch's name for its card, reached through
+    a NodePort Service on the cluster's Proxier: the answer must name the
+    card's UUID and name.  The cluster's ObsCollector must have every
+    target up with no scrape error and the scheduler's
+    scheduler_e2e_scheduling_seconds buckets in its merged /metrics; the
+    StartupSLITracker must have recorded the pod; a Scorecard over the
+    collector with one fleet SLO (the merged scheduling p99 under
+    LC_SLO_SCHED_S) ticks LC_SLO_TICKS times.  After the pod is deleted and
+    the cluster stops, no pod process of it survives and the node port
+    refuses."""
+    from kubernetes1_tpu_torch.localcluster import LocalCluster, free_node_port
+    from kubernetes1_tpu_torch.obs import SLO, Scorecard, aggregate
+    from kubernetes1_tpu_torch.workloads import specs
+
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    tmp = tempfile.mkdtemp(prefix="lc")  # short: the plugin's unix socket lives under it
+    lc = LocalCluster(nodes=1, real_gpu=True, root_dir=tmp, obs_interval=0.5)
+    pod_port, node_port = _free_port(), free_node_port()
+    client = sc = None
+    try:
+        lc.start().wait_ready(CLUSTER_WAIT_S)
+        up_s = time.perf_counter() - t0
+        client = Client(lc.url)
+        node = _wait("node-0's cards", lambda: (lambda n: n if (n["status"].get(
+            "extendedResources") or {}).get(GPU_RESOURCE) else None)(
+            client.nodes.get("node-0", "")))
+        devs = node["status"]["extendedResources"][GPU_RESOURCE]
+        got = sorted((d["id"], d["attributes"].get("nvidia.com/gpu/uuid")) for d in devs)
+        want = sorted((d["id"], d["attributes"].get("nvidia.com/gpu/uuid")) for d in advertised)
+        if got != want:
+            fail(f"localcluster: node-0 advertises {got}, the plugin process {want}")
+        uuid = want[0][1]
+        spec = {"restartPolicy": "Never", "containers": [{
+            "name": "server", "image": "ktpu/torch-workload",
+            "command": [sys.executable, "-c", LC_POD_SERVER, str(pod_port)],
+            "env": [specs.pythonpath_env()]}]}
+        specs.gpu_request(spec)
+        client.pods.create({"metadata": {"name": "lc-gpu", "namespace": "default",
+                                         "labels": {"app": "lc-gpu"}}, "spec": spec})
+        client.services.create({"metadata": {"name": "lc-gpu", "namespace": "default"},
+                                "spec": {"type": "NodePort", "selector": {"app": "lc-gpu"},
+                                         "ports": [{"port": 80, "targetPort": pod_port,
+                                                    "nodePort": node_port}]}})
+        pod = _wait("the pod Running", lambda: (lambda p: p if (p.get("status") or {}).get(
+            "phase") == "Running" else None)(client.pods.get("lc-gpu")))
+        t_running = time.time()
+
+        def ask():
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{node_port}/", timeout=5) as r:
+                    return json.loads(r.read())
+            except OSError:
+                return None
+
+        answer = _wait("the pod's answer through the node port", ask, CLUSTER_WAIT_S, 0.2)
+        if answer != {"cuda_visible_devices": uuid, "name": kind}:
+            fail(f"localcluster: the pod answered {answer} through node port {node_port}, "
+                 f"want the card's UUID {uuid} and name {kind!r}")
+        ann = pod["metadata"].get("annotations") or {}
+        stamps = {k: float(ann[f"slo.ktpu.io/{k}"]) for k in
+                  ("created-at", "scheduled-at", "bound-at", "admitted-at")
+                  if f"slo.ktpu.io/{k}" in ann}
+        bind_s = stamps["bound-at"] - stamps["created-at"]
+        start_s = t_running - stamps["bound-at"]
+
+        _wait("every obs target up", lambda: all(
+            i["up"] and i["scrapes"] >= 2 for i in lc.obs.topology()["instances"]),
+              CLUSTER_WAIT_S, 0.1)
+        topo = lc.obs.topology()
+        if any(i["errors"] for i in topo["instances"]) or lc.obs.scrape_errors_total:
+            fail(f"localcluster: obs targets {topo['instances']}")
+        merged = aggregate.parse_metrics_text(lc.obs.render_fleet_metrics())
+        buckets = [(float("inf") if lab == "+Inf" else float(lab), v) for lab, v in (
+            (k.split('le="')[1].split('"')[0], v) for k, v in aggregate.select(
+                merged, "scheduler_e2e_scheduling_seconds_bucket").items())]
+        if not buckets or max(v for _, v in buckets) < 1:
+            fail(f"localcluster: no scheduler_e2e_scheduling_seconds buckets in the fleet's "
+                 f"/metrics ({buckets})")
+        sched_p50 = aggregate.bucket_quantile(buckets, 0.5)
+        sched_p99 = aggregate.bucket_quantile(buckets, 0.99)
+        report = _wait("the startup SLIs of the pod", lambda: (lambda r: r if r.get(
+            "total", {}).get("count") else None)(lc.sli.report()), CLUSTER_WAIT_S, 0.1)
+        sc = Scorecard(collector=lc.obs, stale_after_s=5.0)
+        sc.add(SLO("scheduling-p99", LC_SLO_SCHED_S, metric="scheduler_e2e_scheduling_seconds",
+                   labels={"quantile": "0.99"}, objective=0.9))
+        for _ in range(LC_SLO_TICKS):
+            sc.tick()
+            time.sleep(0.2)
+        verdict = sc.verdict()["scheduling-p99"]
+        if verdict["good"] + verdict["bad"] < LC_SLO_TICKS or not verdict["met"]:
+            fail(f"localcluster: the scorecard's verdict {verdict}")
+        client.pods.delete("lc-gpu", grace_seconds=0)
+        _wait("the pod to go", lambda: not client.pods.list("default", "app=lc-gpu")[0])
+    finally:
+        if sc is not None:
+            sc.stop()
+        if client is not None:
+            client.close()
+        marker = lc.url if lc.master is not None else ""
+        lc.stop()
+    survivors = {pid: _describe_pid(pid) for pid in _pod_pids(marker)} if marker else {}
+    if survivors or not _refused(node_port) or not _refused(pod_port):
+        fail(f"localcluster: after stop() pod processes {survivors} survived, node port "
+             f"{node_port} refused: {_refused(node_port)}, pod port {pod_port} refused: "
+             f"{_refused(pod_port)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    phases = {k: v["p50_s"] for k, v in report.items()}
+    print(f"localcluster: the port's LocalCluster (apiserver, scheduler, controller manager, "
+          f"Proxier, SLI tracker, ObsCollector, node-0 a ProcessRuntime kubelet with the "
+          f"card) up in {up_s:.2f} s; node-0 advertises {got}; the pod lc-gpu bound "
+          f"{bind_s:.4f} s after its creation and Running {start_s:.4f} s after its bind; "
+          f"through node port {node_port} it answered {answer}; {len(topo['instances'])} "
+          f"obs targets up ({[i['instance'] for i in topo['instances']]}, 0 scrape errors), "
+          f"merged scheduler p50/p99 {sched_p50}/{sched_p99} s (bucket_quantile); SLI p50 by phase "
+          f"{phases}; SLO scheduling-p99 <= {LC_SLO_SCHED_S} s: {verdict['good']} good, "
+          f"{verdict['bad']} bad, {verdict['missing']} missing, met {verdict['met']}; "
+          f"teardown left no pod process and both ports refuse; {wall_s:.1f} s on [{card}]",
+          flush=True)
+    return dict(up_s=up_s, bind_s=bind_s, start_s=start_s, answer=answer, node_port=node_port,
+                sched_p50_s=sched_p50, sched_p99_s=sched_p99, sli=report, slo=verdict, wall_s=wall_s)
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -5065,6 +5266,7 @@ def main():
     free_memory()
     native_phase(card, bins)
     cluster = cluster_phase(card, rn, bins)  # last: every kernel is built; this process holds little
+    localcluster_phase(card, cluster["advertised"])
     rows += (bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
              + mn["rows"])
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,

@@ -35,7 +35,8 @@ from .rest import Client, ResourceClient
 TYPED = ("pods", "events", "nodes", "namespaces", "jobs", "replicasets", "deployments",
          "daemonsets", "statefulsets", "cronjobs", "services", "endpoints",
          "poddisruptionbudgets", "serviceaccounts", "secrets", "configmaps",
-         "persistentvolumeclaims", "persistentvolumes", "podmetrics", "nodemetrics")
+         "persistentvolumeclaims", "persistentvolumes", "podmetrics", "nodemetrics",
+         "podcustommetrics")
 
 
 class TypedResource:

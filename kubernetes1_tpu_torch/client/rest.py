@@ -59,6 +59,8 @@ RESOURCES = {
     "persistentvolumes": ("/api/v1", "PersistentVolume", "v1"),
     "podmetrics": ("/apis/metrics.k8s.io/v1", "PodMetrics", "metrics.k8s.io/v1"),
     "nodemetrics": ("/apis/metrics.k8s.io/v1", "NodeMetrics", "metrics.k8s.io/v1"),
+    "podcustommetrics": ("/apis/custom.metrics.k8s.io/v1", "PodCustomMetrics",
+                         "custom.metrics.k8s.io/v1"),
 }
 CLUSTER_SCOPED = frozenset({"nodes", "namespaces", "persistentvolumes", "nodemetrics"})
 # A GET is retried over this many connection failures; a write only when it

@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..api import types as t
 from ..client.clientset import Clientset
-from ..client.errors import is_transient
+from ..client.errors import is_transient, retry_on_conflict
 from ..client.events import EventRecorder
 from ..deviceplugin.api import DEFAULT_PLUGIN_DIR
 from ..machinery import ApiError, Conflict, NotFound, now_iso, to_dict
@@ -636,7 +636,10 @@ class Kubelet:
         if init_state == "wait":
             self._sync_status(pod)
             return
-        self._sync_containers(pod, sandbox_id)
+        if self._sync_containers(pod, sandbox_id) == "failed":
+            # _set_failed already PUT the terminal status: a computed
+            # Pending over it would flip the pod Failed -> Pending -> Failed
+            return
         self.prober.ensure_pod(pod)
         self._sync_status(pod)
 
@@ -909,7 +912,9 @@ class Kubelet:
             privileged=bool(sc.privileged),
         )
 
-    def _sync_containers(self, pod: t.Pod, sandbox_id: str):
+    def _sync_containers(self, pod: t.Pod, sandbox_id: str) -> str:
+        """Create, restart or leave each app container.  Returns "failed"
+        when a config error wrote the pod's terminal status, else ""."""
         uid = pod.metadata.uid
         for container in pod.spec.containers:
             ckey = (uid, container.name)
@@ -972,7 +977,7 @@ class Kubelet:
                 # permanent config error (missing key): fail the pod like the
                 # reference's CreateContainerConfigError terminal path
                 self._set_failed(pod, "CreateContainerConfigError", str(e))
-                return
+                return "failed"
             try:
                 self._pull_image(container)
                 # the span covers the card's injection spec landing in the
@@ -998,7 +1003,7 @@ class Kubelet:
                 if self._is_terminal_config_error(e):
                     self._set_failed(pod, "CreateContainerConfigError",
                                      f"container {container.name}: {e}")
-                    return
+                    return "failed"
                 with self._lock:
                     n = self._restarts.get(ckey, 0)
                     self._restarts[ckey] = n + 1
@@ -1009,6 +1014,7 @@ class Kubelet:
                     pod, "Warning", "FailedStart",
                     f"container {container.name}: {e}",
                 )
+        return ""
 
     def _pull_image(self, container: t.Container):
         """imagePullPolicy (ref kuberuntime_container.go:88), init
@@ -1076,12 +1082,22 @@ class Kubelet:
             self.runtime.stop_pod_sandbox(sid)
 
     def _set_failed(self, pod: t.Pod, reason: str, message: str):
-        fresh = pod.clone()  # clone-before-mutate: pod is an informer snapshot
-        fresh.status.phase = t.POD_FAILED
-        fresh.status.reason = reason
-        fresh.status.message = message
-        try:
+        """PUT the pod's terminal status once, onto the pod as the apiserver
+        holds it: this sync's own admitted-at stamp may have moved it past
+        the informer snapshot, and a write refused for that would leave the
+        next sync to write it again."""
+        def put():
+            fresh = self.cs.pods.get(pod.metadata.name, pod.metadata.namespace)
+            if fresh.metadata.uid != pod.metadata.uid or \
+                    fresh.status.phase in (t.POD_SUCCEEDED, t.POD_FAILED):
+                return
+            fresh.status.phase = t.POD_FAILED
+            fresh.status.reason = reason
+            fresh.status.message = message
             self.cs.pods.update_status(fresh)
+
+        try:
+            retry_on_conflict(put)
         except ApiError:
             pass
 

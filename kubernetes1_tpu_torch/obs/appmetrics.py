@@ -39,6 +39,44 @@ def scrape_annotations(port: int, path: str = DEFAULT_SCRAPE_PATH,
     return out
 
 
+def scrape_target(pod) -> Optional[str]:
+    """A typed pod's scrape annotations as its /metrics URL, or None when
+    the pod is not annotated or the annotation is malformed (the JAX
+    package's ``obs/appmetrics.scrape_target``)."""
+    ann = pod.metadata.annotations or {}
+    port = ann.get(SCRAPE_PORT_ANNOTATION)
+    if not port:
+        return None
+    try:
+        port_n = int(port)
+    except ValueError:
+        return None
+    if not 0 < port_n < 65536:
+        return None
+    host = ann.get(SCRAPE_HOST_ANNOTATION) or pod.status.pod_ip \
+        or pod.status.host_ip
+    if not host:
+        return None
+    path = ann.get(SCRAPE_PATH_ANNOTATION) or DEFAULT_SCRAPE_PATH
+    if not path.startswith("/"):
+        path = "/" + path
+    return f"http://{host}:{port_n}{path}"
+
+
+def sample_value(pcm, metric_name: str) -> Optional[float]:
+    """A PodCustomMetrics object's scalar for ``metric_name``: the
+    unlabeled sample wins; labeled children SUM.  None when the metric is
+    not there (the JAX package's ``obs/appmetrics.sample_value``)."""
+    labeled_sum = None
+    for s in pcm.samples:
+        if s.name != metric_name:
+            continue
+        if not s.labels:
+            return s.value
+        labeled_sum = (labeled_sum or 0.0) + s.value
+    return labeled_sum
+
+
 class AppMetrics:
     """One workload process's metric registry and /metrics endpoint.
 

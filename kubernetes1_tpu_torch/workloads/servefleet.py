@@ -220,6 +220,7 @@ class ServeFleet:
         self._by_name: Dict[str, Addr] = {}
         self._uid_name: Dict[str, str] = {}
         self._closed = False
+        self._listeners: List[Callable[[], None]] = []
         self.started = 0
         self.stopped = 0
         # the best-effort paths count their failures instead of hiding them
@@ -228,6 +229,17 @@ class ServeFleet:
         factory.informer("pods").add_handler(
             on_add=self._pod_event, on_update=lambda _old, new: self._pod_event(new),
             on_delete=self._pod_deleted)
+
+    def add_listener(self, fn: Callable[[], None]):
+        """Call ``fn()`` each time a backend starts serving a pod or stops:
+        ``resolver``'s answers changed.  An ``EndpointsBalancerSync``'s
+        ``refresh`` goes here, so a pod whose backend starts after its
+        Endpoints event joins the balancer without waiting for another."""
+        self._listeners.append(fn)
+
+    def _changed(self):
+        for fn in list(self._listeners):
+            fn()
 
     # ------------------------------------------------------------- events
 
@@ -257,6 +269,7 @@ class ServeFleet:
         if gone:
             self._stop_backend(backend)
         else:
+            self._changed()
             self._annotate_pod(name, backend.port)
 
     def _annotate_pod(self, name: str, port: int):
@@ -295,6 +308,7 @@ class ServeFleet:
                 self._by_name.pop(name, None)
         if backend is None:
             return  # none, or still starting: _pod_event stops it
+        self._changed()
 
         def stop_later():
             # the drain tail: the balancer stopped picking this backend when

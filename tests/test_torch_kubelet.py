@@ -23,10 +23,14 @@ and one more sync) must be the same, masking
 only uids, resourceVersions, timestamps and container and sandbox IDs:
 tolerance 0.
 
-The deviation is a case of its own: the raw-device guard names
+The deviations are cases of their own: the raw-device guard names
 ``nvidia.com/gpu`` requests in the port where JAX names
 ``google.com/tpu`` (the seeded pods compare it with the port's text
-mapped to JAX's).
+mapped to JAX's); and a container config error (a missing ConfigMap
+key, runAsNonRoot as uid 0) that JAX's kubelet writes as Failed, then
+Pending, then Failed again, the port's writes as Failed once and then
+leaves alone (the seeded pods that reach it compare the statuses up to
+the first Failed).
 
 Besides: the device manager against JAX's over the same plugin socket
 (admit, init, a health flip, a dead endpoint); ``ClusterDNS.resolve``,
@@ -450,6 +454,19 @@ def _both(master, tmp_path, case):
     return jax, torch
 
 
+# The seeded pods whose first container start meets a config error: JAX's
+# kubelet flips them Failed -> Pending -> Failed, the port's writes Failed once.
+FLIP_PODS = (27, 45, 78)
+
+
+def _until_failed(statuses):
+    """The statuses up to and with the first Failed one."""
+    for k, st in enumerate(statuses):
+        if st.get("phase") == "Failed":
+            return statuses[:k + 1]
+    return statuses
+
+
 @pytest.mark.parametrize("i", range(N_PODS))
 def test_kubelet_syncs_the_pod_as_jax_does(i, master, tmp_path):
     case = make_case(i, str(tmp_path))
@@ -459,12 +476,34 @@ def test_kubelet_syncs_the_pod_as_jax_does(i, master, tmp_path):
         assert cfg.pop("cgroup_procs_files") == []  # no JAX pod cgroup on a FakeRuntime; no port one
     torch = _port_guard_as_jax(torch)
     assert torch["configs"] == jax["configs"]
-    assert torch["statuses"] == jax["statuses"]
+    if i in FLIP_PODS:  # the deviation: test_config_error_is_written_failed_once
+        assert torch["statuses"] == _until_failed(jax["statuses"])
+    else:
+        assert torch["statuses"] == jax["statuses"]
     assert torch["events"] == jax["events"]
     assert torch["node"] == jax["node"]
     assert torch["node_after"] == jax["node_after"]
     assert torch["runtime"] == jax["runtime"]
     assert torch.get("after_delete") == jax.get("after_delete")
+
+
+@pytest.mark.parametrize("i", FLIP_PODS)
+def test_config_error_is_written_failed_once(i, master, tmp_path):
+    """A missing ConfigMap key or runAsNonRoot as uid 0 at a container's
+    first start: JAX's kubelet PUTs Failed, then the computed Pending over
+    it, then Failed again (a watcher counting failures sees two); the
+    port's PUTs Failed once and never Pending after it."""
+    case = make_case(i, str(tmp_path))
+    assert case["fault"] in ("cmKeyMissing", "runAsRoot")
+    jax, torch = _both(master, tmp_path, case)
+    phases = {side: [st.get("phase") for st in rec["statuses"]]
+              for side, rec in (("jax", jax), ("torch", torch))}
+    assert phases["jax"][:3] == ["Failed", None, "Failed"]  # Pending: no phase on the wire
+    assert jax["statuses"][1]["containerStatuses"][0]["state"] == {
+        "waiting": {"reason": "ContainerCreating"}}
+    assert phases["torch"] == ["Failed"]
+    assert torch["statuses"][0]["reason"] == "CreateContainerConfigError"
+    assert _port_guard_as_jax(torch)["statuses"][0] == jax["statuses"][0]
 
 
 def test_the_seeded_pods_cover_every_path():
@@ -505,11 +544,13 @@ def test_raw_device_guard_names_the_ports_resource(master, tmp_path):
     head = "container main: hostPath '/dev/null' requires privileged: true ("
     failed = {side: [st for st in rec["statuses"] if st.get("phase") == "Failed"]
               for side, rec in (("jax", jax), ("torch", torch))}
-    assert len(failed["jax"]) == len(failed["torch"]) >= 1
+    assert len(failed["jax"]) >= 1
+    assert len(failed["torch"]) == 1  # written once: no Pending over it to write it again
+    assert torch["statuses"][-1]["phase"] == "Failed"
     for side, guard in (("jax", JAX_GUARD), ("torch", PORT_GUARD)):
         assert {(st["reason"], st["message"]) for st in failed[side]} == {
             ("CreateContainerConfigError", head + guard + ")")}
-    assert jax["statuses"][-1] == _port_guard_as_jax(torch["statuses"][-1])
+    assert failed["jax"][0] == _port_guard_as_jax(failed["torch"][0])
     assert not jax["configs"] and not torch["configs"]
 
 

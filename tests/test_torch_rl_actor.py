@@ -8,9 +8,9 @@ spec builders' dicts pass the JAX apiserver and are the JAX builders'
 ``to_dict`` apart from the command and the ``nvidia.com/gpu`` ask; a gang
 ``learner_job`` of two workers runs on a fake two-card node through the
 port's plugin, a card each; and ``ChurnDriver`` over the port's client
-churns a hollow JAX ``LocalCluster`` (batched and singleton, one and two
-workers) with JAX's result keys, no error and nothing left, and with a
-card an actor leaves every card free again.
+churns a hollow JAX ``LocalCluster`` and the port's own (batched and
+singleton, one and two workers) with JAX's result keys, no error and
+nothing left, and with a card an actor leaves every card free again.
 """
 
 import json
@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -295,20 +296,18 @@ def test_gang_learner_job_runs_a_card_a_worker(two_card_node):
 
 @pytest.fixture()
 def no_disk_eviction(monkeypatch):
-    """The in-process kubelets read no eviction signals: a host whose disk
-    is nearly full would have them evict the actors under the churn."""
+    """The in-process kubelets (JAX's and the port's) read no eviction
+    signals: a host whose disk is nearly full would have them evict the
+    actors under the churn."""
     from kubernetes1_tpu.kubelet import eviction
+    from kubernetes1_tpu_torch.kubelet import kubelet as tkubelet
 
     monkeypatch.setattr(eviction, "default_signals", lambda: {})
+    monkeypatch.setattr(tkubelet, "default_signals", lambda: {})
 
 
-@pytest.mark.usefixtures("no_disk_eviction")
-@pytest.mark.parametrize("workers", [1, 2])
-@pytest.mark.parametrize("use_batch", [True, False], ids=["batched", "singleton"])
-def test_churn_driver_on_a_hollow_cluster(use_batch, workers):
-    from kubernetes1_tpu.localcluster import LocalCluster
-
-    cluster = LocalCluster(nodes=2, hollow=True, sync_interval=0.1).start()
+def _churn_on(cluster, use_batch, workers):
+    """ChurnDriver over the port's client on a started hollow cluster."""
     client = Client(cluster.url)
     driver = None
     try:
@@ -318,7 +317,9 @@ def test_churn_driver_on_a_hollow_cluster(use_batch, workers):
                                       grace_seconds=0)
         driver.start(ready_timeout=60.0)
         res = driver.run(duration=3.0, workers=workers)
-        want_keys = set(jrl.ChurnDriver(cluster.cs).result())
+        # JAX's result keys (JAX's ChurnDriver reads only its clientset's
+        # pods client, to make an informer it never starts here)
+        want_keys = set(jrl.ChurnDriver(types.SimpleNamespace(pods=None)).result())
         assert set(res) == want_keys
         assert res["mode"] == ("batched" if use_batch else "singleton")
         assert res["create_errors"] == 0 and res["delete_errors"] == 0, res
@@ -338,6 +339,27 @@ def test_churn_driver_on_a_hollow_cluster(use_batch, workers):
             driver.stop()
         client.close()
         cluster.stop()
+
+
+@pytest.mark.usefixtures("no_disk_eviction")
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("use_batch", [True, False], ids=["batched", "singleton"])
+def test_churn_driver_on_a_hollow_cluster(use_batch, workers):
+    from kubernetes1_tpu.localcluster import LocalCluster
+
+    _churn_on(LocalCluster(nodes=2, hollow=True, sync_interval=0.1).start(), use_batch, workers)
+
+
+@pytest.mark.usefixtures("no_disk_eviction")
+@pytest.mark.parametrize("workers", [1, 2])
+@pytest.mark.parametrize("use_batch", [True, False], ids=["batched", "singleton"])
+def test_churn_driver_on_the_ports_hollow_cluster(use_batch, workers):
+    """The same churn on the port's own LocalCluster: its apiserver,
+    scheduler, controller manager and hollow kubelets, nothing of JAX."""
+    from kubernetes1_tpu_torch.localcluster import LocalCluster
+
+    _churn_on(LocalCluster(nodes=2, sync_interval=0.1, obs=False).start(),
+              use_batch, workers)
 
 
 def test_a_churn_workers_error_reaches_the_caller(monkeypatch):

@@ -10,11 +10,11 @@ port's ``LoadGen`` through the balancer: the rollout completes with no
 request failed and the PDB's floor held, once on synthetic backends and
 once on ``DecodeServer(cfg=tiny(), device="cpu")`` backends, whose tokens,
 before and after the rollout, are an in-process server's.  The
-``torch-synthetic`` case runs the same rollout under the port's
-apiserver, scheduler and controller manager as processes (``python -m
-kubernetes1_tpu_torch <component>``) with two JAX kubelets in process, in
-place of the ``LocalCluster``: the port's ReplicaSet controller, with its
-expectations and its scale-down order, holds the PDB's floor.
+``torch-synthetic`` and ``torch-decode`` cases run the same rollout on the
+port's own ``LocalCluster`` (its apiserver, scheduler, controller manager
+and hollow kubelets in process), with the port's ``LeastInflightBalancer``
+and ``EndpointsBalancerSync`` fed by the port's informer: nothing of the
+JAX package runs in them.
 
 Every wait has its own deadline, and the backends, balancer, informers
 and cluster stop in ``finally``.
@@ -24,11 +24,11 @@ import json
 import re
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import pytest
 
-from kubernetes1_tpu.api import types as t
 from kubernetes1_tpu.workloads import servefleet as jfleet
 from kubernetes1_tpu_torch.client.informer import InformerFactory
 from kubernetes1_tpu_torch.client.rest import Client
@@ -134,15 +134,13 @@ def test_requests_past_the_slots_queue(impl):
 
 
 def _deployment(replicas):
-    dep = t.Deployment()
-    dep.metadata.name = APP
-    dep.spec.replicas = replicas
-    dep.spec.selector = t.LabelSelector(match_labels={"app": APP})
-    dep.spec.template.metadata.labels = {"app": APP}
-    c = t.Container(name="serve", image="llama-serve", command=["serve"])
-    c.resources.requests = {"cpu": "10m"}
-    dep.spec.template.spec.containers = [c]
-    return dep
+    return {"metadata": {"name": APP, "namespace": "default"},
+            "spec": {"replicas": replicas, "selector": {"matchLabels": {"app": APP}},
+                     "template": {"metadata": {"labels": {"app": APP}},
+                                  "spec": {"containers": [{
+                                      "name": "serve", "image": "llama-serve",
+                                      "command": ["serve"],
+                                      "resources": {"requests": {"cpu": "10m"}}}]}}}}
 
 
 def _wait(what, fn, timeout):
@@ -165,12 +163,15 @@ def _decode_factory(made):
 
 @pytest.fixture()
 def no_disk_eviction(monkeypatch):
-    """The in-process kubelets read no eviction signals: this test is
-    about the fleet, and a host whose disk is nearly full would have them
-    evict its pods (replaced by new ones) all through the rollout."""
+    """The in-process kubelets (JAX's and the port's) read no eviction
+    signals: this test is about the fleet, and a host whose disk is nearly
+    full would have them evict its pods (replaced by new ones) all through
+    the rollout."""
     from kubernetes1_tpu.kubelet import eviction
+    from kubernetes1_tpu_torch.kubelet import kubelet as tkubelet
 
     monkeypatch.setattr(eviction, "default_signals", lambda: {})
+    monkeypatch.setattr(tkubelet, "default_signals", lambda: {})
 
 
 class _Pods:
@@ -216,53 +217,93 @@ def test_a_pod_deleted_while_its_backend_starts_gets_no_backend():
     fleet.stop()
 
 
-class _PortPlane:
-    """The port's apiserver, scheduler and controller manager as processes
-    and two JAX kubelets (FakeRuntime) in process: ``url``, ``cs`` (a JAX
-    clientset) and ``stop()``, as a LocalCluster has them."""
+class _Informers:
+    """A pods and an endpoints informer driven by hand; the endpoints one
+    caches what it delivered, as a real informer does."""
 
-    def __init__(self, tmp):
-        from kubernetes1_tpu.client import Clientset as JaxClientset
-        from kubernetes1_tpu.kubelet import FakeRuntime
-        from tests.test_torch_gpu_cluster import (_kubelet, _port_controller_manager,
-                                                  _port_scheduler, _PortApiserver)
+    def __init__(self):
+        self.pods, self.endpoints, self.cache = {}, {}, {}
 
-        self.procs, self.kubelets = [], []
-        try:
-            self.procs.append(_PortApiserver(str(tmp / "apiserver.log")))
-            self.url = self.procs[0].url
-            self.cs = JaxClientset(self.url)
-            self.procs.append(_port_scheduler(self.url, str(tmp / "scheduler.log")))
-            self.procs.append(_port_controller_manager(self.url, str(tmp / "cm.log")))
-            for i in range(2):
-                self.kubelets.append(_kubelet(self.cs, f"node-{i}", FakeRuntime(),
-                                              str(tmp / f"plugins{i}")))
-                self.kubelets[-1].start()
-            _wait("two Ready nodes", lambda: len([
-                n for n in self.cs.nodes.list()[0] if any(
-                    c.type == "Ready" and c.status == "True" for c in n.status.conditions)]) == 2,
-                  30)
-        except BaseException:
-            self.stop()
-            raise
+    def informer(self, plural):
+        return _Informer(self.pods if plural == "pods" else self.endpoints, self.cache)
 
-    def stop(self):
-        for kubelet in self.kubelets:
-            kubelet.stop()
-        for proc in reversed(self.procs):
-            proc.stop()
-        if getattr(self, "cs", None) is not None:
-            self.cs.close()
+
+class _Informer:
+    def __init__(self, handlers, cache):
+        self.handlers, self.cache = handlers, cache
+
+    def add_handler(self, on_add, on_update, on_delete):
+        self.handlers.update(add=on_add, update=on_update, delete=on_delete)
+
+    def get(self, key):
+        return self.cache.get(key)
+
+
+def test_a_backend_that_starts_after_its_endpoints_event_joins_the_balancer():
+    """The pod's Endpoints event comes while its backend is still starting,
+    so the sync resolves nothing and the balancer answers 503.  When the
+    backend starts, the fleet's listener (the sync's ``refresh``) puts it
+    in the balancer with no further Endpoints event; when the pod goes, it
+    leaves the same way."""
+    from kubernetes1_tpu_torch.proxy import EndpointsBalancerSync, LeastInflightBalancer
+
+    inf = _Informers()
+    release, made = threading.Event(), []
+
+    def slow_backend(pod):
+        assert release.wait(10)
+        made.append(servefleet.SyntheticBackend().start())
+        return made[-1]
+
+    fleet = servefleet.ServeFleet(None, inf, APP, backend_factory=slow_backend)
+    bal = LeastInflightBalancer(seed=0)
+    fleet.add_listener(EndpointsBalancerSync(bal, inf, "default", APP,
+                                             resolver=fleet.resolver).refresh)
+    pod = {"metadata": {"name": "p", "namespace": "default", "uid": "u1",
+                        "labels": {"app": APP}}, "status": {"phase": "Running"}}
+    eps = {"metadata": {"name": APP, "namespace": "default"}, "subsets": [
+        {"addresses": [{"ip": "10.0.0.1", "targetRef": "p"}], "ports": [{"port": 80}]}]}
+    th = threading.Thread(target=inf.pods["add"], args=(pod,))
+    th.start()
+    try:
+        _wait("the backend to start building", lambda: "u1" in fleet._by_uid, 10)
+        inf.cache[f"default/{APP}"] = eps
+        inf.endpoints["add"](eps)
+        with pytest.raises(urllib.error.HTTPError) as no_backend:
+            _post(bal.url, {"tokens": [1, 2], "max_new": 3})
+        assert no_backend.value.code == 503 and not bal.stats()["backends"]
+        release.set()
+        th.join(timeout=10)
+        assert not th.is_alive() and len(made) == 1
+        addr = f"127.0.0.1:{made[0].port}"
+        _wait("the late backend in the balancer", lambda: set(bal.stats()["backends"]) == {addr},
+              10)
+        assert _post(bal.url, {"tokens": [1, 2], "max_new": 3}) == \
+            _post(made[0].url, {"tokens": [1, 2], "max_new": 3})
+        assert bal.stats()["picks"] == {addr: 1}
+        inf.pods["delete"](pod)
+        _wait("the gone pod's backend out of the balancer",
+              lambda: not bal.stats()["backends"], 10)
+        _wait("the gone pod's backend to stop", lambda: fleet.stopped == 1, 10)
+    finally:
+        release.set()
+        th.join(timeout=10)
+        bal.stop()
+        fleet.stop()
 
 
 @pytest.mark.usefixtures("no_disk_eviction")
 @pytest.mark.parametrize("kind,plane", [("synthetic", "jax"), ("decode", "jax"),
-                                        ("synthetic", "torch")],
-                         ids=["synthetic", "decode", "torch-synthetic"])
-def test_rolling_update_under_traffic_fails_no_request(kind, plane, tmp_path):
-    from kubernetes1_tpu.client import InformerFactory as JaxInformerFactory
-    from kubernetes1_tpu.localcluster import LocalCluster
-    from kubernetes1_tpu.proxy import EndpointsBalancerSync, LeastInflightBalancer
+                                        ("synthetic", "torch"), ("decode", "torch")],
+                         ids=["synthetic", "decode", "torch-synthetic", "torch-decode"])
+def test_rolling_update_under_traffic_fails_no_request(kind, plane):
+    if plane == "jax":
+        from kubernetes1_tpu.client import InformerFactory as JaxInformerFactory
+        from kubernetes1_tpu.localcluster import LocalCluster
+        from kubernetes1_tpu.proxy import EndpointsBalancerSync, LeastInflightBalancer
+    else:
+        from kubernetes1_tpu_torch.localcluster import LocalCluster
+        from kubernetes1_tpu_torch.proxy import EndpointsBalancerSync, LeastInflightBalancer
 
     want_tokens = made = None
     if kind == "decode":
@@ -272,35 +313,35 @@ def test_rolling_update_under_traffic_fails_no_request(kind, plane, tmp_path):
         finally:
             ref.stop()
         made = []
-    cluster = LocalCluster(nodes=2, tpus_per_node=4).start() if plane == "jax" \
-        else _PortPlane(tmp_path)
+    cluster = (LocalCluster(nodes=2, tpus_per_node=4) if plane == "jax" else
+               LocalCluster(nodes=2, gpus_per_node=4)).start()
     client = Client(cluster.url)
     factory = InformerFactory(client)
-    jfactory = JaxInformerFactory(cluster.cs)
+    # the balancer's informer: JAX's for the JAX plane, the port's own otherwise
+    bfactory = JaxInformerFactory(cluster.cs) if plane == "jax" else factory
     fleet = bal = lg = None
     try:
-        cs = cluster.cs
-        cs.deployments.create(_deployment(3))
-        svc = t.Service()
-        svc.metadata.name = APP
-        svc.spec.selector = {"app": APP}
-        svc.spec.ports = [t.ServicePort(port=80)]
-        cs.services.create(svc, "default")
-        pdb = t.PodDisruptionBudget()
-        pdb.metadata.name = f"{APP}-pdb"
-        pdb.spec.selector = t.LabelSelector(match_labels={"app": APP})
-        pdb.spec.min_available = 2
-        cs.poddisruptionbudgets.create(pdb, "default")
+        client.deployments.create(_deployment(3), "default")
+        client.services.create({"metadata": {"name": APP, "namespace": "default"},
+                                "spec": {"selector": {"app": APP}, "ports": [{"port": 80}]}},
+                               "default")
+        client.poddisruptionbudgets.create(
+            {"metadata": {"name": f"{APP}-pdb", "namespace": "default"},
+             "spec": {"selector": {"matchLabels": {"app": APP}}, "minAvailable": 2}},
+            "default")
 
         fleet = servefleet.ServeFleet(
             client, factory, APP,
             backend_factory=(servefleet.synthetic_factory(token_delay_s=0.002, slots=8)
                              if kind == "synthetic" else _decode_factory(made)))
         bal = LeastInflightBalancer(seed=0)
-        EndpointsBalancerSync(bal, jfactory, "default", APP, resolver=fleet.resolver)
+        sync = EndpointsBalancerSync(bal, bfactory, "default", APP, resolver=fleet.resolver)
+        if plane == "torch":
+            # a pod whose backend starts after its Endpoints event joins then
+            fleet.add_listener(sync.refresh)
         factory.start_all()
-        jfactory.start_all()
-        assert factory.wait_for_sync(15) and jfactory.wait_for_sync(15)
+        bfactory.start_all()
+        assert factory.wait_for_sync(15) and bfactory.wait_for_sync(15)
         assert fleet.wait_backends(3, timeout=60) == 3
         _wait("the balancer's three backends", lambda: len(bal.stats()["backends"]) == 3, 30)
         if want_tokens is not None:
@@ -344,7 +385,8 @@ def test_rolling_update_under_traffic_fails_no_request(kind, plane, tmp_path):
         if bal is not None:
             bal.stop()
         factory.stop_all()
-        jfactory.stop_all()
+        if bfactory is not factory:
+            bfactory.stop_all()
         if fleet is not None:
             fleet.stop()
         client.close()
