@@ -567,6 +567,15 @@ FLEET_TRAFFIC_S, FLEET_MIN_ACKED = 2.0, 40
 # histogram's first bucket (p99 0.00495 s, NVIDIA H100 80GB HBM3, 700 W):
 # the limit is that bucket's next bound, so a scheduling 5x slower fails.
 LC_SLO_SCHED_S, LC_SLO_TICKS = 0.025, 3
+# The ktpu CLI phase (cli_phase): the MNIST Job's manifest as a user applies
+# it, the 8B decode Deployment's name, the bytes ktpu cp moves each way,
+# the seconds a pod of it may take to roll out (the 8B weights drawn on
+# the card in the pod) and the seed of the bytes.
+CLI_MNIST_YAML = "examples/gpu-mnist-single-card.yaml"
+CLI_MNIST_JOB = "mnist-1gpu"
+CLI_DEPLOYMENT = "llama-8b-cli"
+CLI_CP_BYTES, CLI_CP_SEED = 1 << 20, 23
+CLI_ROLLOUT_S = 600
 # The multi-card leg (multicard_leg): BASELINE config 4's manifest, scaled
 # to the one card, runs BERT-large (full width and depth) at this batch,
 # sequence and step count through the pod launcher and torchrun; its loss
@@ -5171,6 +5180,333 @@ def localcluster_phase(card: str, advertised: list) -> dict:
                 sched_p50_s=sched_p50, sched_p99_s=sched_p99, sli=report, slo=verdict, wall_s=wall_s)
 
 
+CLI_POD_SERVER = r"""
+import sys, time
+from kubernetes1_tpu_torch.workloads import llama
+srv = llama.DecodeServer(cfg=llama.llama_3_8b(), seed=0, port=int(sys.argv[1])).start()
+print(f"decode server on {srv.url}", flush=True)
+while True:
+    time.sleep(5)
+"""
+CLI_EXEC_CARD = ("import os, torch; print(os.environ['CUDA_VISIBLE_DEVICES']); "
+                 "print(torch.cuda.get_device_name(0))")
+MNIST_LINE = re.compile(r"mnist final loss, accuracy: \(([^,]+), ([^)]+)\)")
+
+
+class Ktpu:
+    """``python -m kubernetes1_tpu_torch ktpu --server URL ...`` child
+    processes, each verb's wall seconds as an operator feels them (process
+    start included)."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.seconds = {}  # verb -> [s, ...]
+
+    def argv(self, *args) -> list:
+        argv = [sys.executable, "-m", "kubernetes1_tpu_torch", "ktpu", "--server", self.url,
+                *map(str, args)]
+        if JAX_PACKAGE.search(" ".join(argv)):
+            fail(f"cli: a child's argv names the JAX package: {argv}")
+        return argv
+
+    def __call__(self, *args, code: int | None = 0, timeout: float = CLUSTER_WAIT_S):
+        """The verb's stdout; fail unless it exits with ``code`` (with
+        ``code=None``: the stdout, or None when it exits non-zero)."""
+        t0 = time.perf_counter()
+        r = subprocess.run(self.argv(*args), cwd=REPO_ROOT, capture_output=True, text=True,
+                           timeout=timeout)
+        verb = " ".join(str(a) for a in args[:2 if args[0] in ("rollout", "auth", "top") else 1])
+        self.seconds.setdefault(verb, []).append(time.perf_counter() - t0)
+        if code is None:
+            return r.stdout if r.returncode == 0 else None
+        if r.returncode != code:
+            fail(f"cli: ktpu {' '.join(map(str, args))} exited {r.returncode} (want {code}): "
+                 f"{r.stdout[-2000:]!r} {r.stderr[-2000:]!r}")
+        return r.stdout
+
+    def json(self, *args):
+        return json.loads(self(*args, "-o", "json"))
+
+
+def _first_token_s(url: str, prompt: list) -> tuple:
+    """(seconds to the first streamed token, the tokens) of one streamed
+    request: the TTFT an operator sees through the forward."""
+    req = urllib.request.Request(url + "/generate", data=json.dumps(
+        {"tokens": prompt, "max_new": SERVE_MAX_NEW, "stream": True}).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    ttft, toks = None, []
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for line in resp:
+            msg = json.loads(line)
+            if "token" in msg:
+                ttft = ttft if ttft is not None else time.perf_counter() - t0
+                toks.append(msg["token"])
+    return ttft, toks
+
+
+def cli_phase(card: str, advertised: list) -> dict:
+    """The port's ktpu CLI as a user drives it: ``ktpu cluster-up --nodes 1
+    --real-gpu`` in a session of its own, then every step a ``python -m
+    kubernetes1_tpu_torch ktpu --server URL ...`` child whose exit code is
+    checked.  node-0 must advertise the card as the plugin process did in
+    cluster_phase (``advertised``); the MNIST Job of CLI_MNIST_YAML (K5-f32
+    and K10c in its pod) is followed by ``attach`` to its exit code 0, must
+    complete (``wait``) with mnist_phase's loss and accuracy bars in its
+    ``logs`` and the attach stream; a Llama-3-8B decode Deployment (K1-K4 in
+    its pod) rolls out (``rollout status``), answers the in-process
+    reference's tokens through ``port-forward``, names the card's UUID and
+    name through ``exec``, round-trips CLI_CP_BYTES seeded bytes through
+    ``cp``, and is evicted by ``drain``, which frees the card.  SIGINT to
+    cluster-up leaves no pod process, no new process on the card and no
+    listener.  The "cli:" line gives each verb's seconds."""
+    import shlex
+
+    import yaml
+
+    from kubernetes1_tpu_torch.workloads import specs
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ref = llama.DecodeServer(cfg=llama.llama_3_8b(), seed=0).start()
+    try:
+        want_tokens = [_post(ref.url, {"tokens": p, "max_new": SERVE_MAX_NEW})
+                       for p in CLUSTER_PROMPTS]
+    finally:
+        ref.stop()
+    del ref
+    release_gemm_memory()
+    ref_s = time.perf_counter() - t0
+    before = _compute_pids()
+    tmp = tempfile.mkdtemp(prefix="cli")
+    # the manifests' containers run `python`: this interpreter, first on PATH
+    # (a script, not a symlink: a venv's interpreter finds its packages by its own path)
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir)
+    with open(os.path.join(bindir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec {shlex.quote(sys.executable)} "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = {k: v for k, v in os.environ.items() if k != "KTPU_FAKE_GPUS"}
+    env["PATH"] = bindir + os.pathsep + env.get("PATH", "")
+    port = _free_port()
+    ktpu = Ktpu(f"http://127.0.0.1:{port}")
+    up_argv = [sys.executable, "-m", "kubernetes1_tpu_torch", "ktpu", "cluster-up", "--nodes",
+               "1", "--real-gpu", "--port", str(port)]
+    if JAX_PACKAGE.search(" ".join(up_argv)):
+        fail(f"cli: cluster-up's argv names the JAX package: {up_argv}")
+    log = open(os.path.join(tmp, "cluster-up.log"), "w+")
+    t_up = time.perf_counter()
+    up = subprocess.Popen(up_argv, cwd=REPO_ROOT, stdout=log, stderr=subprocess.STDOUT, env=env,
+                          start_new_session=True)
+    forward = forward_log = None
+    res = {}
+
+    def cluster_log() -> str:
+        log.flush()
+        log.seek(0)
+        return log.read()
+
+    try:
+        def node_ready():
+            if up.poll() is not None:
+                fail(f"cli: cluster-up exited {up.returncode}: {cluster_log()[-3000:]}")
+            out = ktpu("get", "nodes", code=None)  # refused until the apiserver is up
+            return out and re.search(r"^node-0\s+Ready\s", out, re.M)
+
+        _wait("node-0 Ready through ktpu get nodes", node_ready)
+        res["up_s"] = time.perf_counter() - t_up
+
+        # the node: the plugin process's IDs and UUIDs, and no card in use
+        described = ktpu("describe", "node", "node-0")
+        want_devs = sorted((d["id"], d["attributes"]["nvidia.com/gpu/uuid"]) for d in advertised)
+        missing = [x for dev in want_devs for x in dev if x not in described]
+        if missing:
+            fail(f"cli: ktpu describe node node-0 lacks {missing}: {described[-3000:]}")
+        uuid = want_devs[0][1]
+
+        def top_nodes() -> list:
+            return ktpu("top", "nodes").splitlines()[1].split()
+
+        def names(selector: str) -> list:
+            return [n.split("/", 1)[1]
+                    for n in ktpu("get", "pods", "-l", selector, "-o", "name").split()]
+
+        def started(pod: str):
+            phase = (ktpu.json("get", "pods", pod).get("status") or {}).get("phase")
+            return phase if phase in ("Running", "Succeeded", "Failed") else None
+
+        if top_nodes()[:3] != ["node-0", "0", str(n_cards)]:
+            fail(f"cli: ktpu top nodes read {top_nodes()}, want node-0 0 {n_cards}")
+
+        # the MNIST Job: K5-f32 and K10c on the card, in its pod
+        t0 = time.perf_counter()
+        ktpu("apply", "-f", CLI_MNIST_YAML)
+        msel = f"batch.ktpu.io/job-name={CLI_MNIST_JOB}"
+        mpod = _wait("the MNIST pod", lambda: names(msel))[0]
+        seen = _wait("the MNIST pod Running", lambda: started(mpod))
+        if seen == "Failed":
+            fail(f"cli: the MNIST pod failed: {ktpu('logs', mpod)[-3000:]!r}")
+        attached = ktpu("attach", mpod, timeout=600)
+        ktpu("wait", "--for=condition=complete", f"job/{CLI_MNIST_JOB}", "--timeout", "120",
+             timeout=180)
+        mnist_s = time.perf_counter() - t0
+        mlog = ktpu("logs", mpod)
+        said = MNIST_LINE.search(mlog)
+        if not said or not MNIST_LINE.search(attached):
+            fail(f"cli: the MNIST pod's log {mlog[-2000:]!r}, its attach stream "
+                 f"{attached[-2000:]!r}: no 'mnist final loss, accuracy:' line in both")
+        loss, acc = float(said.group(1)), float(said.group(2))
+        if not (np.isfinite(loss) and loss < np.log(mnist.CLASSES) and acc >= MNIST_MIN_ACCURACY):
+            fail(f"cli: the MNIST Job's final loss {loss} (want below ln 10), accuracy {acc} "
+                 f"(want >= {MNIST_MIN_ACCURACY})")
+        ktpu("delete", "-f", CLI_MNIST_YAML)
+        _wait("the MNIST pod to go", lambda: not names(msel))
+        res.update(mnist_s=mnist_s, mnist_loss=loss, mnist_acc=acc, mnist_attached=seen)
+
+        # the Llama-3-8B decode Deployment: K1-K4 forward on the card, in its pod
+        srv_port = _free_port()
+        spec = {"containers": [{
+            "name": "server", "image": "ktpu/torch-workload",
+            "command": [sys.executable, "-c", CLI_POD_SERVER, str(srv_port)],
+            "env": [specs.pythonpath_env()],
+            "readinessProbe": {"httpGet": {"path": "/healthz", "port": srv_port,
+                                           "host": "127.0.0.1"}, "periodSeconds": 1}}]}
+        specs.gpu_request(spec)
+        dep = {"apiVersion": "apps/v1", "kind": "Deployment",
+               "metadata": {"name": CLI_DEPLOYMENT, "namespace": "default"},
+               "spec": {"replicas": 1, "selector": {"matchLabels": {"app": CLI_DEPLOYMENT}},
+                        "template": {"metadata": {"labels": {"app": CLI_DEPLOYMENT}},
+                                     "spec": spec}}}
+        dep_yaml = os.path.join(tmp, "llama-8b-cli.yaml")
+        with open(dep_yaml, "w") as f:
+            yaml.safe_dump(dep, f)
+        dsel = f"app={CLI_DEPLOYMENT}"
+        t0 = time.perf_counter()
+        ktpu("apply", "-f", dep_yaml)
+        ktpu("rollout", "status", f"deployment/{CLI_DEPLOYMENT}", "--timeout", CLI_ROLLOUT_S,
+             timeout=CLI_ROLLOUT_S + 60)
+        rollout_s = time.perf_counter() - t0
+        dpod = names(dsel)[0]
+        if f"decode server on http://127.0.0.1:{srv_port}" not in ktpu("logs", dpod):
+            fail(f"cli: the decode pod's log lacks its start line: {ktpu('logs', dpod)!r}")
+        forward_log = open(os.path.join(tmp, "port-forward.log"), "w+")
+        forward = subprocess.Popen(ktpu.argv("port-forward", dpod, f"0:{srv_port}"),
+                                   cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=forward_log,
+                                   text=True, start_new_session=True)
+        t0 = time.perf_counter()
+        first = forward.stdout.readline()
+        ktpu.seconds["port-forward"] = [time.perf_counter() - t0]
+        m = re.match(r"Forwarding from 127\.0\.0\.1:(\d+) -> (\d+)", first)
+        if not m or int(m.group(2)) != srv_port:
+            fail(f"cli: ktpu port-forward said {first!r}")
+        fwd = f"http://127.0.0.1:{m.group(1)}"
+        ttft, streamed = _first_token_s(fwd, CLUSTER_PROMPTS[0])
+        got_tokens = [_post(fwd, {"tokens": p, "max_new": SERVE_MAX_NEW}) for p in CLUSTER_PROMPTS]
+        if got_tokens != want_tokens or streamed != want_tokens[0]:
+            fail(f"cli: through ktpu port-forward the pod answered {got_tokens} (streamed "
+                 f"{streamed}), the in-process server {want_tokens}")
+        answer = ktpu("exec", dpod, "--", "python", "-c", CLI_EXEC_CARD, timeout=300).split()
+        if answer[0] != uuid or " ".join(answer[1:]) != kind:
+            fail(f"cli: ktpu exec answered {answer}, want the card's UUID {uuid} and name {kind!r}")
+        ktpu("exec", dpod, "--", "sh", "-c", "exit 3", code=3)
+        payload = np.random.default_rng(CLI_CP_SEED).bytes(CLI_CP_BYTES)
+        local, remote, back = (os.path.join(tmp, n) for n in ("cp.bin", "cp-pod.bin",
+                                                              "cp-back.bin"))
+        with open(local, "wb") as f:
+            f.write(payload)
+        t0 = time.perf_counter()
+        ktpu("cp", local, f"{dpod}:{remote}")
+        ktpu("cp", f"{dpod}:{remote}", back)
+        cp_s = time.perf_counter() - t0
+        with open(back, "rb") as f:
+            if f.read() != payload:
+                fail("cli: the bytes ktpu cp took into the pod came back changed")
+        pods_top = [r.split() for r in ktpu("top", "pods").splitlines()[1:]]
+        if [dpod, "Running", "1"] not in pods_top or top_nodes()[:2] != ["node-0", "1"]:
+            fail(f"cli: ktpu top pods read {pods_top}, top nodes {top_nodes()}")
+        res.update(rollout_s=rollout_s, ttft_s=ttft, tokens=got_tokens, exec=answer, cp_s=cp_s)
+
+        # drain: the decode pod goes through the eviction subresource, its
+        # process with it; the replacement waits on the cordoned node
+        served = _pod_pids(ktpu.url)
+        if not served:
+            fail("cli: no process of the decode pod found")
+        ktpu("cordon", "node-0")
+        t0 = time.perf_counter()
+        drained = ktpu("drain", "node-0", "--force", "--timeout", "60", timeout=120)
+        _wait("the decode pod's processes to go", lambda: not _pod_pids(ktpu.url))
+        drain_s = time.perf_counter() - t0
+        if f"pod/{dpod} evicted" not in drained:
+            fail(f"cli: ktpu drain said {drained!r}")
+        forward.terminate()
+        forward.wait(timeout=30)
+        forward.stdout.close()
+        forward = None
+
+        def replacement():
+            items = ktpu.json("get", "pods", "-l", dsel)
+            items = items.get("items", [items])
+            return items if items and all(p["metadata"]["name"] != dpod for p in items) else None
+
+        pending = _wait("the Deployment's replacement pod", replacement)
+        if any(p["spec"].get("nodeName") or (p.get("status") or {}).get("phase", "Pending")
+               != "Pending" for p in pending) or top_nodes()[:2] != ["node-0", "0"]:
+            fail(f"cli: after the drain the replacement {pending}, top nodes {top_nodes()}")
+        ktpu("delete", "-f", dep_yaml)
+        # uncordoned with the replacement still there, it would start a second 8B pod
+        _wait("the replacement pod to go", lambda: not names(dsel))
+        ktpu("uncordon", "node-0")
+        if ktpu("auth", "can-i", "create", "pods").strip() != "yes" or \
+                not re.search(r"^pods\s+True\s+Pod$", ktpu("api-resources"), re.M):
+            fail("cli: ktpu auth can-i or api-resources answered wrong")
+        res.update(drain_s=drain_s, drained_pids=sorted(served))
+    except SystemExit:
+        print(f"cli: cluster-up's log ends {cluster_log()[-4000:]}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        if forward is not None:
+            forward.kill()
+            forward.wait()
+            forward.stdout.close()
+        if forward_log is not None:
+            forward_log.close()
+        t0 = time.perf_counter()
+        if up.poll() is None:
+            up.send_signal(signal.SIGINT)
+        try:
+            code = up.wait(timeout=CLUSTER_WAIT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(up.pid, signal.SIGKILL)
+            up.wait()
+            code = None
+        down_s = time.perf_counter() - t0
+        up_log = cluster_log()
+        log.close()
+    survivors = {pid: _describe_pid(pid) for pid in _pod_pids(ktpu.url)}
+    left = _compute_pids() - before
+    if code != 0 or survivors or left or not _refused(port):
+        fail(f"cli: cluster-up exited {code} {down_s:.1f} s after SIGINT, pod processes "
+             f"{survivors} survived, the card holds {sorted(left)}, the apiserver's port "
+             f"{'refuses' if _refused(port) else 'still listens'}: {up_log[-3000:]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    verbs = {k: [round(x, 3) for x in v] for k, v in sorted(ktpu.seconds.items())}
+    wall_s = time.perf_counter() - t_phase
+    print(f"cli: ktpu cluster-up --real-gpu up in {res['up_s']:.2f} s; the MNIST Job through "
+          f"ktpu apply completed in {res['mnist_s']:.2f} s (attach saw it {res['mnist_attached']}"
+          f", exit 0), loss {res['mnist_loss']:.6f} accuracy {res['mnist_acc']:.4f}; the 8B "
+          f"decode pod rolled out {res['rollout_s']:.2f} s after ktpu apply, TTFT "
+          f"{res['ttft_s']:.4f} s through ktpu port-forward, tokens equal the in-process "
+          f"server's ({len(res['tokens'])} prompts); ktpu exec named {res['exec']}; ktpu cp "
+          f"moved {CLI_CP_BYTES} B each way in {res['cp_s']:.2f} s, equal; ktpu drain freed the "
+          f"card in {res['drain_s']:.2f} s (pids {res['drained_pids']}); SIGINT stopped "
+          f"cluster-up in {down_s:.2f} s, exit 0, no pod process left; the in-process 8B "
+          f"reference took {ref_s:.2f} s; seconds by verb {json.dumps(verbs)}; "
+          f"{wall_s:.1f} s on [{card}]", flush=True)
+    return dict(res, down_s=down_s, verbs=verbs, wall_s=wall_s, ref_s=ref_s)
+
+
 def free_memory():
     gc.collect()
     torch.cuda.synchronize()
@@ -5267,6 +5603,7 @@ def main():
     native_phase(card, bins)
     cluster = cluster_phase(card, rn, bins)  # last: every kernel is built; this process holds little
     localcluster_phase(card, cluster["advertised"])
+    cli_phase(card, cluster["advertised"])
     rows += (bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
              + mn["rows"])
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,

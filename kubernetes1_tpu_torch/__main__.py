@@ -5,9 +5,11 @@
     python -m kubernetes1_tpu_torch controller-manager --server URL [--metrics-port -1]
     python -m kubernetes1_tpu_torch kubelet --server URL --node-name N [--runtime process|fake]
         [--plugin-dir D] [--root-dir R]
+    python -m kubernetes1_tpu_torch ktpu [--server URL] <command> ...   (or: cli)
 
 (the JAX package's ``python -m kubernetes1_tpu <component>``, for the
-components the port has).
+components the port has; ``ktpu`` is the CLI, ``python -m
+kubernetes1_tpu_torch.cli``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ COMPONENTS = {
     "scheduler": "kubernetes1_tpu_torch.scheduler.__main__",
     "controller-manager": "kubernetes1_tpu_torch.controllers.__main__",
     "kubelet": "kubernetes1_tpu_torch.kubelet.__main__",
+    "ktpu": "kubernetes1_tpu_torch.cli",
+    "cli": "kubernetes1_tpu_torch.cli",
 }
 
 

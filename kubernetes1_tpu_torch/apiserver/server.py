@@ -12,17 +12,21 @@ frames, and a 410 ERROR frame when the stream cannot go on gap-free.
 
 Routes: GET (one object, LIST with label and field selectors and
 ``limit``/``continue``, WATCH), POST (create, ``pods/NAME/binding``,
-``pods/bindings:batch``, ``pods/delete:batch``, ``pods/NAME/eviction``),
-PUT (update, ``status``), merge PATCH, DELETE, the pod log proxy to the
-kubelet, ``/healthz`` (``/readyz``, ``/livez``), ``/metrics`` and
-``/debug/traces``.  Every request is served as the
-cluster admin (anonymous AlwaysAllow).  Mutating requests past
+``pods/bindings:batch``, ``pods/delete:batch``, ``pods/NAME/eviction``,
+``selfsubjectaccessreviews``), PUT (update, ``status``), merge PATCH,
+DELETE, the pod log proxy to the kubelet, the stream proxy of
+``pods/NAME/exec``, ``attach`` and ``portforward`` (GET or POST with
+``Upgrade: ktpu-stream``: the client's upgraded connection spliced onto
+the kubelet's, ``utils/streams``), ``/healthz`` (``/readyz``,
+``/livez``), ``/metrics`` and ``/debug/traces``.  Every request is served
+as the cluster admin (anonymous AlwaysAllow), so a
+SelfSubjectAccessReview answers allowed.  Mutating requests past
 ``_InflightLimiter.MAX_MUTATING`` in flight are shed with 429 and Retry-After;
 reads never are.  Each watch is served on its handler thread.
 
 Left out, with the JAX flags that reach them (ROADMAP): authentication,
 authorization, audit, TLS, CRDs and APIService proxying, the custom
-metrics reads, exec/attach/portforward, the bind stream and its binary
+metrics reads, the bind stream and its binary
 codec, the event-loop watch dispatcher, write coalescing and
 multi-version serving.
 """
@@ -52,6 +56,7 @@ from ..machinery.scheme import global_scheme
 from ..machinery.watch import ERROR
 from ..storage import Cacher, Store
 from ..utils import spans as spanlib
+from ..utils import streams
 from .admission import (CREATE, UPDATE, AdmissionChain, DefaultTolerationSeconds,
                         EventRateLimit, ExtendedResourceToleration, GangDefaulter,
                         IdentityStamp, LimitRanger, NamespaceAutoProvision, PodNodeSelector, PriorityResolver, ResourceQuotaAdmission, ResourceV2,
@@ -59,6 +64,8 @@ from .admission import (CREATE, UPDATE, AdmissionChain, DefaultTolerationSeconds
 from .registry import Registry
 
 WATCH_HEARTBEAT_SECONDS = 5.0
+# the pods' streaming subresources, by their kubelet path
+STREAM_SUBRESOURCES = {"exec": "exec", "attach": "attach", "portforward": "portForward"}
 
 
 @dataclass
@@ -410,6 +417,16 @@ class _Handler(BaseHTTPRequestHandler):
             if parts == ["debug", "traces"]:
                 self._send_raw(200, self.master.spans.to_json(q.get("trace", "")))
                 return
+            if method == "POST" and parts == ["apis", "authorization.k8s.io", "v1",
+                                              "selfsubjectaccessreviews"]:
+                # SelfSubjectAccessReview (`ktpu auth can-i`): every request
+                # is served as the admin, so the answer is the JAX
+                # apiserver's under its default AlwaysAllow chain
+                self._read_body()
+                self._send_json(201, {"kind": "SelfSubjectAccessReview",
+                                      "apiVersion": "authorization.k8s.io/v1",
+                                      "status": {"allowed": True}})
+                return
             resource, ns, name, sub = self._parse_resource_path(parts)
             if resource not in self.master.scheme.by_resource:
                 raise NotFound(f"resource {resource!r} not registered")
@@ -460,6 +477,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._get_object(resource, ns, name)
         elif resource == "pods" and sub == "log":
             self._proxy_pod_log(ns, name, q)
+        elif resource == "pods" and sub.lower() in STREAM_SUBRESOURCES:
+            self._proxy_pod_stream(ns, name, sub)
         elif name and sub:
             raise NotFound(f"subresource {sub!r} not readable")
         elif q.get("watch") in ("1", "true"):
@@ -537,23 +556,31 @@ class _Handler(BaseHTTPRequestHandler):
             raise TooOldResourceVersion(f"continue token revision {parts[0]} compacted "
                                         f"(floor {floor}); restart the list")
 
+    def _kubelet_endpoint(self, pod_name: str, ns: str):
+        """(pod, the parsed URL of its node's kubelet server, the node's
+        kubelet token) for a scheduled pod; the token comes from the node's
+        kube-system Secret: the apiserver is the trusted hop (ref: the
+        apiserver->kubelet connection for exec/logs/proxy)."""
+        reg = self.master.registry
+        pod = reg.get("pods", ns, pod_name)
+        node_name = pod.spec.node_name
+        if not node_name:
+            raise BadRequest(f"pod {ns}/{pod_name} is not scheduled to a node")
+        node = reg.get("nodes", "", node_name)
+        url = (node.metadata.annotations or {}).get("kubelet.ktpu.io/server")
+        if not url:
+            raise NotFound(f"node {node_name} advertises no kubelet endpoint")
+        try:
+            token = reg.get("secrets", "kube-system",
+                            f"kubelet-token-{node_name}").data.get("token", "")
+        except NotFound:
+            token = ""
+        return pod, urlparse(url), token
+
     def _proxy_pod_log(self, ns: str, name: str, q):
         """GET pods/<name>/log: the apiserver -> kubelet log fetch (ref:
         registry/core/pod/rest/log.go), with the node's kubelet token."""
-        reg = self.master.registry
-        pod = reg.get("pods", ns, name)
-        if not pod.spec.node_name:
-            raise BadRequest(f"pod {ns}/{name} is not scheduled to a node")
-        node = reg.get("nodes", "", pod.spec.node_name)
-        url = (node.metadata.annotations or {}).get("kubelet.ktpu.io/server")
-        if not url:
-            raise NotFound(f"node {pod.spec.node_name} advertises no kubelet endpoint")
-        try:
-            token = reg.get("secrets", "kube-system",
-                            f"kubelet-token-{pod.spec.node_name}").data.get("token", "")
-        except NotFound:
-            token = ""
-        kubelet = urlparse(url)
+        pod, kubelet, token = self._kubelet_endpoint(name, ns)
         container = q.get("container") or pod.spec.containers[0].name
         path = f"/containerLogs/{ns}/{name}/{container}"
         if q.get("tailLines"):
@@ -574,6 +601,35 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             conn.close()
         self._send_raw(resp.status, body, ctype="text/plain")
+
+    def _proxy_pod_stream(self, ns: str, name: str, sub: str):
+        """pods/<name>/exec, attach, portforward: open the kubelet's stream,
+        then splice the upgraded client connection onto it.  The token for
+        the kubelet hop never reaches the client.  The handshake is checked
+        before the kubelet is dialled: that dial is what spawns an exec."""
+        if not streams.wants_upgrade(self):
+            raise BadRequest(f"expected Connection: Upgrade, Upgrade: {streams.UPGRADE_PROTO}")
+        kind = STREAM_SUBRESOURCES[sub.lower()]
+        pod, kubelet, token = self._kubelet_endpoint(name, ns)
+        parsed = urlparse(self.path)
+        if kind == "portForward":
+            kpath = f"/portForward/{ns}/{name}"
+        else:
+            container = (parse_qs(parsed.query).get("container") or [""])[0] \
+                or pod.spec.containers[0].name
+            kpath = f"/{kind}/{ns}/{name}/{container}"
+        if parsed.query:
+            kpath += f"?{parsed.query}"
+        try:
+            upstream = streams.upgrade_request(kubelet.hostname, kubelet.port, kpath,
+                                               {"Authorization": f"Bearer {token}"})
+        except OSError as e:  # UpgradeRefused is a ConnectionError
+            raise BadRequest(f"kubelet connection failed: {e}") from None
+        client_sock = streams.accept_upgrade(self)  # the header was checked
+        try:
+            streams.splice(client_sock, upstream)
+        finally:
+            upstream.close()
 
     def _serve_watch(self, resource, ns, q):
         try:
@@ -642,6 +698,9 @@ class _Handler(BaseHTTPRequestHandler):
             if e is None else e.to_status() for e in outcomes]}
 
     def _do_post(self, resource, ns, name, sub, q):
+        if resource == "pods" and sub.lower() in STREAM_SUBRESOURCES:
+            self._proxy_pod_stream(ns, name, sub)  # kubectl's verb for exec
+            return
         master = self.master
         reg = master.registry
         body = self._read_body()

@@ -5,7 +5,8 @@ the API types (``api/types.py``), encoded and decoded by the port's scheme
 
 ``Clientset(url)`` holds one ``rest.Client``, whose keep-alive connections
 and Status errors it shares; ``clientset.pods``, ``clientset.jobs`` and
-the others (``resource(plural)`` for any of ``TYPED``) are
+the others of ``TYPED`` (``resource(plural)`` for any resource of
+``rest.RESOURCES``) are
 ``TypedResource``s with the verbs the scheduler, the controller manager
 and the event recorder call, over typed objects: list, get, create,
 update, update_status, patch and delete with a grace period.  Besides:
@@ -85,6 +86,10 @@ class Clientset:
             setattr(self, plural, typed)
 
     def resource(self, plural: str) -> TypedResource:
+        """The typed verbs of any resource the client knows (the CLI's
+        generic verbs reach beyond ``TYPED``)."""
+        if plural not in self._typed:
+            self._typed[plural] = TypedResource(self.client.resource(plural))
         return self._typed[plural]
 
     def informer(self, plural: str, field_selector: str = "") -> SharedInformer:

@@ -13,7 +13,7 @@ Only the verbs and resources the port calls are here: ``create``,
 ``get``, ``list``, ``update``, ``update_status`` (the status
 subresource), ``patch``, ``delete`` and ``watch`` on the resources of
 ``RESOURCES`` (those the port's components and its controller manager
-read or write), plus the pods' ``delete:batch`` and ``log``.  Every request carries
+read or write, and the rest the CLI reaches), plus the pods' ``delete:batch`` and ``log``.  Every request carries
 the thread's trace context (``utils/spans``), so the apiserver's handling
 joins the caller's trace.
 """
@@ -61,8 +61,14 @@ RESOURCES = {
     "nodemetrics": ("/apis/metrics.k8s.io/v1", "NodeMetrics", "metrics.k8s.io/v1"),
     "podcustommetrics": ("/apis/custom.metrics.k8s.io/v1", "PodCustomMetrics",
                          "custom.metrics.k8s.io/v1"),
+    # the rest of what the port's scheme registers, for the CLI
+    "priorityclasses": ("/apis/scheduling/v1", "PriorityClass", "scheduling/v1"),
+    "storageclasses": ("/api/v1", "StorageClass", "storage.k8s.io/v1"),
+    "certificatesigningrequests": ("/apis/certificates/v1", "CertificateSigningRequest",
+                                   "certificates/v1"),
 }
-CLUSTER_SCOPED = frozenset({"nodes", "namespaces", "persistentvolumes", "nodemetrics"})
+CLUSTER_SCOPED = frozenset({"nodes", "namespaces", "persistentvolumes", "nodemetrics",
+                            "priorityclasses", "storageclasses", "certificatesigningrequests"})
 # A GET is retried over this many connection failures; a write only when it
 # failed before it was sent (the connect refused or reset), since a write
 # whose answer was lost may have been applied.  An idle keep-alive socket

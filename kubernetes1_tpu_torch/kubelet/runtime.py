@@ -133,6 +133,18 @@ class RuntimeService:
         (exec probes ride this)."""
         return -1
 
+    def exec_capture(self, container_id: str, command) -> tuple:
+        """ExecSync analog: (exit code, combined output) — the kubelet
+        server's ``POST /exec`` (ref: CRI api.proto ExecSync)."""
+        return self.exec_in_container(container_id, command), ""
+
+    def exec_stream(self, container_id: str, command, tty: bool = False,
+                    stdin: bool = False):
+        """Streaming Exec (ref: CRI api.proto Exec): start the command in
+        the container's context and return (popen, pty_master_fd or None).
+        The caller owns the pumping.  None when unsupported."""
+        return None
+
 
 class ImageService:
     """ref: api.proto ImageService (5 RPCs) — advisory here."""
@@ -584,18 +596,72 @@ class ProcessRuntime(RuntimeService):
         """Exec probes for process containers: run the command with the
         container's env (process analog of CRI ExecSync); -1 when the
         container is not running or the command cannot run."""
+        return self.exec_capture(container_id, command)[0]
+
+    def _exec_context(self, container_id: str):
+        """(env, cwd) an exec into a running container gets: the
+        container's env, with its KTPU_CONTAINER_ID, so the container's
+        stop stops the exec'd processes too; None when it is not running."""
         with self._lock:
             proc = self._procs.get(container_id)
             config = self._configs.get(container_id)
         if proc is None or proc.poll() is not None:
-            return -1
+            return None
         env = dict(os.environ)
         env.update(config.env)
+        env[CONTAINER_ENV] = container_id
+        return env, config.working_dir or None
+
+    def exec_capture(self, container_id: str, command) -> tuple:
+        ctx = self._exec_context(container_id)
+        if ctx is None:
+            return -1, "container not running"
+        env, cwd = ctx
         try:
-            return subprocess.run(list(command), env=env, capture_output=True, timeout=10,
-                                  cwd=config.working_dir or None).returncode
-        except (OSError, subprocess.TimeoutExpired, ValueError):
-            return -1
+            res = subprocess.run(list(command), env=env, capture_output=True, timeout=10,
+                                 cwd=cwd)
+        except (OSError, subprocess.TimeoutExpired, ValueError) as e:
+            return -1, str(e)
+        return res.returncode, (res.stdout.decode(errors="replace")
+                                + res.stderr.decode(errors="replace"))
+
+    def exec_stream(self, container_id: str, command, tty: bool = False,
+                    stdin: bool = False):
+        """Streaming exec with the container's env; tty=True allocates a
+        pty, the exec'd process's controlling terminal, so interactive
+        shells behave (line editing, SIGINT).  The caller owns the
+        returned master fd."""
+        ctx = self._exec_context(container_id)
+        if ctx is None:
+            return None
+        env, cwd = ctx
+        if tty:
+            import fcntl
+            import pty
+            import termios
+
+            master, slave = pty.openpty()
+
+            def acquire_ctty():
+                # the new session's controlling terminal, so ^C reaches its
+                # foreground group (one ioctl: no allocation between fork and exec)
+                fcntl.ioctl(0, termios.TIOCSCTTY, 0)
+
+            try:
+                p = subprocess.Popen(list(command), env=env, cwd=cwd, stdin=slave,
+                                     stdout=slave, stderr=slave, start_new_session=True,
+                                     close_fds=True, preexec_fn=acquire_ctty)
+            except BaseException:
+                os.close(master)
+                raise
+            finally:
+                os.close(slave)
+            return p, master
+        p = subprocess.Popen(list(command), env=env, cwd=cwd,
+                             stdin=subprocess.PIPE if stdin else subprocess.DEVNULL,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             start_new_session=True)
+        return p, None
 
     def container_stats(self, container_id: str) -> Dict[str, float]:
         """CPU from /proc/<pid>/stat utime+stime deltas between calls, RSS

@@ -10,7 +10,12 @@ kubelets, each with the port's ``nvidia.com/gpu`` device plugin behind a
 node 0 with ``real_gpu=True``, which runs the machine's cards: the plugin's
 ``discover_gpu_devices()`` and a ``ProcessRuntime`` that execs each
 container as a host process with the card injected (``CUDA_VISIBLE_DEVICES``).
-A hollow node's cards are fake H100s: ``<H100>:<gpus_per_node>:nvl<i>:0``.
+Every other node's cards are fake H100s: ``<H100>:<gpus_per_node>:nvl<i>:0``;
+with ``hollow=False`` those nodes run a ``ProcessRuntime`` too (``ktpu
+cluster-up``'s default).  ``port`` fixes the apiserver's port (0: any
+free one).  ``stop()`` kills every process of every ProcessRuntime
+container it leaves and returns the pids that survived: a torn-down
+cluster leaves no pod process (the JAX cluster's stop leaves them).
 
 Every component with an HTTP surface (the apiserver, the scheduler, the
 SLI tracker, the kubelets) is registered with an ``ObsCollector``
@@ -20,10 +25,8 @@ SLI tracker, the kubelets) is registered with an ``ObsCollector``
 The JAX cluster's sharding options (``store_shards``, ``apiservers`` > 1
 with its fail-over server lists, ``sched_shards``) are not here: the
 port has no sharded store and no scheduler shards.  Nor are the options
-no caller of the port sets: the JAX ``hollow=False`` (a ProcessRuntime on
-every node) and ``tpu_type`` (the fake cards' model, here always H100),
-the apiserver's ``port`` (always ephemeral),
-``heartbeat_interval`` (``HEARTBEAT_INTERVAL``), and the controller
+no caller of the port sets: ``tpu_type`` (the fake cards' model, here
+always H100), ``heartbeat_interval`` (``HEARTBEAT_INTERVAL``), and the controller
 manager's ``endpoints_coalesce_window``, ``monitor_grace`` and
 ``eviction_timeout`` (its defaults).
 """
@@ -88,7 +91,9 @@ class LocalCluster:
         self,
         nodes: int = 1,
         gpus_per_node: int = 8,
+        hollow: bool = True,
         real_gpu: bool = False,
+        port: int = 0,
         root_dir: str = "",
         sync_interval: float = 0.25,
         obs: bool = True,
@@ -96,7 +101,9 @@ class LocalCluster:
     ):
         self.n_nodes = nodes
         self.gpus_per_node = gpus_per_node
+        self.hollow = hollow
         self.real_gpu = real_gpu
+        self.port = port
         # a plugin's unix socket lives under it: the default stays short
         self._own_root = not root_dir
         self.root_dir = root_dir or tempfile.mkdtemp(prefix="ktpu-cluster-")
@@ -123,7 +130,7 @@ class LocalCluster:
 
     def start(self) -> "LocalCluster":
         try:
-            self.master = Master().start()
+            self.master = Master(port=self.port).start()
             url = self.master.url
             self.cs = Clientset(url)
             # the scheduler's /metrics and /debug/traces on an ephemeral port:
@@ -179,8 +186,8 @@ class LocalCluster:
             plugin = PluginServer(GPUDevicePlugin(devices=devices),
                                   plugin_socket_path(plugin_dir, GPU_RESOURCE))
             plugin.start()
-        runtime = ProcessRuntime(root_dir=os.path.join(self.root_dir, name, "run")) if real \
-            else FakeRuntime()
+        runtime = ProcessRuntime(root_dir=os.path.join(self.root_dir, name, "run")) \
+            if real or not self.hollow else FakeRuntime()
         kcs = Clientset(self.master.url)
         kubelet = Kubelet(
             kcs,
@@ -209,11 +216,15 @@ class LocalCluster:
         must_poll_until(all_ready, timeout=timeout, desc="all nodes Ready")
         return self
 
-    def stop(self):
+    def stop(self) -> List[int]:
+        """Tear down in order; the pids of pod processes that survived."""
+        survivors: List[int] = []
         if self.obs:
             self.obs.stop()
         for h in self.nodes:
             h.kubelet.stop()
+            if isinstance(h.kubelet.runtime, ProcessRuntime):
+                survivors += h.kubelet.runtime.kill_all()
             if h.plugin:
                 h.plugin.stop()
             h.clientset.close()
@@ -232,3 +243,4 @@ class LocalCluster:
             self.master.stop()
         if self._own_root:
             shutil.rmtree(self.root_dir, ignore_errors=True)
+        return sorted(survivors)

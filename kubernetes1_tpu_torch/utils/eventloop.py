@@ -12,6 +12,7 @@ The port's copy of the JAX package's ``utils/eventloop.py``:
   register with;
 - ``shared_pool()``: a bounded worker pool for the blocking work the
   dispatcher must never run inline (the collector's scrape fetches);
+- ``wait_readable()``: a one-shot readability poll of a socket;
 
 Threading contract: ``register``/``modify``/``unregister`` and timer
 callbacks run ON the loop thread; other threads use ``call_soon``, which
@@ -275,3 +276,12 @@ def shared_pool() -> WorkerPool:
         if _shared_pool is None:
             _shared_pool = WorkerPool()
         return _shared_pool
+
+
+def wait_readable(sock, timeout: float) -> bool:
+    """One-shot readability poll (the kubelet's attach loop detects a
+    client's hangup with it).  A fresh selector per call keeps the helper
+    stateless; callers poll at sub-Hz rates, not per byte."""
+    with selectors.DefaultSelector() as sel:
+        sel.register(sock, selectors.EVENT_READ)
+        return bool(sel.select(timeout))
