@@ -5191,19 +5191,23 @@ while True:
 CLI_EXEC_CARD = ("import os, torch; print(os.environ['CUDA_VISIBLE_DEVICES']); "
                  "print(torch.cuda.get_device_name(0))")
 MNIST_LINE = re.compile(r"mnist final loss, accuracy: \(([^,]+), ([^)]+)\)")
+MNIST_SELECTOR = f"batch.ktpu.io/job-name={CLI_MNIST_JOB}"
 
 
 class Ktpu:
     """``python -m kubernetes1_tpu_torch ktpu --server URL ...`` child
-    processes, each verb's wall seconds as an operator feels them (process
-    start included)."""
+    processes (``--kubeconfig PATH`` in place of ``--server`` when given),
+    each verb's wall seconds as an operator feels them (process start
+    included)."""
 
-    def __init__(self, url: str):
+    def __init__(self, url: str, kubeconfig: str = "", env: dict | None = None):
         self.url = url
+        self.target = ["--kubeconfig", kubeconfig] if kubeconfig else ["--server", url]
+        self.env = env
         self.seconds = {}  # verb -> [s, ...]
 
     def argv(self, *args) -> list:
-        argv = [sys.executable, "-m", "kubernetes1_tpu_torch", "ktpu", "--server", self.url,
+        argv = [sys.executable, "-m", "kubernetes1_tpu_torch", "ktpu", *self.target,
                 *map(str, args)]
         if JAX_PACKAGE.search(" ".join(argv)):
             fail(f"cli: a child's argv names the JAX package: {argv}")
@@ -5214,7 +5218,7 @@ class Ktpu:
         ``code=None``: the stdout, or None when it exits non-zero)."""
         t0 = time.perf_counter()
         r = subprocess.run(self.argv(*args), cwd=REPO_ROOT, capture_output=True, text=True,
-                           timeout=timeout)
+                           timeout=timeout, env=self.env)
         verb = " ".join(str(a) for a in args[:2 if args[0] in ("rollout", "auth", "top") else 1])
         self.seconds.setdefault(verb, []).append(time.perf_counter() - t0)
         if code is None:
@@ -5226,6 +5230,86 @@ class Ktpu:
 
     def json(self, *args):
         return json.loads(self(*args, "-o", "json"))
+
+    def names(self, selector: str) -> list:
+        """The names of the pods the label selector picks."""
+        return [n.split("/", 1)[1] for n in self("get", "pods", "-l", selector, "-o", "name").split()]
+
+    def started(self, pod: str):
+        """The pod's phase once it has left Pending, else None."""
+        phase = (self.json("get", "pods", pod).get("status") or {}).get("phase")
+        return phase if phase in ("Running", "Succeeded", "Failed") else None
+
+
+def mnist_job(ktpu: Ktpu, what: str) -> dict:
+    """BASELINE config 2's MNIST manifest (CLI_MNIST_YAML; K5-f32 and K10c
+    in its pod) through ``ktpu`` alone: ``apply``, ``attach`` to its exit
+    code 0, ``wait --for=condition=complete`` and ``logs``, whose loss and
+    accuracy must meet mnist_phase's bars in both the log and the attach
+    stream.  The Job stays; the caller deletes it."""
+    t0 = time.perf_counter()
+    ktpu("apply", "-f", CLI_MNIST_YAML)
+    pod = _wait("the MNIST pod", lambda: ktpu.names(MNIST_SELECTOR))[0]
+    seen = _wait("the MNIST pod Running", lambda: ktpu.started(pod))
+    if seen == "Failed":
+        fail(f"{what}: the MNIST pod failed: {ktpu('logs', pod)[-3000:]!r}")
+    attached = ktpu("attach", pod, timeout=600)
+    ktpu("wait", "--for=condition=complete", f"job/{CLI_MNIST_JOB}", "--timeout", "120",
+         timeout=180)
+    mnist_s = time.perf_counter() - t0
+    log = ktpu("logs", pod)
+    said = MNIST_LINE.search(log)
+    if not said or not MNIST_LINE.search(attached):
+        fail(f"{what}: the MNIST pod's log {log[-2000:]!r}, its attach stream "
+             f"{attached[-2000:]!r}: no 'mnist final loss, accuracy:' line in both")
+    loss, acc = float(said.group(1)), float(said.group(2))
+    if not (np.isfinite(loss) and loss < np.log(mnist.CLASSES) and acc >= MNIST_MIN_ACCURACY):
+        fail(f"{what}: the MNIST Job's final loss {loss} (want below ln 10), accuracy {acc} "
+             f"(want >= {MNIST_MIN_ACCURACY})")
+    return dict(mnist_s=mnist_s, mnist_loss=loss, mnist_acc=acc, mnist_attached=seen)
+
+
+def decode_rollout(ktpu: Ktpu, tmp: str, name: str) -> dict:
+    """A one-replica Llama-3-8B decode Deployment (CLI_POD_SERVER, full
+    width and depth, K1-K4 forward on the card in its pod) through ``ktpu
+    apply`` and ``rollout status``; its pod's log must name its server.
+    -> {yaml, pod, port, rollout_s}."""
+    import yaml
+
+    from kubernetes1_tpu_torch.workloads import specs
+
+    srv_port = _free_port()
+    spec = {"containers": [{
+        "name": "server", "image": "ktpu/torch-workload",
+        "command": [sys.executable, "-c", CLI_POD_SERVER, str(srv_port)],
+        "env": [specs.pythonpath_env()],
+        "readinessProbe": {"httpGet": {"path": "/healthz", "port": srv_port,
+                                       "host": "127.0.0.1"}, "periodSeconds": 1}}]}
+    specs.gpu_request(spec)
+    dep = {"apiVersion": "apps/v1", "kind": "Deployment",
+           "metadata": {"name": name, "namespace": "default"},
+           "spec": {"replicas": 1, "selector": {"matchLabels": {"app": name}},
+                    "template": {"metadata": {"labels": {"app": name}}, "spec": spec}}}
+    dep_yaml = os.path.join(tmp, f"{name}.yaml")
+    with open(dep_yaml, "w") as f:
+        yaml.safe_dump(dep, f)
+    t0 = time.perf_counter()
+    ktpu("apply", "-f", dep_yaml)
+    ktpu("rollout", "status", f"deployment/{name}", "--timeout", CLI_ROLLOUT_S,
+         timeout=CLI_ROLLOUT_S + 60)
+    rollout_s = time.perf_counter() - t0
+    pod = ktpu.names(f"app={name}")[0]
+    if f"decode server on http://127.0.0.1:{srv_port}" not in ktpu("logs", pod):
+        fail(f"{name}: the decode pod's log lacks its start line: {ktpu('logs', pod)!r}")
+    return dict(yaml=dep_yaml, pod=pod, port=srv_port, rollout_s=rollout_s)
+
+
+def exec_card(ktpu: Ktpu, pod: str, uuid: str, kind: str, what: str) -> list:
+    """``ktpu exec`` in the pod names its card's UUID and name."""
+    answer = ktpu("exec", pod, "--", "python", "-c", CLI_EXEC_CARD, timeout=300).split()
+    if answer[0] != uuid or " ".join(answer[1:]) != kind:
+        fail(f"{what}: ktpu exec answered {answer}, want the card's UUID {uuid} and name {kind!r}")
+    return answer
 
 
 def _first_token_s(url: str, prompt: list) -> tuple:
@@ -5261,10 +5345,6 @@ def cli_phase(card: str, advertised: list) -> dict:
     cluster-up leaves no pod process, no new process on the card and no
     listener.  The "cli:" line gives each verb's seconds."""
     import shlex
-
-    import yaml
-
-    from kubernetes1_tpu_torch.workloads import specs
 
     t_phase = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -5329,68 +5409,18 @@ def cli_phase(card: str, advertised: list) -> dict:
         def top_nodes() -> list:
             return ktpu("top", "nodes").splitlines()[1].split()
 
-        def names(selector: str) -> list:
-            return [n.split("/", 1)[1]
-                    for n in ktpu("get", "pods", "-l", selector, "-o", "name").split()]
-
-        def started(pod: str):
-            phase = (ktpu.json("get", "pods", pod).get("status") or {}).get("phase")
-            return phase if phase in ("Running", "Succeeded", "Failed") else None
-
         if top_nodes()[:3] != ["node-0", "0", str(n_cards)]:
             fail(f"cli: ktpu top nodes read {top_nodes()}, want node-0 0 {n_cards}")
 
         # the MNIST Job: K5-f32 and K10c on the card, in its pod
-        t0 = time.perf_counter()
-        ktpu("apply", "-f", CLI_MNIST_YAML)
-        msel = f"batch.ktpu.io/job-name={CLI_MNIST_JOB}"
-        mpod = _wait("the MNIST pod", lambda: names(msel))[0]
-        seen = _wait("the MNIST pod Running", lambda: started(mpod))
-        if seen == "Failed":
-            fail(f"cli: the MNIST pod failed: {ktpu('logs', mpod)[-3000:]!r}")
-        attached = ktpu("attach", mpod, timeout=600)
-        ktpu("wait", "--for=condition=complete", f"job/{CLI_MNIST_JOB}", "--timeout", "120",
-             timeout=180)
-        mnist_s = time.perf_counter() - t0
-        mlog = ktpu("logs", mpod)
-        said = MNIST_LINE.search(mlog)
-        if not said or not MNIST_LINE.search(attached):
-            fail(f"cli: the MNIST pod's log {mlog[-2000:]!r}, its attach stream "
-                 f"{attached[-2000:]!r}: no 'mnist final loss, accuracy:' line in both")
-        loss, acc = float(said.group(1)), float(said.group(2))
-        if not (np.isfinite(loss) and loss < np.log(mnist.CLASSES) and acc >= MNIST_MIN_ACCURACY):
-            fail(f"cli: the MNIST Job's final loss {loss} (want below ln 10), accuracy {acc} "
-                 f"(want >= {MNIST_MIN_ACCURACY})")
+        res.update(mnist_job(ktpu, "cli"))
         ktpu("delete", "-f", CLI_MNIST_YAML)
-        _wait("the MNIST pod to go", lambda: not names(msel))
-        res.update(mnist_s=mnist_s, mnist_loss=loss, mnist_acc=acc, mnist_attached=seen)
+        _wait("the MNIST pod to go", lambda: not ktpu.names(MNIST_SELECTOR))
 
         # the Llama-3-8B decode Deployment: K1-K4 forward on the card, in its pod
-        srv_port = _free_port()
-        spec = {"containers": [{
-            "name": "server", "image": "ktpu/torch-workload",
-            "command": [sys.executable, "-c", CLI_POD_SERVER, str(srv_port)],
-            "env": [specs.pythonpath_env()],
-            "readinessProbe": {"httpGet": {"path": "/healthz", "port": srv_port,
-                                           "host": "127.0.0.1"}, "periodSeconds": 1}}]}
-        specs.gpu_request(spec)
-        dep = {"apiVersion": "apps/v1", "kind": "Deployment",
-               "metadata": {"name": CLI_DEPLOYMENT, "namespace": "default"},
-               "spec": {"replicas": 1, "selector": {"matchLabels": {"app": CLI_DEPLOYMENT}},
-                        "template": {"metadata": {"labels": {"app": CLI_DEPLOYMENT}},
-                                     "spec": spec}}}
-        dep_yaml = os.path.join(tmp, "llama-8b-cli.yaml")
-        with open(dep_yaml, "w") as f:
-            yaml.safe_dump(dep, f)
+        dep = decode_rollout(ktpu, tmp, CLI_DEPLOYMENT)
+        dep_yaml, dpod, srv_port, rollout_s = dep["yaml"], dep["pod"], dep["port"], dep["rollout_s"]
         dsel = f"app={CLI_DEPLOYMENT}"
-        t0 = time.perf_counter()
-        ktpu("apply", "-f", dep_yaml)
-        ktpu("rollout", "status", f"deployment/{CLI_DEPLOYMENT}", "--timeout", CLI_ROLLOUT_S,
-             timeout=CLI_ROLLOUT_S + 60)
-        rollout_s = time.perf_counter() - t0
-        dpod = names(dsel)[0]
-        if f"decode server on http://127.0.0.1:{srv_port}" not in ktpu("logs", dpod):
-            fail(f"cli: the decode pod's log lacks its start line: {ktpu('logs', dpod)!r}")
         forward_log = open(os.path.join(tmp, "port-forward.log"), "w+")
         forward = subprocess.Popen(ktpu.argv("port-forward", dpod, f"0:{srv_port}"),
                                    cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=forward_log,
@@ -5407,9 +5437,7 @@ def cli_phase(card: str, advertised: list) -> dict:
         if got_tokens != want_tokens or streamed != want_tokens[0]:
             fail(f"cli: through ktpu port-forward the pod answered {got_tokens} (streamed "
                  f"{streamed}), the in-process server {want_tokens}")
-        answer = ktpu("exec", dpod, "--", "python", "-c", CLI_EXEC_CARD, timeout=300).split()
-        if answer[0] != uuid or " ".join(answer[1:]) != kind:
-            fail(f"cli: ktpu exec answered {answer}, want the card's UUID {uuid} and name {kind!r}")
+        answer = exec_card(ktpu, dpod, uuid, kind, "cli")
         ktpu("exec", dpod, "--", "sh", "-c", "exit 3", code=3)
         payload = np.random.default_rng(CLI_CP_SEED).bytes(CLI_CP_BYTES)
         local, remote, back = (os.path.join(tmp, n) for n in ("cp.bin", "cp-pod.bin",
@@ -5456,7 +5484,7 @@ def cli_phase(card: str, advertised: list) -> dict:
             fail(f"cli: after the drain the replacement {pending}, top nodes {top_nodes()}")
         ktpu("delete", "-f", dep_yaml)
         # uncordoned with the replacement still there, it would start a second 8B pod
-        _wait("the replacement pod to go", lambda: not names(dsel))
+        _wait("the replacement pod to go", lambda: not ktpu.names(dsel))
         ktpu("uncordon", "node-0")
         if ktpu("auth", "can-i", "create", "pods").strip() != "yes" or \
                 not re.search(r"^pods\s+True\s+Pod$", ktpu("api-resources"), re.M):
@@ -5505,6 +5533,434 @@ def cli_phase(card: str, advertised: list) -> dict:
           f"reference took {ref_s:.2f} s; seconds by verb {json.dumps(verbs)}; "
           f"{wall_s:.1f} s on [{card}]", flush=True)
     return dict(res, down_s=down_s, verbs=verbs, wall_s=wall_s, ref_s=ref_s)
+
+
+INIT_NODE = "gpu-init-0"
+INIT_OTHER_NODE = "init-other-node"  # a Node the init node's credential may not write
+INIT_DEPLOYMENT = "llama-8b-init"
+INIT_COMPONENTS = ("apiserver", "controller-manager", "scheduler", "kubelet")
+DENIED = re.compile(r'^ktpu_apiserver_authz_denied_total\{credential="([a-z]+)"\} (\d+)$', re.M)
+
+
+def _listening_ports(pid: int):
+    """The TCP ports a process listens on (its socket fds against the
+    LISTEN rows of /proc/net/tcp and tcp6), or None when /proc does not
+    show them."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return None
+    inodes = set()
+    for fd in fds:
+        try:
+            link = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if link.startswith("socket:["):
+            inodes.add(link[len("socket:["):-1])
+    ports, readable = set(), False
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        readable = True
+        for row in rows:
+            cols = row.split()
+            if len(cols) > 9 and cols[3] == "0A" and cols[9] in inodes:
+                ports.add(int(cols[1].rsplit(":", 1)[1], 16))
+    return sorted(ports) if readable else None
+
+
+def _plain_http_refused(port: int) -> bool:
+    """True when a plain-HTTP GET /healthz to the loopback ``port`` gets no
+    HTTP answer (the TLS listener drops it at the handshake)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+    try:
+        conn.request("GET", "/healthz")
+        conn.getresponse().read()
+        return False
+    except (OSError, http.client.HTTPException):
+        return True
+    finally:
+        conn.close()
+
+
+def _tls_verified(port: int, ca_file: str) -> bool:
+    """True when the loopback ``port`` completes a TLS handshake whose
+    certificate the cluster CA verifies for 127.0.0.1."""
+    import socket
+
+    from kubernetes1_tpu_torch.client.rest import client_ssl_context
+
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=5) as raw:
+            with client_ssl_context(ca_file).wrap_socket(raw, server_hostname="127.0.0.1"):
+                return True
+    except OSError:
+        return False
+
+
+def _gone(pid: int) -> bool:
+    """True when ``pid`` has exited (a zombie counts: no parent of ours)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def _status(fn) -> int:
+    """The HTTP status of a client call: 200 when it returns, else the
+    ApiError's code."""
+    try:
+        fn()
+        return 200
+    except ApiError as e:
+        return e.code
+
+
+def init_phase(card: str, advertised: list, want_tokens: list) -> dict:
+    """``ktpu init`` on the card's machine, and the cluster it makes driven
+    as an operator drives it.  The port's Python GPU plugin serves a
+    plugin directory of the phase's own, which ``ktpu init --plugin-dir``
+    hands to its kubelet; ``ktpu init`` brings up the port's
+    apiserver (HTTPS only, Node,RBAC, its store's WAL), scheduler,
+    controller manager and a kubelet whose x509 credential came through a
+    CSR; the node must be Ready with the card (``advertised``).  Checked:
+    every listener of the four is TLS the cluster CA verifies and refuses
+    plain HTTP (the kubelet's DNS port aside); anonymous reads
+    kube-public/cluster-info and is refused pods; the join token may create
+    a CSR and is refused pods; the node's credential writes its own Node
+    and is refused another's; ``ktpu join`` with a bad token or a wrong
+    ``--ca-cert-hash`` exits non-zero and makes no node.  Then, through
+    ``ktpu --kubeconfig admin.conf`` children alone: the MNIST Job of
+    CLI_MNIST_YAML completes (``attach`` and ``logs`` over both TLS hops);
+    the apiserver, SIGKILLed by its pid in pids.json (no orderly stop) and
+    started again from its manifest, replays its WAL with the Node, the Job and the RBAC
+    objects at their resourceVersions; the Llama-3-8B decode Deployment
+    rolls out and answers ``want_tokens`` through ``port-forward`` and
+    its card's UUID and name through ``exec``.  Every manifest and process
+    of pids.json runs the port, never the JAX package.  At the end every
+    process of pids.json stops, the plugin's socket goes, no pod process
+    survives and the card holds no new process.  The "init:" line gives
+    the numbers."""
+    import shlex
+
+    from kubernetes1_tpu_torch.client.clientset import Clientset
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    before = _compute_pids()
+    tmp = tempfile.mkdtemp(prefix="init")
+    d = os.path.join(tmp, "cluster")
+    bindir = os.path.join(tmp, "bin")  # `python` for the manifests' containers, as in cli_phase
+    os.makedirs(bindir)
+    with open(os.path.join(bindir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec {shlex.quote(sys.executable)} "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    env = {k: v for k, v in os.environ.items() if k != "KTPU_FAKE_GPUS"}
+    env["PATH"] = bindir + os.pathsep + env.get("PATH", "")
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO_ROOT, env.get("PYTHONPATH", "")) if p)
+    plugin_dir = os.path.join(tmp, "device-plugins")
+    sock = os.path.join(plugin_dir, "nvidia.com", "gpu.sock")
+    plugin_log = open(os.path.join(tmp, "plugin.log"), "w")
+    plugin = subprocess.Popen([*PYTHON_PLUGIN, "--plugin-dir", plugin_dir], cwd=REPO_ROOT,
+                              env=env, stdout=plugin_log, stderr=subprocess.STDOUT)
+    res, pids, admin, restarted = {}, {}, None, None
+
+    def component_logs() -> str:
+        out = []
+        for name in (*INIT_COMPONENTS, "restarted-apiserver"):
+            path = os.path.join(d, f"{name}.log")
+            if os.path.exists(path):
+                with open(path, errors="replace") as f:
+                    out.append(f"--- {name}.log, its end:\n{f.read()[-2500:]}")
+        return "\n".join(out)
+
+    def spawned_argvs() -> list:
+        """The argv of each manifest and of each live process of pids.json."""
+        argvs = []
+        for name in sorted(os.listdir(os.path.join(d, "manifests"))):
+            with open(os.path.join(d, "manifests", name)) as f:
+                argvs.append(json.load(f)["spec"]["containers"][0]["command"])
+        for pid in pids.values():
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argvs.append(f.read().decode(errors="replace").split("\0"))
+            except OSError:
+                pass
+        return argvs
+
+    try:
+        def plugin_up() -> bool:
+            if plugin.poll() is not None:
+                fail(f"init: the GPU plugin exited {plugin.returncode}")
+            return os.path.exists(sock)
+
+        _wait("the GPU plugin's socket", plugin_up)
+        port = _free_port()
+        init_argv = [sys.executable, "-m", "kubernetes1_tpu_torch", "ktpu", "init", "--dir", d,
+                     "--port", str(port), "--node-name", INIT_NODE, "--plugin-dir", plugin_dir]
+        if JAX_PACKAGE.search(" ".join(init_argv)):
+            fail(f"init: ktpu init's argv names the JAX package: {init_argv}")
+        t0 = time.perf_counter()
+        r = subprocess.run(init_argv, cwd=REPO_ROOT, env=env, capture_output=True, text=True,
+                           timeout=CLUSTER_WAIT_S)
+        init_s = time.perf_counter() - t0
+        if os.path.exists(os.path.join(d, "pids.json")):
+            with open(os.path.join(d, "pids.json")) as f:
+                pids = json.load(f)
+        if r.returncode != 0:
+            fail(f"init: ktpu init exited {r.returncode}: {r.stdout[-2000:]} {r.stderr[-2000:]}")
+        said = re.search(r"ktpu join --server (\S+) --token (\S+) --ca-cert-hash (\S+)", r.stdout)
+        if not said:
+            fail(f"init: ktpu init printed no join command: {r.stdout[-2000:]}")
+        server, join_token, ca_hash = said.groups()
+        bad = [a for a in spawned_argvs() if JAX_PACKAGE.search(" ".join(a))]
+        if bad or sorted(pids) != sorted(INIT_COMPONENTS):
+            fail(f"init: pids.json {pids}; argvs naming the JAX package: {bad}")
+        ca = os.path.join(d, "pki", "ca.crt")
+        conf = os.path.join(d, "admin.conf")
+        ktpu = Ktpu(server, kubeconfig=conf, env=env)
+        admin = Clientset.from_config(conf).client
+
+        def node_ready():
+            out = ktpu("get", "nodes", code=None)
+            return out and re.search(rf"^{INIT_NODE}\s+Ready\s", out, re.M)
+
+        _wait(f"{INIT_NODE} Ready through ktpu get nodes", node_ready)
+        ready_s = time.perf_counter() - t0
+        node = admin.nodes.get(INIT_NODE, "")
+        have = sorted((dv["id"], dv["attributes"]["nvidia.com/gpu/uuid"]) for dv in
+                      (node.get("status") or {}).get("extendedResources", {}).get(GPU_RESOURCE, []))
+        want_devs = sorted((dv["id"], dv["attributes"]["nvidia.com/gpu/uuid"]) for dv in advertised)
+        if have != want_devs:
+            fail(f"init: {INIT_NODE} advertises {have}, the plugin process did {want_devs}")
+        uuid = want_devs[0][1]
+        res.update(init_s=init_s, ready_s=ready_s, cards=len(have))
+
+        # every listener is TLS the cluster CA verifies, and refuses plain HTTP
+        kubelet_url = node["metadata"]["annotations"]["kubelet.ktpu.io/server"]
+        kport = int(kubelet_url.rsplit(":", 1)[1])
+        listeners = {name: _listening_ports(pid) for name, pid in pids.items()}
+        seen = sorted({p for ports in listeners.values() for p in ports or ()} - {53})
+        want_ports = sorted({port, kport} | set(seen))
+        if not (server.startswith("https://") and kubelet_url.startswith("https://")):
+            fail(f"init: the apiserver at {server}, the kubelet at {kubelet_url}: not https")
+        if listeners["apiserver"] is not None and port not in listeners["apiserver"]:
+            fail(f"init: /proc shows the apiserver listening on {listeners['apiserver']}, "
+                 f"not {port}")
+        open_ports = [p for p in want_ports if not (_tls_verified(p, ca)
+                                                    and _plain_http_refused(p))]
+        if open_ports:
+            fail(f"init: ports {open_ports} of {want_ports} fail TLS or answer plain HTTP "
+                 f"(listeners by /proc: {listeners})")
+        res.update(listeners=listeners, tls_ports=want_ports)
+
+        # anonymous, the join token and the node's credential, as the authorizers see them
+        anon = Client(server, ca_file=ca)
+        boot = Client(server, token=join_token, ca_file=ca)
+        kcred = Client(server, ca_file=ca, cert_file=os.path.join(d, "pki", "kubelet.crt"),
+                       key_file=os.path.join(d, "pki", "kubelet.key"))
+        csrs = admin.resource("certificatesigningrequests")
+        try:
+            other = {"metadata": {"name": INIT_OTHER_NODE}}
+            admin.nodes.create(other)
+            probe_csr = {"metadata": {"name": "init-probe-csr"},
+                         "spec": {"request": "probe", "username": "init-probe"}}
+            codes = {
+                "anonymous get cluster-info": _status(lambda: anon.resource("configmaps").get(
+                    "cluster-info", "kube-public")),
+                "anonymous list pods": _status(lambda: anon.pods.list("default")),
+                "join token create csr": _status(lambda: boot.resource(
+                    "certificatesigningrequests").create(probe_csr)),
+                "join token list pods": _status(lambda: boot.pods.list("default")),
+                "node patch own node": _status(lambda: kcred.nodes.patch(
+                    INIT_NODE, {"metadata": {"labels": {"init.ktpu.io/probe": "1"}}}, "")),
+                "node patch other node": _status(lambda: kcred.nodes.patch(
+                    INIT_OTHER_NODE, {"metadata": {"labels": {"init.ktpu.io/probe": "1"}}}, "")),
+            }
+        finally:
+            for c in (anon, boot, kcred):
+                c.close()
+        want_codes = [200, 403, 200, 403, 200, 403]
+        if list(codes.values()) != want_codes:
+            fail(f"init: the authorizers answered {codes}, want {want_codes} in that order")
+        admin.nodes.delete(INIT_OTHER_NODE, "")
+        csrs.delete("init-probe-csr", "")
+        res["codes"] = codes
+
+        # joins refused: a bad token, a wrong CA pin; neither makes a node
+        joins = {}
+        for what, token, pin in (("bad token", "deadbe.0000000000000000", ca_hash),
+                                 ("wrong ca-cert-hash", join_token, "sha256:" + "0" * 64)):
+            jn = subprocess.run([sys.executable, "-m", "kubernetes1_tpu_torch", "ktpu", "join",
+                                 "--server", server, "--token", token, "--ca-cert-hash", pin,
+                                 "--node-name", "init-intruder", "--dir",
+                                 os.path.join(tmp, "intruder")], cwd=REPO_ROOT, env=env,
+                                capture_output=True, text=True, timeout=CLUSTER_WAIT_S)
+            joins[what] = (jn.returncode, (jn.stdout + jn.stderr).strip().splitlines()[-1:])
+        nodes = sorted(n["metadata"]["name"] for n in admin.nodes.list()[0])
+        if any(code == 0 for code, _ in joins.values()) or nodes != [INIT_NODE]:
+            fail(f"init: ktpu join answered {joins}; the nodes are {nodes}")
+        res["joins"] = joins
+
+        # the MNIST Job through ktpu alone, logs and attach over both TLS hops
+        res.update(mnist_job(ktpu, "init"))
+
+        # the apiserver killed and started again from its manifest: the WAL
+        kept = {("nodes", "", INIT_NODE), ("jobs", "default", CLI_MNIST_JOB),
+                ("clusterroles", "", "system:node-bootstrapper"),
+                ("clusterrolebindings", "", "ktpu:node-bootstrappers"),
+                ("roles", "kube-public", "ktpu:bootstrap-signer-clusterinfo"),
+                ("rolebindings", "kube-public", "ktpu:bootstrap-signer-clusterinfo")}
+
+        def denials() -> dict:
+            """{credential class: requests the apiserver's authorizers refused}
+            off its /metrics."""
+            text = admin.request("GET", "/metrics", raw=True).decode()
+            return {cls: int(n) for cls, n in DENIED.findall(text)}
+
+        def versions() -> dict:
+            return {k: admin.resource(k[0]).get(k[2], k[1])["metadata"]["resourceVersion"]
+                    for k in sorted(kept)}
+
+        held = versions()
+        denied = {"before the restart": denials()}
+        os.killpg(pids["apiserver"], signal.SIGKILL)  # a crash: acked writes must be on disk
+        _wait("the apiserver to exit", lambda: _gone(pids["apiserver"]), 30)
+        wal = os.path.join(d, "store.wal")
+        wal_bytes = os.path.getsize(wal)
+        with open(wal, "rb") as f:
+            wal_records = sum(1 for line in f if line.strip())
+        with open(os.path.join(d, "manifests", "kube-apiserver.json")) as f:
+            command = json.load(f)["spec"]["containers"][0]["command"]
+        if JAX_PACKAGE.search(" ".join(command)):
+            fail(f"init: the apiserver's manifest names the JAX package: {command}")
+        t0 = time.perf_counter()
+        with open(os.path.join(d, "restarted-apiserver.log"), "ab") as log:
+            restarted = subprocess.Popen(command, cwd=REPO_ROOT, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT, start_new_session=True)
+        pids["apiserver"] = restarted.pid
+        with open(os.path.join(d, "pids.json"), "w") as f:
+            json.dump(pids, f)
+        def restarted_healthy() -> bool:
+            if restarted.poll() is not None:
+                fail(f"init: the restarted apiserver exited {restarted.returncode}")
+            return admin.healthz()
+
+        _wait("the restarted apiserver's /healthz", restarted_healthy, 60, 0.02)
+        restart_s = time.perf_counter() - t0
+        back = versions()
+        if back != held:
+            fail(f"init: after the restart the objects read {back}, before it {held}")
+        _wait(f"{INIT_NODE} Ready after the restart", node_ready)
+        res.update(restart_s=restart_s, wal_bytes=wal_bytes, wal_records=wal_records,
+                   kept=len(back))
+        ktpu("delete", "-f", CLI_MNIST_YAML)
+        _wait("the MNIST pod to go", lambda: not ktpu.names(MNIST_SELECTOR))
+
+        # the Llama-3-8B decode Deployment: tokens through port-forward, the card through exec
+        dep = decode_rollout(ktpu, tmp, INIT_DEPLOYMENT)
+        dpod, srv_port = dep["pod"], dep["port"]
+        forward = subprocess.Popen(ktpu.argv("port-forward", dpod, f"0:{srv_port}"),
+                                   cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.DEVNULL, text=True, start_new_session=True)
+        try:
+            m = re.match(r"Forwarding from 127\.0\.0\.1:(\d+) -> (\d+)", forward.stdout.readline())
+            if not m:
+                fail("init: ktpu port-forward printed no forwarding line")
+            fwd = f"http://127.0.0.1:{m.group(1)}"
+            ttft, streamed = _first_token_s(fwd, CLUSTER_PROMPTS[0])
+            got_tokens = [_post(fwd, {"tokens": p, "max_new": SERVE_MAX_NEW})
+                          for p in CLUSTER_PROMPTS]
+        finally:
+            forward.kill()
+            forward.wait()
+            forward.stdout.close()
+        if got_tokens != want_tokens or streamed != want_tokens[0]:
+            fail(f"init: through ktpu port-forward the pod answered {got_tokens} (streamed "
+                 f"{streamed}), the in-process server {want_tokens}")
+        answer = exec_card(ktpu, dpod, uuid, kind, "init")
+        ktpu("delete", "-f", dep["yaml"])
+        _wait("the decode pod to go", lambda: not ktpu.names(f"app={INIT_DEPLOYMENT}")
+              and not _pod_pids(server))
+        res.update(rollout_s=dep["rollout_s"], ttft_s=ttft, tokens=len(got_tokens), exec=answer)
+        # the kubelet's own calls all pass the Node authorizer: its only
+        # refusal is the probe's patch of another Node above
+        denied["after it"] = denials()
+        if denied["before the restart"].get("node") != 1 or denied["after it"].get("node") != 0:
+            fail(f"init: the authorizers refused {denied} requests by credential class (want "
+                 f"node 1, the probe, before the restart and node 0 after)")
+        res["denied"] = denied
+        bad = [a for a in spawned_argvs() if JAX_PACKAGE.search(" ".join(a))]
+        if bad:
+            fail(f"init: processes or manifests name the JAX package: {bad}")
+    except SystemExit:
+        print(f"init: the components' logs:\n{component_logs()}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        if admin is not None:
+            admin.close()
+        t0 = time.perf_counter()
+        for pid in pids.values():
+            try:
+                os.killpg(pid, signal.SIGTERM)
+            except OSError:
+                pass
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline and not all(_gone(p) for p in pids.values()):
+            time.sleep(0.1)
+        stuck = [p for p in pids.values() if not _gone(p)]
+        for pid in stuck:
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        if restarted is not None:
+            restarted.wait(timeout=30)
+        plugin.terminate()
+        plugin.wait(timeout=30)
+        plugin_log.close()
+        sock_left = os.path.exists(sock)
+        if sock_left:
+            os.unlink(sock)
+        down_s = time.perf_counter() - t0
+    survivors = {pid: _describe_pid(pid) for pid in _pod_pids(server)}
+    left = _compute_pids() - before
+    if stuck or survivors or left or not _refused(port):
+        for pid in survivors:
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        fail(f"init: components {stuck} needed SIGKILL, pod processes {survivors} survived, "
+             f"the card holds {sorted(left)}, the apiserver's port "
+             f"{'refuses' if _refused(port) else 'still listens'}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    verbs = {k: [round(x, 3) for x in v] for k, v in sorted(ktpu.seconds.items())}
+    wall_s = time.perf_counter() - t_phase
+    print(f"init: ktpu init exited 0 in {res['init_s']:.2f} s, {INIT_NODE} Ready with "
+          f"{GPU_RESOURCE} {res['cards']} {res['ready_s']:.2f} s after init began; TLS the CA "
+          f"verifies and plain HTTP refused on {res['tls_ports']} (listeners by /proc "
+          f"{res['listeners']}); status codes {json.dumps(res['codes'])}; refused by credential "
+          f"{json.dumps(res['denied'])}; ktpu join refused "
+          f"{json.dumps(res['joins'])}, no node made; the MNIST Job through ktpu --kubeconfig "
+          f"completed in {res['mnist_s']:.2f} s, loss {res['mnist_loss']:.6f} accuracy "
+          f"{res['mnist_acc']:.4f}; the apiserver SIGKILLed and restarted from its manifest to "
+          f"/healthz in {res['restart_s']:.3f} s, its WAL {res['wal_bytes']} B in "
+          f"{res['wal_records']} records, the Node, the Job and 4 RBAC objects back at their resourceVersions; the "
+          f"8B decode pod rolled out {res['rollout_s']:.2f} s after ktpu apply, TTFT "
+          f"{res['ttft_s']:.4f} s through ktpu port-forward, tokens equal the in-process "
+          f"server's ({res['tokens']} prompts); ktpu exec named {res['exec']}; teardown "
+          f"{down_s:.2f} s, the plugin socket {'removed' if sock_left else 'gone with it'}, no "
+          f"survivor; seconds by verb {json.dumps(verbs)}; {wall_s:.1f} s on [{card}]",
+          flush=True)
+    return dict(res, down_s=down_s, verbs=verbs, wall_s=wall_s)
 
 
 def free_memory():
@@ -5603,7 +6059,8 @@ def main():
     native_phase(card, bins)
     cluster = cluster_phase(card, rn, bins)  # last: every kernel is built; this process holds little
     localcluster_phase(card, cluster["advertised"])
-    cli_phase(card, cluster["advertised"])
+    cli = cli_phase(card, cluster["advertised"])
+    init_phase(card, cluster["advertised"], cli["tokens"])
     rows += (bn_rows + bn_split_rows + bert_rows + part_rows + ring_rows + optim_rows
              + mn["rows"])
     paths = {"serving": serve, "train": train, "resnet": rn, "bert": bt, "ring": ring,

@@ -1,15 +1,19 @@
 """The port's component processes behind one entry point:
 
-    python -m kubernetes1_tpu_torch apiserver --port N [--host H]
+    python -m kubernetes1_tpu_torch apiserver --port N [--host H] [--wal F]
+        [--authorization-mode Node,RBAC --tls-cert-file ... (the security flags)]
     python -m kubernetes1_tpu_torch scheduler --server URL [--metrics-port -1]
     python -m kubernetes1_tpu_torch controller-manager --server URL [--metrics-port -1]
     python -m kubernetes1_tpu_torch kubelet --server URL --node-name N [--runtime process|fake]
-        [--plugin-dir D] [--root-dir R]
+        [--plugin-dir D] [--root-dir R] [--tls-cert-file C --tls-key-file K]
     python -m kubernetes1_tpu_torch ktpu [--server URL] <command> ...   (or: cli)
+    python -m kubernetes1_tpu_torch ktpu init --dir D   (then ktpu join on other hosts)
 
 (the JAX package's ``python -m kubernetes1_tpu <component>``, for the
 components the port has; ``ktpu`` is the CLI, ``python -m
-kubernetes1_tpu_torch.cli``).
+kubernetes1_tpu_torch.cli``).  Every component that takes ``--server``
+takes ``--kubeconfig``, ``--token``, ``--ca-file``, ``--client-cert-file``
+and ``--client-key-file`` too.
 """
 
 from __future__ import annotations

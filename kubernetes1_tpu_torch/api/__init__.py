@@ -36,6 +36,10 @@ _REGISTRY = [
     (t.PodMetrics, "podmetrics", True),
     (t.NodeMetrics, "nodemetrics", False),
     (t.PodCustomMetrics, "podcustommetrics", True),
+    (t.Role, "roles", True),
+    (t.ClusterRole, "clusterroles", False),
+    (t.RoleBinding, "rolebindings", True),
+    (t.ClusterRoleBinding, "clusterrolebindings", False),
 ]
 
 for cls, plural, namespaced in _REGISTRY:

@@ -1212,6 +1212,62 @@ class CertificateSigningRequest(KObject):
     )
 
 
+# --------------------------------------------------------------------- rbac
+
+
+@dataclass
+class PolicyRule:
+    """Ref: rbac/v1 PolicyRule.  No api_groups: the flat registry has no
+    group dimension."""
+
+    verbs: List[str] = field(default_factory=list)       # get|list|watch|create|update|patch|delete|*
+    resources: List[str] = field(default_factory=list)   # plural names (or "<plural>/<sub>") or *
+    resource_names: List[str] = field(default_factory=list)
+
+
+@dataclass
+class Subject:
+    kind: str = "User"  # User | Group | ServiceAccount
+    name: str = ""
+    namespace: str = ""
+
+
+@dataclass
+class RoleRef:
+    kind: str = "Role"  # Role | ClusterRole
+    name: str = ""
+
+
+@dataclass
+class Role(KObject):
+    KIND = "Role"
+    API_VERSION = "rbac/v1"
+    rules: List[PolicyRule] = field(default_factory=list)
+
+
+@dataclass
+class ClusterRole(KObject):
+    KIND = "ClusterRole"
+    API_VERSION = "rbac/v1"
+    rules: List[PolicyRule] = field(default_factory=list)
+
+
+@dataclass
+class RoleBinding(KObject):
+    KIND = "RoleBinding"
+    API_VERSION = "rbac/v1"
+    subjects: List[Subject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+
+@dataclass
+class ClusterRoleBinding(KObject):
+    KIND = "ClusterRoleBinding"
+    API_VERSION = "rbac/v1"
+    subjects: List[Subject] = field(default_factory=list)
+    role_ref: RoleRef = field(default_factory=RoleRef)
+
+
 @dataclass
 class ContainerMetrics:
     name: str = ""

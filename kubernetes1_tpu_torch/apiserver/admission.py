@@ -115,6 +115,71 @@ class DefaultTolerationSeconds(AdmissionPlugin):
                     toleration_seconds=DEFAULT_NOT_READY_TOLERATION_SECONDS))
 
 
+class NodeRestriction(AdmissionPlugin):
+    """Limits what a node credential (system:node:<name>) may write
+    (ref: plugin/pkg/admission/noderestriction/admission.go:48,159-164).
+    The NodeAuthorizer alone is not enough: its mirror-pod allowance lets a
+    node create pods, and an unconstrained node-created pod bound to itself
+    would make _pod_references grant the node GET on any secret/configmap/PVC
+    it names — a one-step escalation to all cluster secrets. The reference
+    closes this exact hole by pairing the node authorizer with this plugin."""
+
+    name = "NodeRestriction"
+
+    def admit(self, operation: str, resource: str, obj, old=None, user=None):
+        if user is None or not user.name.startswith("system:node:"):
+            return
+        node_name = user.name[len("system:node:"):]
+        if resource == "nodes":
+            target = obj.metadata.name
+            if target and target != node_name:
+                raise Forbidden(
+                    f"node {node_name!r} may only modify its own Node object"
+                )
+        if resource == "secrets":
+            # a node may publish exactly one secret: its own kubelet token
+            # (the authorizer can't pin the name on CREATE — the URL has
+            # none — so the name check lives here)
+            if (obj.metadata.namespace != "kube-system"
+                    or obj.metadata.name != f"kubelet-token-{node_name}"):
+                raise Forbidden(
+                    f"node {node_name!r} may only write its own kubelet "
+                    f"token secret"
+                )
+        if resource != "pods":
+            return
+        if operation == CREATE:
+            if obj.spec.node_name != node_name:
+                raise Forbidden(
+                    f"node {node_name!r} may only create mirror pods bound to itself"
+                )
+            if obj.metadata.annotations.get(t.STATIC_POD_ANNOTATION) != "true":
+                raise Forbidden(
+                    f"node {node_name!r} may only create mirror (static) pods"
+                )
+            self._check_pod_refs(obj)
+        elif operation == UPDATE and old is not None:
+            if old.spec.node_name != node_name:
+                raise Forbidden(
+                    f"node {node_name!r} may only update pods bound to itself"
+                )
+            # content checks apply to updates too — otherwise create-clean
+            # then PATCH-in-a-secret-volume re-opens the escalation
+            self._check_pod_refs(obj)
+
+    @staticmethod
+    def _check_pod_refs(obj):
+        for vol in obj.spec.volumes:
+            if vol.secret is not None or vol.config_map is not None \
+                    or vol.persistent_volume_claim is not None:
+                raise Forbidden(
+                    "node-written pods may not reference secrets, configmaps "
+                    "or persistentvolumeclaims"
+                )
+        if obj.spec.service_account_name and obj.spec.service_account_name != "default":
+            raise Forbidden("node-written pods may not use a service account")
+
+
 POD_NODE_SELECTOR_ANNOTATION = "scheduler.ktpu.io/node-selector"
 
 

@@ -18,14 +18,27 @@ DELETE, the pod log proxy to the kubelet, the stream proxy of
 ``pods/NAME/exec``, ``attach`` and ``portforward`` (GET or POST with
 ``Upgrade: ktpu-stream``: the client's upgraded connection spliced onto
 the kubelet's, ``utils/streams``), ``/healthz`` (``/readyz``,
-``/livez``), ``/metrics`` and ``/debug/traces``.  Every request is served
-as the cluster admin (anonymous AlwaysAllow), so a
-SelfSubjectAccessReview answers allowed.  Mutating requests past
+``/livez``), ``/metrics`` and ``/debug/traces``.  Mutating requests past
 ``_InflightLimiter.MAX_MUTATING`` in flight are shed with 429 and Retry-After;
 reads never are.  Each watch is served on its handler thread.
 
-Left out, with the JAX flags that reach them (ROADMAP): authentication,
-authorization, audit, TLS, CRDs and APIService proxying, the custom
+Security, as the JAX apiserver's (``auth.py``): each request's user is
+the verified TLS client certificate's subject (CN the name, O the
+groups), else its bearer token's (static, service account, bootstrap),
+else anonymous; a presented bad token is 401.  The
+authorizer chain of ``authorization_mode`` ("AlwaysAllow", or a list of
+"Node", "RBAC", "AlwaysAllow") gates every request but /healthz and
+/metrics, and answers SelfSubjectAccessReviews; system:masters is always
+allowed.  With no security option every request is the admin, as before.
+A ``token`` under AlwaysAllow is the legacy shared-secret mode: the token
+(or a verified client certificate) is required, and is the admin.  With
+``tls_cert_file`` the port speaks HTTPS only, asks for an optional client
+certificate against ``client_ca_file`` (bearer-token clients handshake
+without one), and handshakes in the request's thread; the dial to an
+https kubelet verifies it against the same CA.
+
+Left out, with the JAX flags that reach them (ROADMAP): the OIDC and
+webhook authenticators, audit, CRDs and APIService proxying, the custom
 metrics reads, the bind stream and its binary
 codec, the event-loop watch dispatcher, write coalescing and
 multi-version serving.
@@ -44,14 +57,13 @@ import sys
 import threading
 import time
 import traceback
-from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from ..api import types as t
 from ..machinery.errors import (ApiError, BadRequest, Forbidden, NotFound, TooManyRequests,
-                                TooOldResourceVersion)
+                                TooOldResourceVersion, Unauthorized)
 from ..machinery.scheme import global_scheme
 from ..machinery.watch import ERROR
 from ..storage import Cacher, Store
@@ -59,8 +71,13 @@ from ..utils import spans as spanlib
 from ..utils import streams
 from .admission import (CREATE, UPDATE, AdmissionChain, DefaultTolerationSeconds,
                         EventRateLimit, ExtendedResourceToleration, GangDefaulter,
-                        IdentityStamp, LimitRanger, NamespaceAutoProvision, PodNodeSelector, PriorityResolver, ResourceQuotaAdmission, ResourceV2,
+                        IdentityStamp, LimitRanger, NamespaceAutoProvision, NodeRestriction,
+                        PodNodeSelector, PriorityResolver, ResourceQuotaAdmission, ResourceV2,
                         ServiceAccountAdmission, compute_namespace_usage)
+from .auth import (ANONYMOUS, GROUP_AUTHENTICATED, GROUP_MASTERS, AlwaysAllowAuthorizer,
+                   AuthenticatorChain, AuthorizerChain, BootstrapTokenAuthenticator,
+                   NodeAuthorizer, RBACAuthorizer,
+                   ServiceAccountAuthenticator, StaticTokenAuthenticator, UserInfo, verb_for)
 from .registry import Registry
 
 WATCH_HEARTBEAT_SECONDS = 5.0
@@ -68,15 +85,21 @@ WATCH_HEARTBEAT_SECONDS = 5.0
 STREAM_SUBRESOURCES = {"exec": "exec", "attach": "attach", "portforward": "portForward"}
 
 
-@dataclass
-class UserInfo:
-    name: str = "system:anonymous"
-    groups: List[str] = field(default_factory=list)
+# The user of a request without a credential when the apiserver has no
+# security option (AlwaysAllow, no token), as the JAX apiserver serves it.
+ADMIN = UserInfo(name="system:admin", groups=[GROUP_MASTERS])
+
+# the classes of credential /metrics counts refusals by: no user's name
+# reaches that unauthenticated endpoint
+DENIED_CLASSES = ("anonymous", "bootstrap", "node", "serviceaccount", "other")
+_DENIED_PREFIXES = (("system:anonymous", "anonymous"), ("system:bootstrap:", "bootstrap"),
+                    ("system:node:", "node"), ("system:serviceaccount:", "serviceaccount"))
 
 
-# Every request's user: with no authentication, the JAX apiserver serves
-# an unauthenticated request under AlwaysAllow as the cluster admin.
-ADMIN = UserInfo(name="system:admin", groups=["system:masters"])
+def credential_class(user: UserInfo) -> str:
+    """The DENIED_CLASSES entry of a user, by the prefix of its name."""
+    return next((cls for prefix, cls in _DENIED_PREFIXES if user.name.startswith(prefix)),
+                "other")
 
 
 def _encode_chunks(frames) -> bytes:
@@ -348,6 +371,56 @@ class _Handler(BaseHTTPRequestHandler):
                              f"(want {want_kind!r})")
         return obj
 
+    # ------------------------------------------------------------------ auth
+
+    def _authn(self) -> UserInfo:
+        """The request's user (ref: the authn filter, config.go:530): the
+        verified client certificate first, then the bearer token, else
+        anonymous (the admin when the server has no security option).
+        Raises Unauthorized for a presented but invalid token."""
+        x509_user = self._peer_cert_user()
+        if x509_user is not None:
+            return x509_user
+        header = self.headers.get("Authorization", "")
+        if not header.startswith("Bearer "):
+            if self.master.token or self.master.authorization_mode != "AlwaysAllow":
+                return ANONYMOUS
+            return ADMIN
+        user = self.master.authenticators.authenticate(header[len("Bearer "):])
+        if user is None:
+            raise Unauthorized("invalid bearer token")
+        return user
+
+    def _peer_cert_user(self) -> Optional[UserInfo]:
+        """The user of the verified TLS client certificate, if any."""
+        getpeercert = getattr(self.connection, "getpeercert", None)
+        if getpeercert is None:
+            return None
+        try:
+            cert = getpeercert()
+        except (ValueError, OSError):
+            return None
+        if not cert:
+            return None  # no certificate presented: the token path
+        name, orgs = "", []
+        for rdn in cert.get("subject", ()):
+            for key, value in rdn:
+                if key == "commonName":
+                    name = value
+                elif key == "organizationName":
+                    orgs.append(value)
+        if not name:
+            return None
+        return UserInfo(name=name, groups=orgs + [GROUP_AUTHENTICATED])
+
+    def _authz(self, user: UserInfo, verb: str, resource: str, ns: str, name: str,
+               sub: str = ""):
+        if not self.master.authorizer.authorize(user, verb, resource, ns, name, sub=sub):
+            self.master.note_denied(user)
+            raise Forbidden(f'user "{user.name}" cannot {verb} {resource}'
+                            + (f' "{name}"' if name else "")
+                            + (f' in namespace "{ns}"' if ns else ""))
+
     # -------------------------------------------------------------- dispatch
 
     def _route(self):
@@ -410,26 +483,51 @@ class _Handler(BaseHTTPRequestHandler):
             if parts and parts[0] in ("healthz", "readyz", "livez"):
                 self._send_json(200, {"status": "ok"})
                 return
+            user = self._authn()
+            # the legacy shared-token mode: the token (or a verified client
+            # certificate, an equally strong credential) is the cluster
+            if self.master.token and self.master.authorization_mode == "AlwaysAllow":
+                if self._peer_cert_user() is None:
+                    if self.headers.get("Authorization", "") != f"Bearer {self.master.token}":
+                        raise Unauthorized("invalid bearer token")
+                    user = ADMIN
+            self._user = user
+            if method == "POST" and parts == ["apis", "authorization.k8s.io", "v1",
+                                              "selfsubjectaccessreviews"]:
+                # SelfSubjectAccessReview (`ktpu auth can-i`): what the
+                # caller may do, by the server's own authorizer chain
+                attrs = (self._read_body().get("spec") or {}).get("resourceAttributes") or {}
+                allowed = self.master.authorizer.authorize(
+                    user, attrs.get("verb", "get"), attrs.get("resource", ""),
+                    attrs.get("namespace", ""), attrs.get("name", ""),
+                    sub=attrs.get("subresource", ""))
+                self._send_json(201, {"kind": "SelfSubjectAccessReview",
+                                      "apiVersion": "authorization.k8s.io/v1",
+                                      "status": {"allowed": bool(allowed)}})
+                return
             if parts == ["metrics"]:
                 self._send_raw(200, self.master.render_metrics().encode(),
                                ctype="text/plain; version=0.0.4")
                 return
             if parts == ["debug", "traces"]:
+                # authorized as a cluster-scoped read, as every resource is
+                self._authz(user, "get", "debug", "", "", "")
                 self._send_raw(200, self.master.spans.to_json(q.get("trace", "")))
-                return
-            if method == "POST" and parts == ["apis", "authorization.k8s.io", "v1",
-                                              "selfsubjectaccessreviews"]:
-                # SelfSubjectAccessReview (`ktpu auth can-i`): every request
-                # is served as the admin, so the answer is the JAX
-                # apiserver's under its default AlwaysAllow chain
-                self._read_body()
-                self._send_json(201, {"kind": "SelfSubjectAccessReview",
-                                      "apiVersion": "authorization.k8s.io/v1",
-                                      "status": {"allowed": True}})
                 return
             resource, ns, name, sub = self._parse_resource_path(parts)
             if resource not in self.master.scheme.by_resource:
                 raise NotFound(f"resource {resource!r} not registered")
+            if method == "POST" and resource == "pods" and name == "bindings:batch" \
+                    and not sub:
+                # N binding creates: the pods/binding permission, as one
+                self._authz(user, "create", resource, ns, "", "binding")
+            elif method == "POST" and resource == "pods" and name == "delete:batch" \
+                    and not sub:
+                # N deletes: the delete permission, whatever the transport
+                self._authz(user, "delete", resource, ns, "", "")
+            else:
+                self._authz(user, verb_for(method, name, q.get("watch") in ("1", "true")),
+                            resource, ns, name, sub)
             getattr(self, f"_do_{method.lower()}")(resource, ns, name, sub, q)
             self.master.metrics.observe(method, resource, time.monotonic() - start)
         except ApiError as e:
@@ -586,12 +684,8 @@ class _Handler(BaseHTTPRequestHandler):
         if q.get("tailLines"):
             path += f"?tail={int(q['tailLines'])}"
         if kubelet.scheme == "https":
-            # no cluster CA here to verify the kubelet's serving cert with
-            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
-            ctx.check_hostname = False
-            ctx.verify_mode = ssl.CERT_NONE
             conn = http.client.HTTPSConnection(kubelet.hostname, kubelet.port, timeout=30,
-                                               context=ctx)
+                                               context=self.master.kubelet_ssl_context())
         else:
             conn = http.client.HTTPConnection(kubelet.hostname, kubelet.port, timeout=30)
         try:
@@ -621,8 +715,10 @@ class _Handler(BaseHTTPRequestHandler):
         if parsed.query:
             kpath += f"?{parsed.query}"
         try:
-            upstream = streams.upgrade_request(kubelet.hostname, kubelet.port, kpath,
-                                               {"Authorization": f"Bearer {token}"})
+            upstream = streams.upgrade_request(
+                kubelet.hostname, kubelet.port, kpath, {"Authorization": f"Bearer {token}"},
+                ssl_context=(self.master.kubelet_ssl_context()
+                             if kubelet.scheme == "https" else None))
         except OSError as e:  # UpgradeRefused is a ConnectionError
             raise BadRequest(f"kubelet connection failed: {e}") from None
         client_sock = streams.accept_upgrade(self)  # the header was checked
@@ -765,7 +861,7 @@ class _Handler(BaseHTTPRequestHandler):
 
         def admit_and_create():
             return reg.create(resource, ns, master.admission.admit(CREATE, resource, obj,
-                                                                   user=ADMIN))
+                                                                   user=self._user))
 
         self._send_obj(201, self._with_quota_serialization(
             resource, ns or obj.metadata.namespace, admit_and_create))
@@ -784,7 +880,7 @@ class _Handler(BaseHTTPRequestHandler):
             old = reg.get(resource, ns, name)
 
             def admit_and_update():
-                admitted = master.admission.admit(UPDATE, resource, obj, old, user=ADMIN)
+                admitted = master.admission.admit(UPDATE, resource, obj, old, user=self._user)
                 return reg.update(resource, ns, name, admitted)
 
             updated = self._with_quota_serialization(
@@ -801,7 +897,7 @@ class _Handler(BaseHTTPRequestHandler):
 
         def admit(merged, cur):
             # the merged object goes through the chain as an update does
-            return master.admission.admit(UPDATE, resource, merged, cur, user=ADMIN)
+            return master.admission.admit(UPDATE, resource, merged, cur, user=self._user)
 
         self._send_obj(200, self._with_quota_serialization(
             resource, ns, lambda: master.registry.patch(resource, ns, name, patch, admit=admit)))
@@ -820,8 +916,9 @@ class _ApiHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def handle_error(self, request, client_address):
-        # a peer gone mid-request is routine: no stack trace for it
-        if isinstance(sys.exc_info()[1], (ConnectionError, TimeoutError)):
+        # a peer gone mid-request, or one that failed the TLS handshake (a
+        # plain-HTTP client at the HTTPS port), is routine: no stack trace
+        if isinstance(sys.exc_info()[1], (ConnectionError, TimeoutError, ssl.SSLError)):
             return
         super().handle_error(request, client_address)
 
@@ -830,9 +927,14 @@ class Master:
     """The apiserver: the store, its watch cache, the registry, the
     admission chain and the HTTP front end, in this process."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 wal_path: Optional[str] = None, token: str = "",
+                 authorization_mode: str = "AlwaysAllow",
+                 static_tokens: Optional[Dict[str, Tuple[str, List[str]]]] = None,
+                 sa_signing_key: str = "ktpu-sa-key",
+                 tls_cert_file: str = "", tls_key_file: str = "", client_ca_file: str = ""):
         self.scheme = global_scheme
-        self.store = Store(self.scheme)
+        self.store = Store(self.scheme, wal_path=wal_path)
         self.registry = Registry(self.store, self.scheme)
         self.cacher = Cacher(self.store).start()
         self.inflight = _InflightLimiter()
@@ -840,8 +942,34 @@ class Master:
         self.spans = spanlib.SpanCollector("apiserver")
         self.quota_lock = threading.Lock()
         self.stopping = threading.Event()
+        self._denied_lock = threading.Lock()
+        # credential class (DENIED_CLASSES) -> requests the authorizers refused
+        self._denied: Dict[str, int] = dict.fromkeys(DENIED_CLASSES, 0)
+        self.token = token
+        self.authorization_mode = authorization_mode
+        tokens = dict(static_tokens or {})
+        if token:
+            tokens[token] = ("system:admin", [GROUP_MASTERS])
+        self.authenticators = AuthenticatorChain([
+            StaticTokenAuthenticator(tokens),
+            ServiceAccountAuthenticator(sa_signing_key,
+                                        get_serviceaccount=self._get_serviceaccount),
+            BootstrapTokenAuthenticator(self._get_secret_or_none),
+        ])
+        authorizers = []
+        for mode in authorization_mode.split(","):
+            mode = mode.strip()
+            if mode == "Node":
+                authorizers.append(NodeAuthorizer(self._get_pod_or_none, self._list_all_pods,
+                                                  get_serviceaccount=self._get_serviceaccount))
+            elif mode == "RBAC":
+                authorizers.append(RBACAuthorizer(self._list_for_auth))
+            elif mode == "AlwaysAllow":
+                authorizers.append(AlwaysAllowAuthorizer())
+        self.authorizer = AuthorizerChain(authorizers)
         self.admission = AdmissionChain([
             NamespaceAutoProvision(self.registry.ensure_namespace),
+            NodeRestriction(),  # before ServiceAccount defaulting: the raw spec
             PodNodeSelector(self._get_namespace_or_none),
             PriorityResolver(self._get_priority_class),
             ExtendedResourceToleration(),  # before ResourceV2: sees the raw limits too
@@ -857,8 +985,57 @@ class Master:
         self._httpd = _ApiHTTPServer((host, port), _Handler)
         self._httpd.master = self  # type: ignore[attr-defined]
         self.host, self.port = self._httpd.server_address[:2]
-        self.url = f"http://{self.host}:{self.port}"
+        self.client_ca_file = client_ca_file
+        self._kubelet_ctx: Optional[ssl.SSLContext] = None
+        if tls_cert_file:
+            # HTTPS only: no plaintext listener beside it (ref apiserver/pkg/
+            # server/serve.go); the handshake runs on the request's thread
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(certfile=tls_cert_file, keyfile=tls_key_file or None)
+            if client_ca_file:
+                ctx.load_verify_locations(cafile=client_ca_file)
+                ctx.verify_mode = ssl.CERT_OPTIONAL
+            self._httpd.socket = ctx.wrap_socket(self._httpd.socket, server_side=True,
+                                                 do_handshake_on_connect=False)
+            self.url = f"https://{self.host}:{self.port}"
+        else:
+            self.url = f"http://{self.host}:{self.port}"
         self._thread: Optional[threading.Thread] = None
+
+    def kubelet_ssl_context(self) -> ssl.SSLContext:
+        """The dial to an https kubelet: its serving certificate verified
+        against the cluster CA (the CSR signer issued it), unverified only
+        when this apiserver has no CA.  Built once, shared."""
+        if self._kubelet_ctx is None:
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+            if self.client_ca_file:
+                ctx.load_verify_locations(cafile=self.client_ca_file)
+            else:
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+            self._kubelet_ctx = ctx
+        return self._kubelet_ctx
+
+    def _get_serviceaccount(self, namespace: str, name: str):
+        if not namespace or not name:
+            return None
+        return self.store.get_or_none(self.registry.key("serviceaccounts", namespace, name))
+
+    def _get_secret_or_none(self, namespace: str, name: str):
+        if not namespace or not name:
+            return None
+        return self.store.get_or_none(self.registry.key("secrets", namespace, name))
+
+    def _get_pod_or_none(self, namespace: str, name: str):
+        if not namespace or not name:
+            return None
+        return self.store.get_or_none(self.registry.key("pods", namespace, name))
+
+    def _list_all_pods(self):
+        return self.store.list(self.registry.prefix("pods"))[0]
+
+    def _list_for_auth(self, resource: str, namespace: str):
+        return self.store.list(self.registry.prefix(resource, namespace))[0]
 
     def _get_priority_class(self, name: str):
         return self.store.get_or_none(self.registry.key("priorityclasses", "", name))
@@ -879,11 +1056,18 @@ class Master:
             lambda resource, ns: self.store.list(self.registry.prefix(resource, ns))[0],
             namespace)
 
+    def note_denied(self, user: UserInfo):
+        with self._denied_lock:
+            self._denied[credential_class(user)] += 1
+
     def render_metrics(self) -> str:
         """The /metrics text: request counts and duration sums by verb and
         resource, the in-flight gauges, the shed and the watch-eviction
-        counters."""
+        counters, and the requests the authorizers refused by credential
+        class (the JAX apiserver counts none)."""
         inflight = self.inflight
+        with self._denied_lock:
+            denied = [(cls, self._denied[cls]) for cls in DENIED_CLASSES]
         return self.metrics.render() + "\n".join([
             "# TYPE ktpu_apiserver_inflight gauge",
             *(f'ktpu_apiserver_inflight{{verb="{cls}"}} {inflight.inflight(cls)}'
@@ -893,6 +1077,9 @@ class Master:
             "# TYPE ktpu_watch_slow_consumer_evictions_total counter",
             "ktpu_watch_slow_consumer_evictions_total "
             f"{self.cacher.watch_evictions + self.store.watch_evictions}",
+            "# TYPE ktpu_apiserver_authz_denied_total counter",
+            *(f'ktpu_apiserver_authz_denied_total{{credential="{cls}"}} {n}'
+              for cls, n in denied),
         ]) + "\n"
 
     def start(self) -> "Master":

@@ -4,19 +4,20 @@ the JAX package's ``cli/__init__.py``, over the port's typed clientset.
 
 Usage: python -m kubernetes1_tpu_torch ktpu [--server URL] <command> ...
    or: python -m kubernetes1_tpu_torch.cli [--server URL] <command> ...
+       ... --kubeconfig admin.conf <command>   ($KTPU_KUBECONFIG; or --token,
+           --ca-file, --client-cert-file, --client-key-file)
 
 Commands: get, describe, apply (3-way), create, delete, scale, cordon,
 uncordon, drain, taint, expose, cp, auth can-i, explain, top, rollout,
 logs, exec, attach, port-forward, patch, label, annotate, edit, wait,
-api-resources, version, cluster-up.
+api-resources, version, cluster-up, init, join.
 
 Its TPU seam is ported: ``top`` counts ``nvidia.com/gpu`` cards, and
 ``cluster-up`` starts the port's ``LocalCluster`` (``--gpus-per-node``;
 ``--real-gpu`` puts node 0 on the machine's cards and fails without one).
-Left out, as the port's apiserver serves every request as the admin over
-plain HTTP (ROADMAP item 18): ``init`` and ``join``, the client's
-``--kubeconfig``, ``--token``, ``--ca-file``, ``--client-cert-file`` and
-``--client-key-file``, and the bearer header on the streams.
+``init`` and ``join`` (``cli/bootstrap.py``) bring up a cluster of the
+port's components over TLS and add hosts to it; exec, attach and
+port-forward ride the client's TLS context and bearer token.
 
 Nothing on the path of a verb imports torch: ``cluster-up --real-gpu``
 loads only what the device plugin's discovery needs.
@@ -37,6 +38,7 @@ import yaml
 from .. import GPU_RESOURCE
 from ..api import types as t
 from ..client.clientset import Clientset
+from ..deviceplugin.api import DEFAULT_PLUGIN_DIR
 from ..machinery.errors import ApiError, NotFound, TooManyRequests
 from ..machinery.scheme import _camel, global_scheme
 from ..utils import streams
@@ -771,9 +773,8 @@ class CLI:
         if not pod.spec.node_name:
             raise SystemExit("error: pod not scheduled yet")
         params = [("container", args.container or pod.spec.containers[0].name)]
-        sock = streams.upgrade_request(
-            self.cs.client.host, self.cs.client.port,
-            f"/api/v1/namespaces/{self.ns}/pods/{args.pod}/attach?" + urlencode(params), {})
+        sock = self._upgrade(
+            f"/api/v1/namespaces/{self.ns}/pods/{args.pod}/attach?" + urlencode(params))
         code = self._pump_stream(sock)
         if code:
             raise SystemExit(code)
@@ -793,6 +794,14 @@ class CLI:
             raw=True)
         self.out.write(data.decode(errors="replace"))
 
+    def _upgrade(self, path: str):
+        """The upgraded stream of an apiserver subresource, over the
+        client's TLS context and with its bearer token."""
+        client = self.cs.client
+        headers = {"Authorization": f"Bearer {client.token}"} if client.token else {}
+        return streams.upgrade_request(client.host, client.port, path, headers,
+                                       ssl_context=client.ssl_context)
+
     def _exec_sock(self, pod_name: str, command, container: str = "",
                    stdin: bool = False, tty: bool = False):
         """Dial the pods/exec subresource and return the upgraded stream
@@ -808,9 +817,8 @@ class CLI:
             params.append(("tty", "1"))
         if stdin:
             params.append(("stdin", "1"))
-        return streams.upgrade_request(
-            self.cs.client.host, self.cs.client.port,
-            f"/api/v1/namespaces/{self.ns}/pods/{pod_name}/exec?{urlencode(params)}", {})
+        return self._upgrade(
+            f"/api/v1/namespaces/{self.ns}/pods/{pod_name}/exec?{urlencode(params)}")
 
     def exec_(self, args):
         """Streaming exec via the apiserver pods/exec subresource —
@@ -919,10 +927,8 @@ class CLI:
 
         def serve(conn):
             try:
-                upstream = streams.upgrade_request(
-                    self.cs.client.host, self.cs.client.port,
-                    f"/api/v1/namespaces/{self.ns}/pods/{args.pod}/portForward?port={remote}",
-                    {})
+                upstream = self._upgrade(
+                    f"/api/v1/namespaces/{self.ns}/pods/{args.pod}/portForward?port={remote}")
             except OSError:  # UpgradeRefused is a ConnectionError
                 conn.close()
                 return
@@ -990,6 +996,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--server", "-s", default=None,
                    help=f"apiserver URL (default $KTPU_SERVER or {DEFAULT_SERVER})")
     p.add_argument("--namespace", "-n", default="default")
+    p.add_argument("--kubeconfig", default=None,
+                   help="ktpu config JSON (default $KTPU_KUBECONFIG); "
+                        "`ktpu init` writes admin.conf in this format")
+    p.add_argument("--token", default="", help="bearer token")
+    p.add_argument("--ca-file", default="", help="CA to verify the apiserver")
+    p.add_argument("--client-cert-file", default="", help="x509 client cert")
+    p.add_argument("--client-key-file", default="")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("get")
@@ -1123,6 +1136,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="FakeRuntime nodes (default: real process runtime)")
     cu.add_argument("--real-gpu", action="store_true",
                     help="node 0 advertises the machine's real cards (fails without one)")
+
+    ini = sub.add_parser("init", help="bootstrap a control-plane host (kubeadm init)")
+    ini.add_argument("--dir", default=os.path.expanduser("~/.ktpu"),
+                     help="cluster state dir (keys, manifests, logs)")
+    ini.add_argument("--port", type=int, default=6443)
+    ini.add_argument("--advertise-address", default="127.0.0.1")
+    ini.add_argument("--node-name", default=os.uname().nodename)
+    ini.add_argument("--token-ttl", type=int, default=24 * 3600,
+                     help="join-token lifetime in seconds (kubeadm: 24h)")
+    ini.add_argument("--plugin-dir", default=DEFAULT_PLUGIN_DIR,
+                     help="the device-plugin directory of this host's kubelet")
+
+    jn = sub.add_parser("join", help="join this host to a cluster (kubeadm join)")
+    jn.add_argument("--server", required=True)
+    jn.add_argument("--token", required=True, help="join token from `ktpu init`")
+    jn.add_argument("--ca-cert-hash", default="",
+                    help="sha256:<hex> CA pin from `ktpu init` (omitting it skips "
+                         "the CA's verification, loudly)")
+    jn.add_argument("--node-name", default=os.uname().nodename)
+    jn.add_argument("--dir", default=os.path.expanduser("~/.ktpu"))
+    jn.add_argument("--plugin-dir", default=DEFAULT_PLUGIN_DIR,
+                    help="the device-plugin directory of this host's kubelet")
     return p
 
 
@@ -1161,8 +1196,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if args.cmd == "cluster-up":
         return cluster_up(args)
+    if args.cmd in ("init", "join"):
+        from . import bootstrap
+
+        return (bootstrap.init if args.cmd == "init" else bootstrap.join)(args)
+    kubeconfig = args.kubeconfig or os.environ.get("KTPU_KUBECONFIG", "")
     server = args.server or os.environ.get("KTPU_SERVER", DEFAULT_SERVER)
-    cli = CLI(server, args.namespace)
+    if kubeconfig:
+        cs = Clientset.from_config(kubeconfig)
+    else:
+        cs = Clientset(server, token=args.token, ca_file=args.ca_file,
+                       cert_file=args.client_cert_file, key_file=args.client_key_file)
+    cli = CLI(cs.client.url, args.namespace, clientset=cs)
     try:
         dispatch(cli, args)
         return 0

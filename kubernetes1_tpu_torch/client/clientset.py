@@ -21,6 +21,8 @@ typed objects.  The JAX clientset's persistent bind stream and its
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import api  # registers the API types with the scheme
@@ -32,12 +34,13 @@ from .rest import Client, ResourceClient
 
 
 # The resources with a typed client: those the port's scheduler,
-# controller manager and kubelet read or write.
+# controller manager, kubelet and ``ktpu init`` read or write.
 TYPED = ("pods", "events", "nodes", "namespaces", "jobs", "replicasets", "deployments",
          "daemonsets", "statefulsets", "cronjobs", "services", "endpoints",
          "poddisruptionbudgets", "serviceaccounts", "secrets", "configmaps",
          "persistentvolumeclaims", "persistentvolumes", "podmetrics", "nodemetrics",
-         "podcustommetrics")
+         "podcustommetrics", "certificatesigningrequests", "roles", "clusterroles",
+         "rolebindings", "clusterrolebindings")
 
 
 class TypedResource:
@@ -79,11 +82,28 @@ class TypedResource:
 
 
 class Clientset:
-    def __init__(self, url: str):
-        self.client = Client(url)
+    def __init__(self, url: str, token: str = "", ca_file: str = "", cert_file: str = "",
+                 key_file: str = "", insecure: bool = False):
+        self.client = Client(url, token=token, ca_file=ca_file, cert_file=cert_file,
+                             key_file=key_file, insecure=insecure)
         self._typed = {plural: TypedResource(self.client.resource(plural)) for plural in TYPED}
         for plural, typed in self._typed.items():
             setattr(self, plural, typed)
+
+    @classmethod
+    def from_config(cls, path: str) -> "Clientset":
+        """From a ktpu config file (the kubeconfig that ``ktpu init`` and
+        ``join`` write): JSON ``{"server", "token"?, "ca"?, "cert"?,
+        "key"?}``, the paths relative to the file's directory."""
+        with open(path) as f:
+            cfg = json.load(f)
+        base = os.path.dirname(os.path.abspath(path))
+
+        def rel(p: str) -> str:
+            return p if not p or os.path.isabs(p) else os.path.join(base, p)
+
+        return cls(cfg["server"], token=cfg.get("token", ""), ca_file=rel(cfg.get("ca", "")),
+                   cert_file=rel(cfg.get("cert", "")), key_file=rel(cfg.get("key", "")))
 
     def resource(self, plural: str) -> TypedResource:
         """The typed verbs of any resource the client knows (the CLI's

@@ -9,6 +9,13 @@ Each thread keeps one keep-alive connection; a watch gets a connection of
 its own, whose line-delimited ``{"type", "object"}`` frames it yields,
 skipping the blank heartbeat lines.
 
+An ``https://`` URL dials TLS: the server is verified against
+``ca_file`` (the system's CAs without one), ``cert_file``/``key_file``
+present an x509 client certificate (CN the user, O the groups), and
+``insecure`` skips the server's verification, for the join-time discovery
+of the cluster CA only.  A ``token`` rides every request and watch as a
+bearer header.
+
 Only the verbs and resources the port calls are here: ``create``,
 ``get``, ``list``, ``update``, ``update_status`` (the status
 subresource), ``patch``, ``delete`` and ``watch`` on the resources of
@@ -24,6 +31,7 @@ import http.client
 import json
 import select
 import socket
+import ssl
 import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 from urllib.parse import urlencode, urlparse
@@ -66,15 +74,40 @@ RESOURCES = {
     "storageclasses": ("/api/v1", "StorageClass", "storage.k8s.io/v1"),
     "certificatesigningrequests": ("/apis/certificates/v1", "CertificateSigningRequest",
                                    "certificates/v1"),
+    "roles": ("/apis/rbac/v1", "Role", "rbac/v1"),
+    "clusterroles": ("/apis/rbac/v1", "ClusterRole", "rbac/v1"),
+    "rolebindings": ("/apis/rbac/v1", "RoleBinding", "rbac/v1"),
+    "clusterrolebindings": ("/apis/rbac/v1", "ClusterRoleBinding", "rbac/v1"),
 }
 CLUSTER_SCOPED = frozenset({"nodes", "namespaces", "persistentvolumes", "nodemetrics",
-                            "priorityclasses", "storageclasses", "certificatesigningrequests"})
+                            "priorityclasses", "storageclasses", "certificatesigningrequests",
+                            "clusterroles", "clusterrolebindings"})
 # A GET is retried over this many connection failures; a write only when it
 # failed before it was sent (the connect refused or reset), since a write
 # whose answer was lost may have been applied.  An idle keep-alive socket
 # that the server has closed is dropped before a request goes out on it.
 GET_ATTEMPTS = 4
 WRITE_ATTEMPTS = 2
+
+
+def client_ssl_context(ca_file: str = "", cert_file: str = "", key_file: str = "",
+                       insecure: bool = False) -> ssl.SSLContext:
+    """The TLS context of a client of the cluster: the cluster CA verifies
+    the server, and a client certificate, when given, is the x509
+    credential (CN=user, O=groups).  No ``ca_file`` is not an opt-out:
+    ``insecure`` is (join-time discovery dials unverified once, pins the
+    CA's hash, then reconnects verified)."""
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    if insecure:
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+    elif ca_file:
+        ctx.load_verify_locations(cafile=ca_file)
+    else:
+        ctx.load_default_certs(ssl.Purpose.SERVER_AUTH)
+    if cert_file:
+        ctx.load_cert_chain(certfile=cert_file, keyfile=key_file or None)
+    return ctx
 
 
 def _raise_transport(method: str, path: str, exc: BaseException):
@@ -191,13 +224,19 @@ class ResourceClient:
 
 
 class Client:
-    """The apiserver at ``url`` (``http://host:port``)."""
+    """The apiserver at ``url`` (``http://host:port`` or ``https://...``)."""
 
-    def __init__(self, url: str, timeout: float = 30.0):
+    def __init__(self, url: str, timeout: float = 30.0, token: str = "",
+                 ca_file: str = "", cert_file: str = "", key_file: str = "",
+                 insecure: bool = False):
         self.url = url.rstrip("/")
         p = urlparse(self.url)
-        self.host, self.port = p.hostname or "127.0.0.1", p.port or 80
+        self.tls = p.scheme == "https"
+        self.host, self.port = p.hostname or "127.0.0.1", p.port or (443 if self.tls else 80)
         self.timeout = timeout
+        self.token = token
+        self.ssl_context: Optional[ssl.SSLContext] = (
+            client_ssl_context(ca_file, cert_file, key_file, insecure) if self.tls else None)
         self._local = threading.local()
         self._resources = {plural: ResourceClient(self, plural) for plural in RESOURCES}
         self.pods = self._resources["pods"]
@@ -215,7 +254,11 @@ class Client:
     # ------------------------------------------------------------ plumbing
 
     def _connect(self, timeout: Optional[float]) -> http.client.HTTPConnection:
-        conn = http.client.HTTPConnection(self.host, self.port, timeout=timeout)
+        if self.tls:
+            conn = http.client.HTTPSConnection(self.host, self.port, timeout=timeout,
+                                               context=self.ssl_context)
+        else:
+            conn = http.client.HTTPConnection(self.host, self.port, timeout=timeout)
         conn.connect()
         # the body goes out in a second send: without NODELAY, Nagle holds it
         # behind the server's delayed ACK
@@ -241,6 +284,13 @@ class Client:
             conn = self._local.conn = self._connect(self.timeout)
         return conn
 
+    def auth_headers(self) -> Dict[str, str]:
+        """Accept JSON, and the bearer token when the client holds one."""
+        h = {"Accept": "application/json"}
+        if self.token:
+            h["Authorization"] = f"Bearer {self.token}"
+        return h
+
     @staticmethod
     def _full(path: str, params: Optional[Dict[str, str]]) -> str:
         params = {k: v for k, v in (params or {}).items() if v != ""}
@@ -255,7 +305,7 @@ class Client:
                 conn = self._conn()
                 conn.request(method, path, body=payload,
                              headers={"Content-Type": "application/json",
-                                      "Accept": "application/json",
+                                      **self.auth_headers(),
                                       spans.HEADER: spans.inject_header()})
                 sent = True
                 resp = conn.getresponse()
@@ -284,7 +334,7 @@ class Client:
         full = self._full(path, {**(params or {}), "watch": "true"})
         conn = self._connect(None)
         try:
-            conn.request("GET", full, headers={"Accept": "application/json"})
+            conn.request("GET", full, headers=self.auth_headers())
             resp = conn.getresponse()
         except (http.client.HTTPException, OSError) as e:
             conn.close()

@@ -5,10 +5,11 @@ Job (Indexed and gang Jobs, whose pods carry the ``gpu.ktpu.io`` rank
 stamps), ReplicaSet (with creation and deletion expectations and the
 reference's scale-down order), Deployment, Endpoints, Namespace, the
 garbage collector, ServiceAccount tokens, PodDisruptionBudget status, pod
-GC, TTL-after-finished and node lifecycle.  Run them as ``python -m
+GC, TTL-after-finished, the CSR approver and signer, and node lifecycle.  Run them as ``python -m
 kubernetes1_tpu_torch controller-manager --server URL``.
 """
 
+from .certificates import CertificateController  # noqa: F401
 from .deployment import DeploymentController  # noqa: F401
 from .disruption import DisruptionController  # noqa: F401
 from .endpoints import EndpointsController  # noqa: F401

@@ -1,6 +1,13 @@
 """The controller manager process (ref: cmd/kube-controller-manager):
 
     python -m kubernetes1_tpu_torch controller-manager --server http://127.0.0.1:8001
+    python -m kubernetes1_tpu_torch controller-manager --kubeconfig controller-manager.conf \
+        --ca-key-file pki/ca.key --ca-cert-file pki/ca.crt --sa-key-file pki/sa.key
+
+(``--token``, ``--ca-file``, ``--client-cert-file`` and
+``--client-key-file`` as every component takes them; with the cluster
+CA's certificate and key it runs the CSR signer, which issues x509
+certificates).
 
 It runs the port's control loops (``manager.ControllerManager``), serves
 /metrics and /healthz on ``--metrics-port`` (-1: none; 0: a free port,
@@ -14,21 +21,12 @@ import argparse
 import signal
 import threading
 
-from ..client.clientset import Clientset
 from ..utils import retry as _retry
 from ..utils.metrics import MetricsServer, Registry
-from ..utils.procutil import bounded_exit
+from ..utils.procutil import add_client_args, bounded_exit, clientset_from_args, read_key
 from . import endpoints as _eps
 from . import job as _job
 from .manager import ControllerManager
-
-
-def read_key(path: str, default: str) -> str:
-    """A key file's content when a path is given, else the default."""
-    if not path:
-        return default
-    with open(path) as f:
-        return f.read().strip()
 
 
 def registry(cm: ControllerManager) -> Registry:
@@ -57,14 +55,22 @@ def main():
                          "per pod event); >0 batches a service's churn into one write per "
                          "window")
     ap.add_argument("--sa-key-file", default="", help="SA token signing key")
+    ap.add_argument("--ca-key-file", default="", help="CSR signing key (the cluster CA's)")
+    ap.add_argument("--ca-cert-file", default="",
+                    help="cluster CA cert (with --ca-key-file runs the CSR signer)")
+    add_client_args(ap)
     args = ap.parse_args()
 
-    cs = Clientset(args.server)
+    if bool(args.ca_cert_file) != bool(args.ca_key_file):
+        ap.error("--ca-cert-file and --ca-key-file must be given together")
+    cs = clientset_from_args(args)
     cm = ControllerManager(
         cs,
         monitor_grace=args.node_monitor_grace,
         eviction_timeout=args.pod_eviction_timeout,
         sa_signing_key=read_key(args.sa_key_file, "ktpu-sa-key"),
+        ca_cert_pem=read_key(args.ca_cert_file, ""),
+        ca_key=read_key(args.ca_key_file, ""),
         endpoints_coalesce_window=args.endpoints_coalesce_ms / 1000.0,
     )
     stop = threading.Event()

@@ -9,6 +9,7 @@ from __future__ import annotations
 import threading
 
 from ..client.clientset import Clientset
+from .certificates import CertificateController
 from .deployment import DeploymentController
 from .disruption import DisruptionController
 from .endpoints import EndpointsController
@@ -28,6 +29,8 @@ class ControllerManager:
         monitor_grace: float = 40.0,
         eviction_timeout: float = 300.0,
         sa_signing_key: str = "ktpu-sa-key",
+        ca_cert_pem: str = "",
+        ca_key: str = "",
         endpoints_coalesce_window: float = 0.0,  # s; 0 = write per event
     ):
         self.cs = clientset
@@ -46,6 +49,9 @@ class ControllerManager:
             PodGCController(clientset, self.factory),
             TTLAfterFinishedController(clientset, self.factory),
         ]
+        if ca_cert_pem:  # the CSR signer, with the cluster CA
+            self.controllers.append(CertificateController(clientset, self.factory,
+                                                          ca_cert_pem, ca_key))
         self.node_lifecycle = NodeLifecycleController(
             clientset,
             self.factory,

@@ -8,8 +8,8 @@ controller owner reference no longer resolves are deleted — how pods die
 when their Job/ReplicaSet is removed.
 
 The port's copy of the JAX package's ``controllers/namespace.py``, over
-the namespaced kinds the port's apiserver serves: JAX's leases,
-podpresets, roles and rolebindings are not among them.  The namespace
+the namespaced kinds the port's apiserver serves: JAX's leases and
+podpresets are not among them.  The namespace
 controller empties a namespace through the wire-form client, by name.
 """
 
@@ -26,7 +26,7 @@ NAMESPACED_RESOURCES = (
     "statefulsets", "services", "endpoints", "configmaps", "events",
     "secrets", "serviceaccounts", "persistentvolumeclaims",
     "resourcequotas", "limitranges", "horizontalpodautoscalers",
-    "poddisruptionbudgets",
+    "poddisruptionbudgets", "roles", "rolebindings",
 )
 
 

@@ -24,7 +24,6 @@ still loses a NotReady taint it carries.
 
 from __future__ import annotations
 
-import calendar
 import threading
 import time
 import traceback
@@ -35,18 +34,10 @@ from ..client.errors import is_transient, retry_on_conflict
 from ..client.events import EventRecorder
 from ..client.informer import InformerFactory
 from ..machinery import ApiError, Conflict, NotFound, now_iso
+from ..machinery.meta import parse_iso
 from ..utils.metrics import Counter
 from ..utils.retry import call_with_retries
 from .base import delete_pods_batch
-
-
-def parse_iso(ts: str) -> float:
-    """Seconds since the epoch of a UTC timestamp of second or finer
-    resolution (the JAX package's ``machinery.meta.parse_iso``)."""
-    if "." in ts:
-        base, frac = ts.rstrip("Z").split(".", 1)
-        return calendar.timegm(time.strptime(base, "%Y-%m-%dT%H:%M:%S")) + float("0." + frac)
-    return calendar.timegm(time.strptime(ts, "%Y-%m-%dT%H:%M:%SZ"))
 
 
 class NodeLifecycleController:

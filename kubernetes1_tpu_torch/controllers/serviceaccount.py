@@ -35,6 +35,21 @@ def sign_token(key: str, namespace: str, name: str, uid: str) -> str:
     )
 
 
+def verify_token(key: str, token: str):
+    """The token's claims dict, or None when its signature does not hold."""
+    try:
+        p64, m64 = token.split(".", 1)
+        pad = lambda s: s + "=" * (-len(s) % 4)  # noqa: E731
+        payload = base64.urlsafe_b64decode(pad(p64))
+        mac = base64.urlsafe_b64decode(pad(m64))
+        want = hmac.new(key.encode(), payload, hashlib.sha256).digest()
+        if not hmac.compare_digest(mac, want):
+            return None
+        return json.loads(payload)
+    except (ValueError, json.JSONDecodeError):
+        return None
+
+
 class ServiceAccountController(Controller):
     name = "serviceaccount-controller"
     WORKERS = 1

@@ -2,12 +2,16 @@
 
     python -m kubernetes1_tpu_torch kubelet --server http://127.0.0.1:8001 \
         --node-name $(hostname) --runtime process --plugin-dir D --root-dir R
+    python -m kubernetes1_tpu_torch kubelet --kubeconfig kubelet.conf --node-name N \
+        --root-dir R --tls-cert-file pki/kubelet.crt --tls-key-file pki/kubelet.key
 
 It registers the node with the cards its device plugins advertise, runs
 the pods bound to it in the process runtime (``--runtime fake``: the
 hollow runtime, only when asked), and stops on SIGTERM or SIGINT with
-exit code 0.  It prints whether its cluster DNS runs, its server's URL,
-then ``kubelet <node> running (<runtime> runtime)``.
+exit code 0.  ``--tls-cert-file`` makes its server HTTPS only (``ktpu
+init`` gives it the node's dual-EKU certificate, which is also its client
+credential through ``--kubeconfig``).  It prints whether its cluster DNS
+runs, its server's URL, then ``kubelet <node> running (<runtime> runtime)``.
 """
 
 from __future__ import annotations
@@ -16,9 +20,8 @@ import argparse
 import signal
 import threading
 
-from ..client.clientset import Clientset
 from ..deviceplugin.api import DEFAULT_PLUGIN_DIR
-from ..utils.procutil import bounded_exit
+from ..utils.procutil import add_client_args, bounded_exit, clientset_from_args
 from .kubelet import Kubelet
 from .runtime import FakeRuntime, ProcessRuntime
 
@@ -30,13 +33,18 @@ def main():
     ap.add_argument("--runtime", choices=["process", "fake"], default="process")
     ap.add_argument("--plugin-dir", default=DEFAULT_PLUGIN_DIR)
     ap.add_argument("--root-dir", default="/tmp/ktpu")
+    ap.add_argument("--tls-cert-file", default="",
+                    help="serving cert for the kubelet server (:10250 TLS)")
+    ap.add_argument("--tls-key-file", default="")
+    add_client_args(ap)
     args = ap.parse_args()
 
     runtime = ProcessRuntime(root_dir=args.root_dir) if args.runtime == "process" \
         else FakeRuntime()
-    cs = Clientset(args.server)
+    cs = clientset_from_args(args)
     kubelet = Kubelet(cs, node_name=args.node_name, runtime=runtime,
-                      plugin_dir=args.plugin_dir)
+                      plugin_dir=args.plugin_dir, server_tls_cert_file=args.tls_cert_file,
+                      server_tls_key_file=args.tls_key_file)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())

@@ -71,6 +71,8 @@ class Kubelet:
         eviction_signals_fn=None,
         server_port: Optional[int] = 0,  # 0 = ephemeral; None = no server
         volume_root: Optional[str] = None,
+        server_tls_cert_file: str = "",  # the CSR-issued serving cert (:10250 TLS)
+        server_tls_key_file: str = "",
     ):
         self.cs = clientset
         self.node_name = node_name
@@ -142,7 +144,9 @@ class Kubelet:
             # logs is gated on apiserver authorization — the shape of the
             # reference's delegated nodes/proxy authz
             self.server_token = secrets.token_hex(16)
-            self.server = KubeletServer(self, port=server_port, token=self.server_token)
+            self.server = KubeletServer(self, port=server_port, token=self.server_token,
+                                        tls_cert_file=server_tls_cert_file,
+                                        tls_key_file=server_tls_key_file)
 
         self.prober = ProberManager(
             exec_in_container=self._exec_in_container,
@@ -284,13 +288,17 @@ class Kubelet:
         self._fill_status(node)
         return node
 
-    def _publish_token_secret(self):
-        if self.server is None:
-            return
+    def _token_secret(self) -> t.Secret:
         sec = t.Secret(type="ktpu.io/kubelet-token",
                        data={"token": self.server_token})
         sec.metadata.name = self.token_secret_name(self.node_name)
         sec.metadata.namespace = self.TOKEN_SECRET_NS
+        return sec
+
+    def _publish_token_secret(self):
+        if self.server is None:
+            return
+        sec = self._token_secret()
         try:
             self.cs.secrets.create(sec, self.TOKEN_SECRET_NS)
         except ApiError:
@@ -367,16 +375,16 @@ class Kubelet:
         except Conflict:
             pass  # next beat wins
         # the token secret must outlive registration hiccups and admin
-        # deletions — without it every apiserver-proxied log read 401s
+        # deletions — without it every apiserver-proxied log read 401s.  A
+        # create answers AlreadyExists while it lives: the Node authorizer
+        # lets a node write its token secret but never read a secret that
+        # no pod of its mounts (the JAX kubelet GETs it, and is refused)
         self._beats += 1
         if self.server is not None and self._beats % self.TOKEN_RECHECK_BEATS == 0:
             try:
-                self.cs.secrets.get(
-                    self.token_secret_name(self.node_name), self.TOKEN_SECRET_NS)
-            except NotFound:
-                self._publish_token_secret()
+                self.cs.secrets.create(self._token_secret(), self.TOKEN_SECRET_NS)
             except ApiError:
-                pass
+                pass  # AlreadyExists: it lives
 
     # -------------------------------------------------- probes and eviction
 

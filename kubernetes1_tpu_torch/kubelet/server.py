@@ -33,6 +33,7 @@ import hmac
 import json
 import os
 import socket
+import ssl
 import struct
 import sys
 import termios
@@ -392,21 +393,35 @@ class _KubeletHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def handle_error(self, request, client_address):
-        # a peer gone mid-request is routine: no stack trace for it
-        if isinstance(sys.exc_info()[1], (ConnectionError, TimeoutError)):
+        # a peer gone mid-request, or one that failed the TLS handshake, is
+        # routine: no stack trace for it
+        if isinstance(sys.exc_info()[1], (ConnectionError, TimeoutError, ssl.SSLError)):
             return
         super().handle_error(request, client_address)
 
 
 class KubeletServer:
-    """Owns the HTTP listener; the kubelet advertises `self.url` on its Node."""
+    """Owns the HTTP listener; the kubelet advertises `self.url` on its Node.
 
-    def __init__(self, kubelet, host: str = "127.0.0.1", port: int = 0, token: str = ""):
+    With ``tls_cert_file`` the listener is HTTPS only (the reference's
+    kubelet serves :10250 over TLS with a CSR-issued serving cert), the
+    handshake on the request's thread; the apiserver verifies it against
+    the cluster CA on the logs and stream hops."""
+
+    def __init__(self, kubelet, host: str = "127.0.0.1", port: int = 0, token: str = "",
+                 tls_cert_file: str = "", tls_key_file: str = ""):
         self._httpd = _KubeletHTTPServer((host, port), _KubeletHandler)
         self._httpd.kubelet = kubelet  # type: ignore[attr-defined]
         self._httpd.token = token  # type: ignore[attr-defined]
         self.host, self.port = self._httpd.server_address[:2]
-        self.url = f"http://{self.host}:{self.port}"
+        if tls_cert_file:
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(certfile=tls_cert_file, keyfile=tls_key_file or None)
+            self._httpd.socket = ctx.wrap_socket(self._httpd.socket, server_side=True,
+                                                 do_handshake_on_connect=False)
+            self.url = f"https://{self.host}:{self.port}"
+        else:
+            self.url = f"http://{self.host}:{self.port}"
         self._thread: Optional[threading.Thread] = None
 
     def start(self):

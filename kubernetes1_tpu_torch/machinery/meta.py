@@ -8,6 +8,7 @@ fields and helpers that the port's components read.
 
 from __future__ import annotations
 
+import calendar
 import copy
 import time
 import uuid
@@ -17,6 +18,19 @@ from typing import Dict, List, Optional
 
 def now_iso() -> str:
     return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+def to_iso(epoch: float) -> str:
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime(epoch))
+
+
+def parse_iso(ts: str) -> float:
+    """Seconds since the epoch of a second- or microsecond-resolution UTC
+    timestamp; ValueError on any other form."""
+    if "." in ts:
+        base, frac = ts.rstrip("Z").split(".", 1)
+        return calendar.timegm(time.strptime(base, "%Y-%m-%dT%H:%M:%S")) + float("0." + frac)
+    return calendar.timegm(time.strptime(ts, "%Y-%m-%dT%H:%M:%SZ"))
 
 
 def new_uid() -> str:

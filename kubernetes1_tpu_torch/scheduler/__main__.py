@@ -1,6 +1,10 @@
 """The scheduler process (ref: plugin/cmd/kube-scheduler):
 
     python -m kubernetes1_tpu_torch scheduler --server http://127.0.0.1:8001
+    python -m kubernetes1_tpu_torch scheduler --kubeconfig scheduler.conf
+
+(``--token``, ``--ca-file``, ``--client-cert-file`` and
+``--client-key-file`` as every component takes them).
 
 It serves /metrics, /healthz, /readyz and /debug/traces on
 ``--metrics-port`` (-1: none), prints a line for each pod it binds, and
@@ -14,9 +18,8 @@ import gc
 import signal
 import threading
 
-from ..client.clientset import Clientset
 from ..utils import retry as _retry
-from ..utils.procutil import bounded_exit
+from ..utils.procutil import add_client_args, bounded_exit, clientset_from_args
 from .scheduler import Scheduler
 
 
@@ -34,9 +37,10 @@ def main():
     ap.add_argument("--server", default="http://127.0.0.1:8001")
     ap.add_argument("--metrics-port", type=int, default=10251,
                     help="/metrics + /healthz port (0 = ephemeral, -1 = off)")
+    add_client_args(ap)
     args = ap.parse_args()
     _tune_gc()
-    cs = Clientset(args.server)
+    cs = clientset_from_args(args)
     sched = Scheduler(
         cs, metrics_port=None if args.metrics_port < 0 else args.metrics_port)
     # the process serves its client's retries on its own /metrics

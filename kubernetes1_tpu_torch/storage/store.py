@@ -19,15 +19,31 @@ apiserver/pkg/storage/etcd3/store.go:152 Create, :263 GuaranteedUpdate,
 
 Where the JAX store queues writers for a group commit, this one takes the
 lock: the revisions and the order of events are the same, only
-concurrent singleton writes are never merged into one fan-out.  No
-write-ahead log, replication feed or snapshot (ROADMAP).
+concurrent singleton writes are never merged into one fan-out.
+
+With ``wal_path`` every commit is appended to a write-ahead log before
+its writers are answered, in the JAX store's frames byte for byte
+(``<crc32 hex8>:<json>\n`` a record), and the log is replayed when the
+store opens: a torn tail (a record a crash cut) is truncated away, a bad
+run of lines followed by good records is skipped, and watches cannot
+resume below the replayed revision.  Each commit is written, flushed and
+fsynced once before its writers are answered (the JAX store's "batch"
+mode; its "always" and "none" have no caller here, ROADMAP item 18), and
+a line without the CRC frame is damage (the JAX store still replays bare
+JSON lines from before the frames; neither package writes them).  A
+commit whose log write fails is rolled out of the file, and its writers
+get an error although the memory holds it (as the JAX store's).
+No replication feed or snapshot (ROADMAP).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import queue
 import threading
 import time
+import zlib
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -213,7 +229,7 @@ class Store:
     # keep this many events for watch resume before compaction kicks in
     HISTORY_LIMIT = 100_000
 
-    def __init__(self, scheme: Scheme):
+    def __init__(self, scheme: Scheme, wal_path: Optional[str] = None):
         self._scheme = scheme
         self._lock = threading.RLock()
         self._data: Dict[str, Tuple[int, Dict[str, Any]]] = {}  # key -> (rev, encoded obj)
@@ -235,6 +251,127 @@ class Store:
         # records, shipped on lag-stamp bookmark frames
         self._commit_ts: Dict[int, float] = {}
         self._commit_ts_order: deque = deque()
+        self._wal = None
+        self.wal_torn_tail_repairs = 0  # a crash's cut record, truncated on open
+        self.wal_corrupt_records_skipped = 0  # bad lines with good records after them
+        self.wal_write_rollbacks = 0  # failed appends rolled out of the file
+        if wal_path:
+            self._replay_wal(wal_path)
+            # binary and block-buffered: one write and flush a commit
+            self._wal = open(wal_path, "ab")
+
+    # ------------------------------------------------------------------- WAL
+
+    @staticmethod
+    def _wal_frame(rec: dict) -> bytes:
+        """One record: ``<crc32 hex8>:<json>\n``, the CRC over the JSON, so
+        replay tells a torn record from a whole one."""
+        payload = json.dumps(rec).encode()
+        return b"%08x:" % zlib.crc32(payload) + payload + b"\n"
+
+    @staticmethod
+    def _parse_wal_frame(line: bytes) -> Optional[dict]:
+        """One log line's record, or None when it is torn or corrupt."""
+        crc, sep, payload = line.strip().partition(b":")
+        try:
+            if not sep or len(crc) != 8 or int(crc, 16) != zlib.crc32(payload):
+                return None
+            rec = json.loads(payload)
+            rec["rev"], rec["type"], rec["key"], rec["obj"]  # all four or torn
+            return rec
+        except (ValueError, KeyError, TypeError):
+            return None
+
+    def _replay_wal(self, path: str):
+        """Rebuild the data and the revision from the log, before any
+        other thread sees the store.  A run of bad lines still open at the
+        end is the torn tail and is truncated (its writers were never
+        answered); a run with good records after it is skipped, since
+        truncating there would drop acknowledged writes."""
+        if not os.path.exists(path):
+            return
+        bad_start: Optional[int] = None
+        bad_lines = 0
+        with open(path, "rb") as f:
+            while True:
+                start = f.tell()
+                line = f.readline()
+                if not line:
+                    break
+                if not line.strip():
+                    continue
+                rec = self._parse_wal_frame(line)
+                if rec is None:
+                    if bad_start is None:
+                        bad_start = start
+                    bad_lines += 1
+                    continue
+                if bad_start is not None:
+                    self.wal_corrupt_records_skipped += bad_lines
+                    print(f"store: WAL corruption mid-file: skipped {bad_lines} unreadable "
+                          f"line(s) at offset {bad_start} of {path}; the later records "
+                          f"were replayed", flush=True)
+                    bad_start, bad_lines = None, 0
+                rev, typ, key = rec["rev"], rec["type"], rec["key"]
+                self._rev = max(self._rev, rev)
+                if typ == "NOP":  # a revision pin, no data
+                    continue
+                coll = collection_of(key)
+                if typ == DELETED:
+                    self._data.pop(key, None)
+                    keys = self._by_collection.get(coll)
+                    if keys is not None:
+                        keys.discard(key)
+                else:
+                    self._data[key] = (rev, rec["obj"])
+                    self._by_collection.setdefault(coll, set()).add(key)
+        if bad_start is not None:
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(bad_start)
+            self.wal_torn_tail_repairs += 1
+            print(f"store: WAL torn tail repaired: truncated {size - bad_start} byte(s) at "
+                  f"offset {bad_start} of {path} (replayed to rev {self._rev})", flush=True)
+        # a crash after a record's bytes but before its newline: the record
+        # replays, and the next append must not weld onto its line
+        if os.path.getsize(path) > 0:
+            with open(path, "r+b") as f:
+                f.seek(-1, os.SEEK_END)
+                if f.read(1) != b"\n":
+                    f.write(b"\n")
+        self._compacted_rev = self._rev  # no watch resumes across a restart
+
+    def _wal_emit(self, data: bytes):
+        """Append and flush; on a failure (ENOSPC, EIO) roll the file back
+        to where the write began, so that later records never follow
+        garbage, and raise."""
+        pre = self._wal.tell()
+        try:
+            self._wal.write(data)
+            self._wal.flush()
+        except OSError:
+            self._rollback_wal(pre)
+            raise
+
+    def _rollback_wal(self, pre: int):
+        try:
+            try:
+                self._wal.flush()
+            except OSError:
+                pass  # the buffered rest may be what failed; truncate anyway
+            os.ftruncate(self._wal.fileno(), pre)
+            self._wal.seek(pre)
+            self.wal_write_rollbacks += 1
+        except OSError as e:
+            print(f"store: WAL rollback after a failed write failed too ({e}); the "
+                  f"replay on open skips or truncates the damage", flush=True)
+
+    def _write_wal_locked(self, records: List[tuple]):
+        """Must hold the lock: the commit's records, one write, flush and
+        fsync."""
+        self._wal_emit(b"".join(self._wal_frame({"rev": rev, "type": typ, "key": key, "obj": obj})
+                                for rev, typ, key, obj in records))
+        os.fsync(self._wal.fileno())
 
     # ---------------------------------------------------------------- commit
 
@@ -244,17 +381,29 @@ class Store:
 
     def _run_commit(self, fn: Callable):
         """Run one mutation under the lock: ``fn`` checks preconditions and
-        calls _commit_locked; its records fan out once, after it."""
+        calls _commit_locked; its records go to the log and fan out once,
+        after it.  The fan-out runs even when the log write failed (the
+        memory holds the commit, and the watch cache must agree with it),
+        but then the writer gets an error: the write is not durable."""
+        wal_exc: Optional[OSError] = None
         with self._lock:
             records: List[tuple] = []
             self._batch_records = records
             try:
-                return fn()
+                result = fn()
             finally:
                 self._batch_records = None
                 if records:
+                    if self._wal is not None:
+                        try:
+                            self._write_wal_locked(records)
+                        except OSError as e:
+                            wal_exc = e
                     self._stamp_commit_ts_locked(records)
                     self._fanout_batch_locked(records)
+        if wal_exc is not None:
+            raise ApiError(f"write applied but WAL persistence failed: {wal_exc}")
+        return result
 
     def _commit_locked(self, typ: str, key: str, obj: Dict[str, Any]):
         """Must hold the lock, inside _run_commit: assigns the next
@@ -509,5 +658,8 @@ class Store:
     def close(self):
         with self._lock:
             watchers = list(self._watchers)
+            wal, self._wal = self._wal, None
         for w in watchers:
             w.stop()
+        if wal is not None:
+            wal.close()

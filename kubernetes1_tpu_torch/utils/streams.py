@@ -17,9 +17,10 @@ channels mirror SPDY's: 0 stdin, 1 stdout, 2 stderr, 3 error/status,
 channel.  The error channel carries one UTF-8 JSON object
 {"exitCode": N, "error": "..."} and closes the stream.
 
-Not here, with the TLS and authentication that need them (ROADMAP item
-18): the JAX copy's ``stream.upgrade`` fault seam, its TLS dial
-(``ssl_context``), its ``proto=`` knob and ``quiet_connection_errors``.
+``upgrade_request`` dials TLS when given an ``ssl_context`` (the CLI to
+an https apiserver, the apiserver to an https kubelet).  Not here (ROADMAP
+item 18): the JAX copy's ``stream.upgrade`` fault seam, its ``proto=``
+knob and ``quiet_connection_errors``, which no caller of the port uses.
 """
 
 from __future__ import annotations
@@ -88,12 +89,14 @@ class UpgradeRefused(ConnectionError):
 
 
 def upgrade_request(host: str, port: int, path: str, headers: dict,
-                    timeout: float = 30.0) -> socket.socket:
-    """Open a socket, perform the Upgrade handshake, return the socket
-    ready for frames.  Raises UpgradeRefused (a ConnectionError) on a
-    non-101 response."""
+                    timeout: float = 30.0, ssl_context=None) -> socket.socket:
+    """Open a socket (TLS when ``ssl_context`` is given), perform the
+    Upgrade handshake, return the socket ready for frames.  Raises
+    UpgradeRefused (a ConnectionError) on a non-101 response."""
     sock = socket.create_connection((host, port), timeout=timeout)
     try:
+        if ssl_context is not None:
+            sock = ssl_context.wrap_socket(sock, server_hostname=host)
         lines = [f"GET {path} HTTP/1.1", f"Host: {host}:{port}",
                  "Connection: Upgrade", f"Upgrade: {UPGRADE_PROTO}"]
         for k, v in headers.items():
@@ -119,19 +122,18 @@ def upgrade_request(host: str, port: int, path: str, headers: dict,
 
 def _read_http_head(sock: socket.socket) -> str:
     """Read the HTTP response head up to its blank line, and not a byte
-    more: the frames a server sends right after its 101 may already be in
-    the socket's buffer, and they belong to the stream.  (The JAX copy
-    reads 4 KiB at a time and drops what follows the head: a command that
-    ends at once can lose its status frame there.)"""
-    data = b""
-    while b"\r\n\r\n" not in data and len(data) <= 65536:
-        peek = sock.recv(4096, socket.MSG_PEEK)
-        if not peek:
+    more: the frames a server sends right after its 101 may already have
+    arrived, and they belong to the stream.  (The JAX copy reads 4 KiB at
+    a time and drops what follows the head: a command that ends at once
+    can lose its status frame there.)  One byte a call: a TLS socket takes
+    no MSG_PEEK, and the bytes after the head stay in its record buffer,
+    or the kernel's, for the stream's first read."""
+    data = bytearray()
+    while not data.endswith(b"\r\n\r\n") and len(data) <= 65536:
+        byte = sock.recv(1)
+        if not byte:
             break
-        tail = data[-3:]
-        end = (tail + peek).find(b"\r\n\r\n")
-        take = len(peek) if end < 0 else end + 4 - len(tail)
-        data += read_exact(sock, take) or b""
+        data += byte
     return data.decode(errors="replace")
 
 

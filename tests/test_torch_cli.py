@@ -524,16 +524,15 @@ def test_version_names_its_package():
     assert _main("torch", "version") == ("ktpu v0.1 (kubernetes1_tpu_torch)\n", 0)
 
 
-ITEM_18_KINDS = {"apiservices", "clusterrolebindings", "clusterroles",
-                 "customresourcedefinitions", "leases", "mutatingwebhookconfigurations",
-                 "podpresets", "podsecuritypolicies", "rolebindings", "roles",
+ITEM_18_KINDS = {"apiservices", "customresourcedefinitions", "leases",
+                 "mutatingwebhookconfigurations", "podpresets", "podsecuritypolicies",
                  "validatingwebhookconfigurations"}
 
 
 def test_api_resources_lists_each_packages_scheme(clusters):
     """Deviation: the port lists what its scheme registers, the JAX kinds
-    but item 18's (RBAC, leases, CRDs, APIServices, webhooks, PodPresets,
-    PSPs); each row is the JAX row for the same plural."""
+    but those item 18 still leaves out (leases, CRDs, APIServices,
+    webhooks, PodPresets, PSPs); each row is the JAX row for the same plural."""
     from kubernetes1_tpu_torch.machinery.scheme import global_scheme
 
     rows = {f: invoke(f, clusters[f].url, "api-resources")[0].splitlines() for f in FLAVORS}
@@ -562,15 +561,15 @@ def _accepts(flavor: str, *argv) -> bool:
     (["cluster-up", "--gpus-per-node", "2", "--real-gpu", "--hollow", "--port", "5"], False, True),
     (["cluster-up", "--tpus-per-node", "2", "--real-tpu", "--hollow", "--port", "5"], True, False),
     (["cluster-up", "--nodes", "3", "--hollow"], True, True),
-    (["init", "--port", "6443"], True, False),
-    (["join", "--server", "https://x", "--token", "t"], True, False),
-    (["--token", "t", "get", "pods"], True, False),
-    (["--kubeconfig", "k", "--ca-file", "c", "get", "pods"], True, False),
+    (["init", "--port", "6443"], True, True),
+    (["join", "--server", "https://x", "--token", "t"], True, True),
+    (["--token", "t", "get", "pods"], True, True),
+    (["--kubeconfig", "k", "--ca-file", "c", "get", "pods"], True, True),
 ])
 def test_cluster_up_and_auth_flags(argv, jax, torch):
     """Deviation: cluster-up's --gpus-per-node / --real-gpu in place of
     --tpus-per-node / --real-tpu; init, join and the client's auth and TLS
-    flags wait for item 18."""
+    flags are both packages' (item 18)."""
     assert (_accepts("jax", *argv), _accepts("torch", *argv)) == (jax, torch)
 
 

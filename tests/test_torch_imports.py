@@ -131,6 +131,24 @@ def test_importing_the_port_pulls_in_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "kubernetes1_tpu_torch.utils.pki", "kubernetes1_tpu_torch.apiserver.auth",
+    "kubernetes1_tpu_torch.controllers.certificates", "kubernetes1_tpu_torch.cli.bootstrap",
+    "kubernetes1_tpu_torch.utils.procutil", "kubernetes1_tpu_torch.storage.store"])
+def test_the_security_modules_pull_in_no_jax(module):
+    """Each module of the secured cluster (PKI, authn and authz, the CSR
+    signer, init/join, the client flags, the store's WAL), imported
+    alone, loads nothing of JAX or the JAX package."""
+    import subprocess
+
+    code = (f"import sys, {module}; bad = sorted(m for m in sys.modules if m.split('.')[0] "
+            f"in {sorted(FORBIDDEN)!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 # ------------------------------------------------------- wrappers raise
 
 
